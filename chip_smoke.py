@@ -6,19 +6,29 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
-with nvcc, holds each kernel against its plain PyTorch version on the
-card, then runs the port's serving path for qwen3-1.7b at full width
-(28 layers, d_model 2048, vocab 151 936, random weights from a seed):
-save the bf16 weights to scda and restore them bit-exactly, one prefill
+with nvcc (one process per source, all at once), holds each kernel
+against its plain PyTorch version on the card, then runs the port's
+serving path for two models at full width, random bf16 weights from a
+seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
-prompt, then 32 greedy tokens) through the K1 flash-attention kernel.
-Every phase asserts; any failure exits non-zero.  The line before the
-last is a JSON object with each kernel's launches, error and times; the
-last line is ``{"ok": true, "device": {...}}``.  No fallback: without a
-GPU, or outside a checkout, it exits non-zero and prints no result.
+prompt, then 32 greedy tokens).
+
+- qwen3-1.7b (28 layers, d_model 2048, vocab 151 936) through the K1
+  flash-attention kernel;
+- falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
+  16, vocab 65 024; 14.0 GB of weights) through the K2 selective-scan
+  kernel, which every prefill layer launches and no decode step does.
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after.  Every phase asserts; any failure exits non-zero.  The
+line before the last is a JSON object with each kernel's launches, error
+and times; the last line is ``{"ok": true, "device": {...}}``.  No
+fallback: without a GPU, or outside a checkout, it exits non-zero and
+prints no result.  Needs about 16 GB free in the temporary directory.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -30,7 +40,8 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "qwen3-1.7b"
+QWEN = "qwen3-1.7b"
+FALCON = "falcon-mamba-7b"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 512
 SERVE_B, MAX_LEN, PROMPT_LEN, GEN_LEN = 4, 1024, 64, 32
@@ -39,6 +50,10 @@ DECODE_OFFSETS = (63, 95, 511, 1023)
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12   # outside the tensor cores
+#: falcon-mamba's bf16 checkpoint is 14.0 GB; the temporary directory
+#: must hold it.
+DISK_NEED = 16e9
 
 #: kernel vs plain version on the same inputs.  f32: the reference's own
 #: kernel tolerance (tests/test_kernels.py TOL).  bf16: the same, as the
@@ -50,6 +65,19 @@ TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
 #: paths whose matmuls round at different shapes: decode vs prefill, and
 #: the kernel vs the plain attention.
 TOL_LOGITS = dict(rtol=5e-2, atol=1e-1)
+#: K2 vs its plain version, f32 or bf16 inputs alike: both read the inputs
+#: as f32 and round the state identically; only the order of the 16-term
+#: sum over n differs (tests/test_kernels.py's scan tolerance).
+TOL_SCAN = dict(rtol=1e-5, atol=1e-5)
+#: falcon-mamba, held layer by layer on the same inputs (relative L2 error
+#: of one Mamba1 layer's bf16 output).  The K2 path against the plain
+#: scan: only y's sum order differs, so only rare bf16 roundings of y flip.
+#: Prefill against 64 decode steps: every matmul rounds at another shape,
+#: some 1e-2 in bf16.  End to end, 64 layers of random weights amplify
+#: such differences until the logits decorrelate (the run prints how far),
+#: so the logits of two rounding paths are reported, not held.
+REL_LAYER_PLAIN = 1e-3
+REL_LAYER_DECODE = 3e-2
 
 
 def fail(msg: str) -> None:
@@ -117,18 +145,27 @@ def device_rows(prof):
 
 def timings(kernel, plain, library, iters: int):
     """Device and per-call times of the kernel, its plain version and the
-    library yardstick on the same inputs."""
+    library yardstick (None where no library call computes the same
+    function) on the same inputs."""
     few = max(2, iters // 10)
     return dict(ms=device_time_ms(kernel, iters),
                 plain_ms=device_time_ms(plain, few),
-                library_ms=device_time_ms(library, iters),
+                library_ms=None if library is None
+                else device_time_ms(library, iters),
                 call_ms=cuda_time_ms(kernel, iters),
                 plain_call_ms=cuda_time_ms(plain, few),
-                library_call_ms=cuda_time_ms(library, iters))
+                library_call_ms=None if library is None
+                else cuda_time_ms(library, iters))
 
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def rel_err(a, b) -> float:
+    """Relative L2 error of ``a`` against ``b``."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
 
 
 def assert_close(a, b, tol, what: str) -> float:
@@ -277,16 +314,68 @@ def bound(nbytes: int, flops: int, peak_flops: float):
                 bytes=nbytes, flops=flops)
 
 
+def scan_checks(torch, ss, cfg):
+    """K2 against its plain version: small cases, then the main path's
+    shape (falcon-mamba's prefill: B=4, S=512, d_inner, N) with times."""
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+
+    def inputs(B, S, d, N, dtype):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device=cuda,
+                               dtype=torch.float32)
+        return (torch.sigmoid(rand(B, S, d, N)).to(dtype),
+                (0.1 * rand(B, S, d, N)).to(dtype), rand(B, S, N).to(dtype))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    small = [(1, 1, 1, 1, f32),       # one step, one state
+             (2, 37, 5, 3, f32),      # ragged S, N not a power of two
+             (3, 70, 33, 8, f32),     # d that no block of 16 channels divides
+             (1, 130, 7, 1, f32),     # one lane per channel
+             (2, 20, 3, 32, f32),     # a channel fills a warp
+             (2, 9, 100, 16, f32),    # the model's N
+             (2, 41, 24, 16, bf16)]   # bf16 inputs, read as f32
+    worst = 0.0
+    for B, S, d, N, dtype in small:
+        x = inputs(B, S, d, N, dtype)
+        got = ss.ssm_scan_cuda(*x)
+        want = ss.ssm_scan_plain(*x)
+        torch.cuda.synchronize()
+        worst = max(worst, assert_close(
+            got, want, TOL_SCAN, f"K2 B{B} S{S} d{d} N{N} {dtype}"))
+    print(f"K2 small cases: {len(small)} pass, max abs err {worst}")
+
+    B, S, d, N = PREFILL_B, PREFILL_S, cfg.d_inner, cfg.ssm_state
+    x = inputs(B, S, d, N, f32)
+    got = ss.ssm_scan_cuda(*x)
+    want = ss.ssm_scan_plain(*x)
+    err = assert_close(got, want, TOL_SCAN, "K2 main shape")
+    del want
+    nbytes = 4 * (2 * B * S * d * N + B * S * N + B * S * d)
+    flops = 4 * B * S * d * N   # two for h, two for y, per state element
+    rec = dict(shape=f"prefill B{B} S{S} d{d} N{N} f32", max_abs_err=err,
+               small_cases_max_abs_err=worst,
+               **timings(lambda: ss.ssm_scan_cuda(*x),
+                         lambda: ss.ssm_scan_plain(*x), None, 20),
+               **bound(nbytes, flops, PEAK_F32_FLOPS))
+    print(f"K2 {rec['shape']}: err {err} device ms {rec['ms']:.5f} plain "
+          f"{rec['plain_ms']:.5f} bound {rec['bound_ms']:.5f} "
+          f"({rec['bound_by']}, {nbytes} B); per call ms "
+          f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no "
+          f"library call computes it")
+    return [rec]
+
+
 # ---------------------------------------------------------------- phase 3 --
 def checkpoint_phase(torch, cfg, tmp):
     from repro_torch.checkpoint import save
-    from repro_torch.models import cast_params, init_lm, param_bytes
+    from repro_torch.models import init_lm, param_bytes
     from repro_torch.serve import load_weights
     cuda = torch.device("cuda")
-    params = cast_params(init_lm(cfg, SEED, device=cuda), torch.bfloat16)
+    params = init_lm(cfg, SEED, device=cuda, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     nbytes = param_bytes(params)
-    path = os.path.join(tmp, "qwen3-1.7b-bf16.scda")
+    path = os.path.join(tmp, f"{cfg.name}-bf16.scda")
     t0 = time.perf_counter()
     save(path, params, step=1000)
     t_save = time.perf_counter() - t0
@@ -315,11 +404,14 @@ def checkpoint_phase(torch, cfg, tmp):
               f"leaf {name} is not bit-equal after restore")
         n += 1
     os.remove(path)
-    print(f"checkpoint: {n} leaves bit-equal, {nbytes} B of weights, file "
-          f"{size} B, save {size / t_save / 1e6:.1f} MB/s ({t_save:.3f} s), "
-          f"restore {size / t_restore / 1e6:.1f} MB/s ({t_restore:.3f} s)")
+    print(f"checkpoint {cfg.name}: {n} leaves bit-equal, {nbytes} B of "
+          f"weights, file {size} B, save {size / t_save / 1e6:.1f} MB/s "
+          f"({t_save:.3f} s), restore {size / t_restore / 1e6:.1f} MB/s "
+          f"({t_restore:.3f} s)")
     del params
-    return weights
+    return weights, dict(weight_bytes=nbytes, file_bytes=size,
+                         save_mb_s=size / t_save / 1e6,
+                         restore_mb_s=size / t_restore / 1e6)
 
 
 # ------------------------------------------------------------ phases 4, 5 --
@@ -399,15 +491,7 @@ def serve_phase(torch, cfg, weights, k1):
     check(tuple(tokens.shape) == (SERVE_B, GEN_LEN)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
           "generated tokens")
-    decode_ms = events[PROMPT_LEN - 1].elapsed_time(events[-1]) / GEN_LEN
-    # per decode step: its median, and the highest percentile with ten
-    # samples above it
-    durations = sorted(a.elapsed_time(b) for a, b in
-                       zip(events[PROMPT_LEN - 1:-1], events[PROMPT_LEN:]))
-    step_p50 = durations[len(durations) // 2]
-    step_hi = durations[len(durations) - 11]
-    prompt_ms = events[0].elapsed_time(events[PROMPT_LEN - 1]) / (
-        PROMPT_LEN - 1)
+    times = step_times(events)
 
     # the logits after the prompt equal a prefill of the same 64 tokens
     pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
@@ -428,29 +512,50 @@ def serve_phase(torch, cfg, weights, k1):
                 err_plain = max(err_plain, assert_close(
                     kept[i], logits, TOL_LOGITS,
                     f"step {i} logits, kernel vs plain attention"))
-    tok_s = SERVE_B * GEN_LEN / (decode_ms * GEN_LEN / 1e3)
-    print(f"serve: {SERVE_B} requests, prompt {PROMPT_LEN}, {GEN_LEN} "
-          f"greedy tokens, max_len {MAX_LEN}: {decode_ms:.4f} ms/decode "
-          f"step, {prompt_ms:.4f} ms/prompt step, {tok_s:.1f} tokens/s, "
-          f"total {t_total:.3f} s, peak memory {peak} B, {cfg.n_layers} K1 "
-          f"launches per step")
+    print_serve(cfg, times, t_total, peak, f"{cfg.n_layers} K1 launches per "
+                f"step")
     print(f"serve: logits after prompt vs prefill max abs err {err_pre}; "
           f"kernel vs plain attention over the prompt's last step and 4 "
           f"decode steps max abs err {err_plain}")
     for b in range(SERVE_B):
         print(f"  req{b}: {tokens[b, :12].tolist()}...")
-    print(f"serve: decode step median {step_p50:.4f} ms, p"
-          f"{100 * (len(durations) - 10) // len(durations)} {step_hi:.4f} "
-          f"ms over {len(durations)} steps")
-    return dict(decode_ms=decode_ms, decode_step_p50_ms=step_p50,
-                decode_step_hi_ms=step_hi, prompt_step_ms=prompt_ms,
-                tokens_per_s=tok_s, peak_bytes=peak), out
+    return dict(times, peak_bytes=peak), out
 
 
-def decode_breakdown(torch, cfg, weights, out, steps: int = 4):
+def step_times(events):
+    """Times of a served batch from one CUDA event per step (step i fed
+    token i): the mean decode step, its median and the highest percentile
+    with ten samples above it, the mean prompt step, and tokens/s."""
+    decode_ms = events[PROMPT_LEN - 1].elapsed_time(events[-1]) / GEN_LEN
+    durations = sorted(a.elapsed_time(b) for a, b in
+                       zip(events[PROMPT_LEN - 1:-1], events[PROMPT_LEN:]))
+    return dict(
+        decode_ms=decode_ms,
+        decode_step_p50_ms=durations[len(durations) // 2],
+        decode_step_hi_ms=durations[len(durations) - 11],
+        decode_step_hi_pct=100 * (len(durations) - 10) // len(durations),
+        prompt_step_ms=events[0].elapsed_time(events[PROMPT_LEN - 1])
+        / (PROMPT_LEN - 1),
+        tokens_per_s=SERVE_B * 1e3 / decode_ms)
+
+
+def print_serve(cfg, t, total_s: float, peak: int, launches: str) -> None:
+    print(f"serve {cfg.name}: {SERVE_B} requests, prompt {PROMPT_LEN}, "
+          f"{GEN_LEN} greedy tokens, max_len {MAX_LEN}: "
+          f"{t['decode_ms']:.4f} ms/decode step (median "
+          f"{t['decode_step_p50_ms']:.4f}, p{t['decode_step_hi_pct']} "
+          f"{t['decode_step_hi_ms']:.4f} over {GEN_LEN} steps), "
+          f"{t['prompt_step_ms']:.4f} ms/prompt step, "
+          f"{t['tokens_per_s']:.1f} tokens/s, total {total_s:.3f} s, peak "
+          f"memory {peak} B, {launches}")
+
+
+def decode_breakdown(torch, cfg, weights, out, kernel: str, label: str,
+                     steps: int = 4):
     """Where a decode step's time goes: ``steps`` more greedy steps on the
     served cache under the profiler — wall time per step, device busy
-    time per step, K1's share and the heaviest kernels."""
+    time per step, the share of the kernels whose name holds ``kernel``
+    and the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_serve_step
     step_fn = make_serve_step(cfg)
@@ -472,15 +577,299 @@ def decode_breakdown(torch, cfg, weights, out, steps: int = 4):
             for e in device_rows(prof)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    k1 = sum(r[1] for r in rows if "flash_fwd_kernel" in r[0])
-    print(f"decode step breakdown (profiled, {steps} steps): wall "
-          f"{wall:.4f} ms/step, device busy {busy:.4f} ms/step (idle share "
-          f"{1 - busy / wall:.4f}), K1 {k1:.4f} ms/step")
+    mine = sum(r[1] for r in rows if kernel in r[0])
+    print(f"decode step breakdown {cfg.name} (profiled, {steps} steps): "
+          f"wall {wall:.4f} ms/step, device busy {busy:.4f} ms/step (idle "
+          f"share {1 - busy / wall:.4f}), {label} {mine:.4f} ms/step, "
+          f"{sum(r[2] for r in rows)} device activities per step")
     for name, ms, n in rows[:8]:
         print(f"  {ms:.4f} ms/step  x{n}  {name[:90]}")
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                k1_ms=k1, top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
-                               for r in rows[:8]])
+                kernel_ms=mine, activities=sum(r[2] for r in rows),
+                top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
+                     for r in rows[:8]])
+
+
+# ------------------------------------------------ the falcon-mamba path --
+def _plain_scan(ss_mod):
+    def plain(decay, inc, C, *, chunk=256):
+        return ss_mod.ssm_scan_plain(decay, inc, C, chunk=chunk)
+    return plain
+
+
+def _layer(tree, i):
+    """Layer ``i``'s parameters: views of the stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def ssm_prefill_phase(torch, cfg, weights, k2):
+    """One prefill of 4 × 512: a K2 launch per layer and finite logits;
+    then the same prefill with the plain scan, and how far apart the two
+    runs' logits end."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss_mod
+    from repro_torch.train.step import make_prefill_step
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=cuda, dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    before = k2.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(weights, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(k2.launches - before == cfg.n_layers,
+          f"prefill launched K2 {k2.launches - before} times, expected "
+          f"{cfg.n_layers}")
+    check(tuple(logits.shape) == (PREFILL_B, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    with mock.patch.object(ops, "ssm_scan", _plain_scan(ss_mod)):
+        plain = prefill(weights, {"tokens": tokens})
+    check(bool(torch.isfinite(plain).all()), "plain-scan prefill logits")
+    rec = dict(first_call_ms=dt * 1e3, peak_bytes=peak,
+               logits_abs_max=logits.float().abs().max().item(),
+               vs_plain_max_abs_err=max_err(logits, plain),
+               vs_plain_rel_err=rel_err(logits, plain))
+    print(f"prefill {cfg.name}: B{PREFILL_B} S{PREFILL_S} in {dt * 1e3:.3f}"
+          f" ms (first call), {cfg.n_layers} K2 launches, peak memory "
+          f"{peak} B; logits (|max| {rec['logits_abs_max']}) vs the plain "
+          f"scan after {cfg.n_layers} layers: max abs err "
+          f"{rec['vs_plain_max_abs_err']}, relative L2 "
+          f"{rec['vs_plain_rel_err']} (reported; held layer by layer)")
+    return rec, tokens
+
+
+def ssm_serve_phase(torch, cfg, weights, k2):
+    """4 requests of 64 + 32 tokens: no decode step launches K2 (decode
+    is closed form); then a prefill of the same prompts (a K2 launch per
+    layer), and how far its logits are from those after the prompt."""
+    from repro_torch.serve import generate
+    from repro_torch.train.step import make_prefill_step
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 2)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, PROMPT_LEN),
+                            generator=gen, device=cuda, dtype=torch.int32)
+    events, counts = [], []
+
+    def on_step(i, logits):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        counts.append(k2.launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    before = k2.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(cfg, weights, prompts, GEN_LEN, max_len=MAX_LEN,
+                   on_step=on_step)
+    tokens = out["tokens"].cpu()
+    t_total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = PROMPT_LEN + GEN_LEN
+    check(counts == [before] * steps, "a decode step launched K2")
+    check(int(out["cache"]["pos"]) == steps, "cache position")
+    check(tuple(tokens.shape) == (SERVE_B, GEN_LEN)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
+          "generated tokens")
+    check(bool(torch.isfinite(out["prompt_logits"]).all()),
+          "logits after the prompt")
+    times = step_times(events)
+
+    pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
+    check(k2.launches - before == cfg.n_layers,
+          f"prefill of the prompts launched K2 {k2.launches - before} times")
+    err, rel = max_err(out["prompt_logits"], pre), rel_err(
+        out["prompt_logits"], pre)
+    print_serve(cfg, times, t_total, peak, "0 K2 launches per step")
+    print(f"serve {cfg.name}: logits after the prompt vs a prefill of the "
+          f"same {PROMPT_LEN} tokens after {cfg.n_layers} layers: max abs "
+          f"err {err}, relative L2 {rel} (reported; held layer by layer)")
+    for b in range(SERVE_B):
+        print(f"  req{b}: {tokens[b, :12].tolist()}...")
+    return dict(times, peak_bytes=peak, prompt_vs_prefill_max_abs_err=err,
+                prompt_vs_prefill_rel_err=rel), out, prompts
+
+
+def ssm_layer_checks(torch, cfg, weights, tokens, prompts):
+    """Every Mamba1 layer at full width, both sides fed the same input:
+    the K2 block against the plain-scan block on the prefill's inputs
+    (4 × 512), and 64 decode steps against the K2 block on the prompts'
+    inputs (4 × 64), which holds the conv taps, the state and the bf16
+    rounding of decode against prefill.  Beside them a second residual
+    stream runs on the plain scan alone; how far it is from the K2
+    stream at each depth shows what the layers make of rounding
+    differences end to end."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    eps = cfg.norm_eps
+    x = xq = weights["embed"][tokens]
+    xp = weights["embed"][prompts]
+    worst_plain = worst_dec = max_dec = 0.0
+    divergence = {}
+    for i in range(cfg.n_layers):
+        lp = _layer(weights["layers"], i)
+        u = L.rms_norm(x, lp["ln1"], eps)
+        h = SSM.ssm_block(lp["ssm"], u, cfg)
+        with mock.patch.object(ops, "ssm_scan", _plain_scan(ss_mod)):
+            hp = SSM.ssm_block(lp["ssm"], u, cfg)
+            xq = xq + SSM.ssm_block(lp["ssm"], L.rms_norm(xq, lp["ln1"], eps),
+                                    cfg)
+        r = rel_err(h, hp)
+        check(r <= REL_LAYER_PLAIN, f"layer {i}: K2 block vs plain scan, "
+              f"relative L2 {r} > {REL_LAYER_PLAIN}")
+        worst_plain = max(worst_plain, r)
+        x = x + h
+        if (i + 1) & i == 0 or i + 1 == cfg.n_layers:   # depths 1, 2, 4, ...
+            divergence[i + 1] = rel_err(xq, x)
+
+        up = L.rms_norm(xp, lp["ln1"], eps)
+        hb = SSM.ssm_block(lp["ssm"], up, cfg)
+        state = SSM.init_ssm_state(cfg, SERVE_B, up.dtype, device=up.device)
+        outs = []
+        for t in range(PROMPT_LEN):
+            o, state = SSM.ssm_decode(lp["ssm"], up[:, t:t + 1], state, cfg)
+            outs.append(o)
+        hd = torch.cat(outs, 1)
+        r = rel_err(hd, hb)
+        check(r <= REL_LAYER_DECODE, f"layer {i}: {PROMPT_LEN} decode steps "
+              f"vs K2 block, relative L2 {r} > {REL_LAYER_DECODE}")
+        worst_dec, max_dec = max(worst_dec, r), max(max_dec, max_err(hd, hb))
+        xp = xp + hb
+    print(f"falcon layers: all {cfg.n_layers} held at full width; K2 block "
+          f"vs plain scan relative L2 <= {worst_plain} (limit "
+          f"{REL_LAYER_PLAIN}); {PROMPT_LEN} decode steps vs K2 block "
+          f"relative L2 <= {worst_dec} (limit {REL_LAYER_DECODE}), max abs "
+          f"err {max_dec}")
+    print("falcon streams, K2 vs plain scan end to end, relative L2 of the "
+          "residual stream by depth: " + ", ".join(
+              f"{k}: {v:.3g}" for k, v in divergence.items()))
+    return dict(layers=cfg.n_layers, plain_rel_err=worst_plain,
+                decode_rel_err=worst_dec, decode_max_abs_err=max_dec,
+                stream_divergence=divergence)
+
+
+def ssm_prefill_profile(torch, cfg, weights, tokens):
+    """Where a warm prefill's time goes: its time unprofiled, then one
+    profiled run split into K2, the matmuls and the rest; building decay
+    and inc timed alone on layer 0's inputs; peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.train.step import make_prefill_step
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": tokens}
+    warm_ms = cuda_time_ms(lambda: prefill(weights, batch), 3, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        prefill(weights, batch)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in device_rows(prof)), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    k2 = [r for r in rows if "ssm_scan_kernel" in r[0]]
+    k2_ms, k2_n = sum(r[1] for r in k2), sum(r[2] for r in k2)
+    check(k2_n == cfg.n_layers, f"profiled prefill shows {k2_n} K2 launches")
+    gemm = sum(r[1] for r in rows if any(
+        k in r[0] for k in ("gemm", "nvjet", "xmma", "cutlass")))
+
+    lp = _layer(weights["layers"], 0)
+    u = L.rms_norm(weights["embed"][tokens], lp["ln1"], cfg.norm_eps)
+    x, _, dt, Bs, _ = SSM._m1_gates(lp["ssm"], u,
+                                    lp["ssm"]["dt_proj"].shape[0],
+                                    cfg.ssm_state)
+    A = -torch.exp(lp["ssm"]["A_log"].float())
+    build_ms = device_time_ms(lambda: SSM.decay_inc(dt, x, Bs, A), 10)
+    print(f"prefill {cfg.name} breakdown: warm {warm_ms:.3f} ms; profiled "
+          f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.4f}); K2 {k2_ms:.3f} ms ({k2_ms / k2_n:.4f} "
+          f"ms/layer), matmuls {gemm:.3f} ms, the rest "
+          f"{busy - k2_ms - gemm:.3f} ms; decay+inc alone "
+          f"{build_ms:.4f} ms/layer; peak memory {peak} B")
+    for name, ms, n in rows[:8]:
+        print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
+    return dict(warm_ms=warm_ms, wall_ms=wall, busy_ms=busy,
+                idle_share=1 - busy / wall, k2_ms=k2_ms,
+                k2_ms_per_layer=k2_ms / k2_n, gemm_ms=gemm,
+                other_ms=busy - k2_ms - gemm,
+                decay_inc_ms_per_layer=build_ms, peak_bytes=peak,
+                top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
+                     for r in rows[:8]])
+
+
+# ------------------------------------------------------------- the paths --
+def qwen_path(torch, k1, k2, tmp):
+    """qwen3-1.7b through K1; returns (K1 launches, serve record)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    k1.launches = k2.launches = 0            # the main path starts
+    prefill_phase(torch, cfg, weights, k1)
+    serve, out = serve_phase(torch, cfg, weights, k1)
+    launches, k2_launches = k1.launches, k2.launches   # ...and ends
+    check(k2_launches == 0, f"the {cfg.name} path launched K2")
+    expected = cfg.n_layers * (1 + 1 + PROMPT_LEN + GEN_LEN)
+    check(launches == expected, f"the {cfg.name} path launched K1 "
+          f"{launches} times, expected {expected}")
+    serve["checkpoint"] = ckpt
+    serve["breakdown"] = decode_breakdown(torch, cfg, weights, out,
+                                          "flash_fwd_kernel", "K1")
+    return launches, serve
+
+
+def falcon_path(torch, k1, k2, tmp):
+    """falcon-mamba-7b through K2; returns (K2 launches, serve record)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(FALCON)
+    free = shutil.disk_usage(tmp).free
+    check(free >= DISK_NEED, f"{tmp} has {free} B free; the {cfg.name} "
+          f"checkpoint needs about {DISK_NEED:.0f} B")
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    k1.launches = k2.launches = 0            # the main path starts
+    prefill, tokens = ssm_prefill_phase(torch, cfg, weights, k2)
+    serve, out, prompts = ssm_serve_phase(torch, cfg, weights, k2)
+    launches, k1_launches = k2.launches, k1.launches   # ...and ends
+    check(k1_launches == 0, f"the {cfg.name} path launched K1")
+    # a launch per layer in the prefill of 4 x 512 and in the prefill of
+    # the 64-token prompts; none in the 96 decode steps
+    expected = cfg.n_layers * 2
+    check(launches == expected, f"the {cfg.name} path launched K2 "
+          f"{launches} times, expected {expected}")
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            "ssm_scan_kernel", "K2"),
+                 layers=ssm_layer_checks(torch, cfg, weights, tokens,
+                                         prompts),
+                 prefill_profile=ssm_prefill_profile(torch, cfg, weights,
+                                                     tokens))
+    return launches, serve
+
+
+def kernel_entry(name, source, replaces, launches, records, serve):
+    head = records[0]
+    return dict(
+        name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
+        f"{source}", replaces=replaces, launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in records), ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        shapes=records, serve=serve)
 
 
 def main() -> int:
@@ -505,43 +894,40 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
     t0 = time.perf_counter()
-    build.load(fa.SOURCE)
-    seconds, log = build.build_report(fa.SOURCE)
-    print(f"built {fa.SOURCE} in {seconds:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s with load)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    build.load_all([fa.SOURCE, ss.SOURCE])
+    print(f"built {fa.SOURCE} and {ss.SOURCE} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for source in (fa.SOURCE, ss.SOURCE):
+        for line in build.build_report(source)[1].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {source}: {line.strip()}")
+    sys.stdout.flush()
 
-    records = kernel_checks(torch, fa)
+    k1_records = kernel_checks(torch, fa)
+    k2_records = scan_checks(torch, ss, get_config(FALCON))
 
-    cfg = get_config(ARCH)
+    k1, k2 = fa.flash_attention_cuda, ss.ssm_scan_cuda
     tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
     try:
         with torch.inference_mode():
-            weights = checkpoint_phase(torch, cfg, tmp)
-            fa.flash_attention_cuda.launches = 0   # the main path starts
-            prefill_phase(torch, cfg, weights, fa.flash_attention_cuda)
-            serve, out = serve_phase(torch, cfg, weights,
-                                     fa.flash_attention_cuda)
-            launches = fa.flash_attention_cuda.launches  # ...and ends
-            serve["breakdown"] = decode_breakdown(torch, cfg, weights, out)
+            k1_launches, qwen_serve = qwen_path(torch, k1, k2, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # qwen3's weights and cache are gone
+            print(f"device memory allocated before {FALCON}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            k2_launches, falcon_serve = falcon_path(torch, k1, k2, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    expected = cfg.n_layers * (1 + 1 + PROMPT_LEN + GEN_LEN)
-    check(launches == expected, f"main path launched K1 {launches} times, "
-          f"expected {expected}")
 
-    head = records[0]
-    kernels = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:82",
-        launches=launches, max_abs_err=max(r["max_abs_err"] for r in records),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shapes=records, serve=serve)]
+    kernels = [
+        kernel_entry("flash_attention", fa.SOURCE,
+                     "src/repro/kernels/flash_attention.py:82", k1_launches,
+                     k1_records, qwen_serve),
+        kernel_entry("ssm_scan", ss.SOURCE,
+                     "src/repro/kernels/ssm_scan.py:45", k2_launches,
+                     k2_records, falcon_serve)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,17 +73,26 @@ def build(sources: List[str]) -> Dict[str, Tuple[Path, str]]:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built on first use."""
-    if source not in _LOADED:
-        t0 = time.perf_counter()
-        lib, log = build([source])[source]
+def load_all(sources: List[str]) -> None:
+    """Build every source not yet loaded (in parallel, as :func:`build`
+    does) and load it."""
+    todo = [s for s in sources if s not in _LOADED]
+    t0 = time.perf_counter()
+    built = build(todo)
+    for source in todo:
+        lib, log = built[source]
         _LOADED[source] = (ctypes.CDLL(str(lib)), time.perf_counter() - t0,
                            log)
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built on first use."""
+    load_all([source])
     return _LOADED[source][0]
 
 
 def build_report(source: str) -> Tuple[float, str]:
-    """(seconds spent building and loading ``source``, compiler log)."""
+    """(seconds spent building and loading ``source``, with the sources
+    built beside it, and its compiler log)."""
     _, seconds, log = _LOADED[source]
     return seconds, log

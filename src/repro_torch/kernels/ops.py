@@ -4,8 +4,8 @@
 A CUDA tensor goes to the kernel, which raises on what it does not take;
 a CPU tensor goes to the kernel's plain torch version.  The choice follows
 the tensor's device and nothing else: there is no fallback from the card.
-The model's attention calls this dispatcher, so on the card the kernel is
-on the model's path.
+The model's attention and Mamba1 blocks call this dispatcher, so on the
+card the kernels are on the model's path.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Optional
 from repro_torch.kernels.flash_attention import (QOffset,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -28,3 +29,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  kv_chunk=kv_chunk, q_offset=q_offset)
+
+
+def ssm_scan(decay, inc, C, *, chunk: int = 256):
+    """(B, S, d, N) selective scan → (B, S, d) f32: the K2 kernel on CUDA,
+    the plain version on the CPU (``chunk`` sizes the plain version's work
+    only)."""
+    if decay.device.type == "cuda":
+        return ssm_scan_cuda(decay, inc, C)
+    if decay.device.type != "cpu":
+        raise ValueError(f"ssm scan: no kernel for device {decay.device}")
+    return ssm_scan_plain(decay, inc, C, chunk=chunk)

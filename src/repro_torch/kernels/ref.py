@@ -1,5 +1,5 @@
-"""Plain torch oracle for the flash-attention kernel (the allclose ground
-truth), the port of ``repro.kernels.ref.flash_attention_ref``."""
+"""Plain torch oracles for the kernels (the allclose ground truth), the
+port of ``repro.kernels.ref``."""
 from __future__ import annotations
 
 import math
@@ -32,3 +32,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.where(mask, p, 0.0)  # rows with no valid key → all-zero output
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def ssm_scan_ref(decay, inc, C):
+    """Sequential SSM recurrence; decay/inc: (B,S,d,N); C: (B,S,N) → y:
+    (B,S,d) f32, one step at a time."""
+    decay, inc, C = decay.float(), inc.float(), C.float()
+    B, S, d, N = decay.shape
+    h = torch.zeros((B, d, N), dtype=torch.float32, device=decay.device)
+    ys = []
+    for t in range(S):
+        h = decay[:, t] * h + inc[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, 1)

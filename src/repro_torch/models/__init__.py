@@ -1,4 +1,5 @@
-"""Model definitions: layers and the dense LM core."""
+"""Model definitions: layers, Mamba1 blocks and the LM core (dense and
+Mamba1 ssm families)."""
 from repro_torch.models.lm import (cast_params, compute_dtype, forward,
                                    forward_hidden, init_cache, init_lm,
                                    param_bytes, serve_step, unembed)

@@ -28,14 +28,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 Params = Dict[str, Any]
 
 
-def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0):
-    """Normal(0, scale²) f32 weights, ``scale`` defaulting to
-    1/sqrt(shape[0]); ``stack > 0`` draws that many layers' copies along a
-    leading axis."""
+def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
+          dtype=torch.float32):
+    """Normal(0, scale²) weights drawn in f32 and cast to ``dtype``,
+    ``scale`` defaulting to 1/sqrt(shape[0]); ``stack > 0`` draws that
+    many layers' copies along a leading axis."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = ((stack,) if stack else ()) + tuple(shape)
-    return torch.randn(full, generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
+    return (torch.randn(full, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
 
 
 # ------------------------------------------------------------------- norms --
@@ -46,10 +47,11 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
-def init_rms_norm(d: int, *, stack: int = 0, device=None):
+def init_rms_norm(d: int, *, stack: int = 0, device=None,
+                  dtype=torch.float32):
     """Stored as an offset from 1 (gemma-style)."""
-    return torch.zeros(((stack,) if stack else ()) + (d,),
-                       dtype=torch.float32, device=device)
+    return torch.zeros(((stack,) if stack else ()) + (d,), dtype=dtype,
+                       device=device)
 
 
 # -------------------------------------------------------------------- rope --
@@ -69,17 +71,18 @@ def rope(x, positions, base: float = 10_000.0):
 # ---------------------------------------------------------------- attention --
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
                    n_kv: int, head_dim: int, qk_norm: bool, *,
-                   stack: int = 0) -> Params:
+                   stack: int = 0, dtype=torch.float32) -> Params:
+    kw = dict(stack=stack, dtype=dtype)
     p = {
-        "wq": _init(gen, (d_model, n_heads, head_dim), stack=stack),
-        "wk": _init(gen, (d_model, n_kv, head_dim), stack=stack),
-        "wv": _init(gen, (d_model, n_kv, head_dim), stack=stack),
+        "wq": _init(gen, (d_model, n_heads, head_dim), **kw),
+        "wk": _init(gen, (d_model, n_kv, head_dim), **kw),
+        "wv": _init(gen, (d_model, n_kv, head_dim), **kw),
         "wo": _init(gen, (n_heads, head_dim, d_model),
-                    scale=1.0 / math.sqrt(n_heads * head_dim), stack=stack),
+                    scale=1.0 / math.sqrt(n_heads * head_dim), **kw),
     }
     if qk_norm:
-        p["q_norm"] = init_rms_norm(head_dim, stack=stack, device=gen.device)
-        p["k_norm"] = init_rms_norm(head_dim, stack=stack, device=gen.device)
+        p["q_norm"] = init_rms_norm(head_dim, device=gen.device, **kw)
+        p["k_norm"] = init_rms_norm(head_dim, device=gen.device, **kw)
     return p
 
 
@@ -152,12 +155,13 @@ def attention_decode(p: Params, x, cache_k, cache_v, pos, *, n_heads, n_kv,
 
 # --------------------------------------------------------------------- mlp --
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str, *,
-             stack: int = 0) -> Params:
+             stack: int = 0, dtype=torch.float32) -> Params:
+    kw = dict(stack=stack, dtype=dtype)
     p = {}
     if mlp_type in ("swiglu", "geglu"):
-        p["w_gate"] = _init(gen, (d_model, d_ff), stack=stack)
-    p["w_up"] = _init(gen, (d_model, d_ff), stack=stack)
-    p["w_down"] = _init(gen, (d_ff, d_model), stack=stack)
+        p["w_gate"] = _init(gen, (d_model, d_ff), **kw)
+    p["w_up"] = _init(gen, (d_model, d_ff), **kw)
+    p["w_down"] = _init(gen, (d_ff, d_model), **kw)
     return p
 
 

@@ -1,5 +1,5 @@
-"""The dense language model: init, prefill forward and cached decode — the
-port of the dense branch of ``repro/models/lm.py``.
+"""The language model: init, prefill forward and cached decode — the port
+of the dense and ssm (Mamba1) branches of ``repro/models/lm.py``.
 
 Parameters are the reference's nested dict with layers *stacked* on a
 leading axis (``params["layers"]["attn"]["wq"]`` is ``(n_layers, d_model,
@@ -12,7 +12,8 @@ decoded token.  Here the weights are cast once (:func:`cast_params`) when
 they are loaded, and the forward functions require weights already in the
 compute dtype.  A cast is deterministic, so the results are the same.
 
-Families other than ``dense`` raise :class:`NotImplementedError`.
+Families other than ``dense`` and Mamba1 ``ssm`` raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.runtime import resolve_device
 
 Params = Dict[str, Any]
@@ -32,37 +34,51 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(dense only)")
+    if cfg.family == "dense" or (cfg.family == "ssm"
+                                 and cfg.ssm_type == "mamba1"):
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family!r} family ({cfg.ssm_type}) is not "
+        f"ported yet (dense and mamba1 ssm only)")
 
 
 # --------------------------------------------------------------------------
 # Initialization
 # --------------------------------------------------------------------------
 
-def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
-    """Random f32 weights of ``cfg`` on ``device``, drawn from a
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+            dtype: torch.dtype = torch.float32) -> Params:
+    """Random weights of ``cfg`` on ``device``, drawn in f32 from a
     ``torch.Generator`` seeded with ``seed``.  The distributions are the
-    reference's; the numbers are not (torch's generator is not JAX's)."""
+    reference's; the numbers are not (torch's generator is not JAX's).
+    Each leaf is cast to ``dtype`` as soon as it is drawn, so a bf16 model
+    never holds its f32 weights at once (the same values as
+    ``cast_params`` of the f32 weights)."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = cfg.n_layers
+    kw = dict(stack=n, dtype=dtype)
     p: Params = {
-        "embed": L._init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
-        "final_norm": L.init_rms_norm(cfg.d_model, device=dev),
+        "embed": L._init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                         dtype=dtype),
+        "final_norm": L.init_rms_norm(cfg.d_model, device=dev, dtype=dtype),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab))
+        p["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab), dtype=dtype)
+    if cfg.family == "ssm":
+        p["layers"] = {
+            "ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
+            "ssm": SSM.init_ssm(gen, cfg, **kw),
+        }
+        return p
     p["layers"] = {
-        "ln1": L.init_rms_norm(cfg.d_model, stack=n, device=dev),
+        "ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
         "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.head_dim_, cfg.qk_norm,
-                                 stack=n),
-        "ln2": L.init_rms_norm(cfg.d_model, stack=n, device=dev),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, stack=n),
+                                 **kw),
+        "ln2": L.init_rms_norm(cfg.d_model, device=dev, **kw),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw),
     }
     return p
 
@@ -113,14 +129,21 @@ def _attn_kwargs(cfg: ModelConfig):
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,
                    kv_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) → final hidden states (B, S, d). Returns (hidden,
-    moe_aux); the dense family's aux loss is 0."""
+    moe_aux); the aux loss of the dense and ssm families is 0."""
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     _check_dtype(params, dtype)
     eps = cfg.norm_eps
     x = params["embed"][tokens].to(dtype)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "ssm":
+        for lp in layers:
+            x = x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
+                                  cfg)
+        x = L.rms_norm(x, params["final_norm"], eps)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     windows = _windows_per_layer(cfg, x.shape[1])
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(layers):
         h = L.rms_norm(x, lp["ln1"], eps)
         h = L.attention_block(lp["attn"], h,
                               window=None if windows is None else windows[i],
@@ -149,11 +172,19 @@ def forward(cfg: ModelConfig, params: Params, tokens, **kw):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Params:
+    """Zero decode cache on ``device``: the position, and per layer a KV
+    cache of ``max_len`` (dense) or the SSM state, h (L, B, d_inner, N) in
+    f32 and the conv window (L, B, K-1, d_inner) in the compute dtype
+    (ssm; its size does not depend on ``max_len``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        return {"pos": pos, "ssm": SSM.init_ssm_state(
+            cfg, batch, dtype, stack=cfg.n_layers, device=dev)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+    return {"pos": pos,
             "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -162,17 +193,45 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     """One decode step: tokens (B, 1) → (logits (B, vocab) f32, cache).
 
     The cache is updated IN PLACE (the reference returns a new one): each
-    layer writes its new key/value at ``cache["pos"]`` with a device-side
-    index, and ``cache["pos"]`` is replaced by ``pos + 1`` on the device.
-    Nothing in the step reads a device value on the host.
+    dense layer writes its new key/value at ``cache["pos"]`` with a
+    device-side index; each ssm layer copies its new h and conv window
+    over its slice of the stacked ``cache["ssm"]``.  ``cache["pos"]`` is
+    replaced by ``pos + 1`` on the device.  Nothing in the step reads a
+    device value on the host.
     """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     _check_dtype(params, dtype)
     eps = cfg.norm_eps
     pos = cache["pos"]
-    pos_index = pos.reshape(1).long()
     x = params["embed"][tokens].to(dtype)
+    if cfg.family == "ssm":
+        x = _ssm_decode_layers(cfg, params, cache["ssm"], x)
+    else:
+        x = _dense_decode_layers(cfg, params, cache, x)
+    x = L.rms_norm(x, params["final_norm"], eps)
+    logits = unembed(cfg, params, x)[:, 0, :].float()
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+def _ssm_decode_layers(cfg: ModelConfig, params: Params, state: Params, x):
+    h_all, conv_all = state["h"], state["conv"]
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        h, st = SSM.ssm_decode(
+            lp["ssm"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+            {"h": h_all[i], "conv": conv_all[i]}, cfg)
+        h_all[i].copy_(st["h"])
+        conv_all[i].copy_(st["conv"])
+        x = x + h
+    return x
+
+
+def _dense_decode_layers(cfg: ModelConfig, params: Params, cache: Params,
+                         x):
+    eps = cfg.norm_eps
+    pos = cache["pos"]
+    pos_index = pos.reshape(1).long()
     windows = _windows_per_layer(cfg, cache["k"].shape[2])
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h = L.rms_norm(x, lp["ln1"], eps)
@@ -183,10 +242,7 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
         x = x + h
         h = L.rms_norm(x, lp["ln2"], eps)
         x = x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
-    x = L.rms_norm(x, params["final_norm"], eps)
-    logits = unembed(cfg, params, x)[:, 0, :].float()
-    cache["pos"] = pos + 1
-    return logits, cache
+    return x
 
 
 def param_bytes(params: Params) -> int:

@@ -1,14 +1,15 @@
 """Batched serving: restore weights from an scda checkpoint, decode tokens.
 
-The port of ``examples/serve_decode.py`` on the dense family: the weights
-are saved with :func:`repro_torch.checkpoint.save`, restored with
-``restore(like=)`` onto the serving device (cast once to the compute
-dtype), and a batch of requests is fed token by token through
+The port of ``examples/serve_decode.py`` on the dense and Mamba1 ssm
+families: the weights are saved with :func:`repro_torch.checkpoint.save`,
+restored with ``restore(like=)`` onto the serving device (cast once to the
+compute dtype), and a batch of requests is fed token by token through
 ``serve_step``, then decoded greedily.  Token ids, the cache position and
 the argmax stay on the device: the loop reads nothing back until it ends.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen3-1.7b]
-      (``--device cpu --smoke`` runs the reduced config on the host)
+      (``--arch falcon-mamba-7b`` serves the Mamba1 model; ``--device cpu
+      --smoke`` runs the reduced config on the host)
 """
 from __future__ import annotations
 
@@ -91,8 +92,8 @@ def main(argv=None) -> Dict[str, object]:
     with tempfile.TemporaryDirectory(prefix="repro-torch-serve-") as tmp:
         # "training" produced a checkpoint…
         ckpt = os.path.join(tmp, "w.scda")
-        params = cast_params(init_lm(cfg, args.seed, device=dev),
-                             compute_dtype(cfg))
+        params = init_lm(cfg, args.seed, device=dev,
+                         dtype=compute_dtype(cfg))
         save(ckpt, params, step=1000)
         print(f"checkpoint: {os.path.getsize(ckpt) / 1e6:.1f} MB at {ckpt}")
         # …the serving job restores it and serves a batch.

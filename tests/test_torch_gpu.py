@@ -1,7 +1,8 @@
-"""The port on the card: the K1 CUDA kernel against its plain version, the
-smoke model on CUDA against the same model on the CPU, and a checkpoint
-round trip of CUDA tensors.  Every test here needs a GPU and skips
-without one; none imports JAX, so the file runs on the GPU machine:
+"""The port on the card: the K1 and K2 CUDA kernels against their plain
+versions, the smoke models (qwen3, falcon-mamba) on CUDA against the same
+models on the CPU, and a checkpoint round trip of CUDA tensors.  Every
+test here needs a GPU and skips without one; none imports JAX, so the
+file runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
@@ -13,18 +14,24 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    ssm_scan_cuda, ssm_scan_plain)
 
 pytestmark = pytest.mark.gpu
 
 #: kernel vs plain version: tests/test_kernels.py's TOL for the dtype.
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+#: K2 vs its plain version, whatever the input dtype: both read the inputs
+#: as f32 and round the state identically; only the order of the sum over
+#: n differs (tests/test_kernels.py's scan tolerance).
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -110,6 +117,68 @@ def test_smoke_model_on_cuda_matches_cpu(cuda):
         lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
         lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,d,N", [
+    (1, 1, 1, 1),
+    (2, 37, 5, 3),        # ragged S, N not a power of two
+    (3, 70, 33, 8),       # d that no block of 16 channels divides
+    (2, 9, 100, 16),
+    (1, 130, 7, 1),       # one lane per channel
+    (2, 20, 3, 32),       # a channel fills a warp
+    (1, 17, 9, 5),
+    (4, 512, 1024, 16),   # the model's prefill shape at a narrower d
+])
+def test_scan_kernel_matches_plain(cuda, dtype, B, S, d, N):
+    rng = np.random.default_rng(S * 131 + d * 7 + N)
+    decay = torch.sigmoid(_rand(rng, (B, S, d, N), torch.float32, cuda)) \
+        .to(dtype)
+    inc = (0.1 * _rand(rng, (B, S, d, N), torch.float32, cuda)).to(dtype)
+    C = _rand(rng, (B, S, N), dtype, cuda)
+    before = ssm_scan_cuda.launches
+    got = ops.ssm_scan(decay, inc, C)
+    torch.cuda.synchronize()
+    assert ssm_scan_cuda.launches == before + 1
+    want = ssm_scan_plain(decay, inc, C)
+    assert got.dtype == torch.float32 and got.shape == (B, S, d)
+    torch.testing.assert_close(got, want, **SCAN_TOL)
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 4, 3, 33, device=cuda)
+    before = ssm_scan_cuda.launches
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_cuda(x, x, torch.zeros(1, 4, 33, device=cuda))
+    y = torch.zeros(1, 4, 3, 2, device=cuda)
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(y, y, torch.zeros(1, 4, 2, device=cuda).half())
+    assert ssm_scan_cuda.launches == before
+
+
+def test_falcon_smoke_on_cuda_matches_cpu(cuda):
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import forward, init_cache, init_lm, serve_step
+    cfg = smoke(get_config("falcon-mamba-7b"))
+    cpu = init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, cuda)
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    want = forward(cfg, cpu, tok)
+    before = ssm_scan_cuda.launches
+    got = forward(cfg, gpu, tok.to(cuda))
+    assert ssm_scan_cuda.launches - before == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    c_cpu = init_cache(cfg, 2, 16, device="cpu")
+    c_gpu = init_cache(cfg, 2, 16, device=cuda)
+    before = ssm_scan_cuda.launches
+    for i in range(8):
+        lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
+        lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert ssm_scan_cuda.launches == before   # decode reaches no kernel
+    torch.testing.assert_close(c_gpu["ssm"]["h"].cpu(), c_cpu["ssm"]["h"],
+                               rtol=1e-4, atol=1e-4)
 
 
 def _to(tree, device):

@@ -117,5 +117,6 @@ def test_kernel_build_paths_come_from_the_package():
     from repro_torch.kernels import build
     assert build.CSRC == PORT / "kernels" / "csrc"
     assert (build.CSRC / "flash_attention.cu").is_file()
+    assert (build.CSRC / "ssm_scan.cu").is_file()
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

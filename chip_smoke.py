@@ -13,8 +13,10 @@ seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
 
-- qwen3-1.7b (28 layers, d_model 2048, vocab 151 936) through the K1
-  flash-attention kernel;
+- qwen3-1.7b (28 layers, d_model 2048, vocab 151 936) through K1, flash
+  attention: its prefill kernel in every prefill layer, its split-KV
+  decode kernel in every decode step; a warm prefill is timed after the
+  path;
 - falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
   16, vocab 65 024; 14.0 GB of weights) through the K2 selective-scan
   kernel, which every prefill layer launches and no decode step does.
@@ -78,6 +80,8 @@ TOL_SCAN = dict(rtol=1e-5, atol=1e-5)
 #: so the logits of two rounding paths are reported, not held.
 REL_LAYER_PLAIN = 1e-3
 REL_LAYER_DECODE = 3e-2
+#: K2's kernel name, as the profiler shows it.
+K2_NAMES = ("ssm_scan_kernel",)
 
 
 def fail(msg: str) -> None:
@@ -178,8 +182,10 @@ def assert_close(a, b, tol, what: str) -> float:
 
 # ---------------------------------------------------------------- phase 2 --
 def kernel_checks(torch, fa):
-    """K1 against its plain version: small f32 cases, then the main path's
-    bf16 shapes with times.  Returns the per-shape measurement records."""
+    """K1 against its plain version: small f32 cases (prefill and decode,
+    the decode kernel's split boundaries among them), then the main path's
+    bf16 shapes with times: the prefill kernel at 4 × 512, the decode
+    kernel at four offsets.  Returns the per-shape measurement records."""
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED)
 
@@ -199,6 +205,14 @@ def kernel_checks(torch, fa):
         (2, 4, 2, 5, 40, 128, True, None, off(30)),  # q_offset on device
         (3, 4, 2, 1, 300, 16, True, 64, off(157)),  # decode Sq = 1, window
         (1, 2, 1, 8, 8, 64, True, 0, 0),            # empty window: all zero
+        # the decode kernel's split boundaries (64 keys a split) in a
+        # 150-key cache, groups 1, 2 and 16, a window across a split
+        (2, 4, 4, 1, 150, 64, True, None, off(0)),
+        (2, 4, 2, 1, 150, 64, True, None, off(63)),
+        (2, 4, 2, 1, 150, 64, True, None, off(64)),
+        (2, 32, 2, 1, 150, 128, True, None, off(127)),
+        (2, 4, 2, 1, 150, 128, True, 50, off(128)),
+        (1, 16, 8, 1, MAX_LEN, 128, True, None, off(MAX_LEN - 1)),
     ]
     worst = 0.0
     for B, H, Hkv, Sq, Skv, D, causal, window, q_off in small:
@@ -235,7 +249,7 @@ def kernel_checks(torch, fa):
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
     records.append(dict(
         shape=f"prefill B{PREFILL_B} S{S} H{H}/{Hkv} D{D} causal bf16",
-        max_abs_err=err,
+        kernel="flash_prefill_kernel", max_abs_err=err,
         **timings(lambda: fa.flash_attention_cuda(q, k, v),
                   lambda: fa.flash_attention_plain(q, k, v),
                   lambda: sdpa(qh, kh, vh, is_causal=True), 50),
@@ -279,11 +293,12 @@ def kernel_checks(torch, fa):
         nbytes = 2 * (2 * qd.numel() + 2 * SERVE_B * live * Hkv * D)
         records.append(dict(
             shape=f"decode B{SERVE_B} Smax{MAX_LEN} pos{pos} H{H}/{Hkv} "
-                  f"D{D} bf16",
+                  f"D{D} bf16", kernel="flash_decode_kernel",
             max_abs_err=err, **timings(kern, plain, library, 200),
             **bound(nbytes, flops, PEAK_BF16_FLOPS)))
     for r in records:
-        print(f"K1 {r['shape']}: err {r['max_abs_err']} device ms "
+        print(f"K1 {r['kernel']} {r['shape']}: err {r['max_abs_err']} "
+              f"device ms "
               f"{r['ms']:.5f} plain {r['plain_ms']:.5f} sdpa "
               f"{r['library_ms']:.5f} bound {r['bound_ms']:.5f} "
               f"({r['bound_by']}); per call ms {r['call_ms']:.5f} plain "
@@ -304,6 +319,43 @@ def sdpa_gqa(torch):
         return f(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
                  **kw)
     return repeated
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel from nvcc's ``-Xptxas=-v`` log: its
+    name and template arguments, registers, spills and static shared
+    memory."""
+    name, spill = None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            yield f"{name}: {line.split('Used', 1)[1].strip()}; {spill}"
+            name, spill = None, ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::kernel<dtype, D>`` from an Itanium-mangled kernel name: the
+    last of the nested <length><name> parts, then the template arguments
+    (a bf16 or f32 type, integers)."""
+    import re
+    i, parts = 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    rest = mangled[i:]
+    if not parts or not rest.startswith("I") or "EEv" not in rest:
+        return parts[-1] if parts else mangled
+    targs = rest[1:rest.index("EEv")]
+    args = (["bf16"] if "bfloat16" in targs
+            else ["f32"] if targs.startswith("f") else [])
+    args += re.findall(r"Li(\d+)E", targs)
+    return f"{parts[-1]}<{', '.join(args)}>"
 
 
 def bound(nbytes: int, flops: int, peak_flops: float):
@@ -416,6 +468,8 @@ def checkpoint_phase(torch, cfg, tmp):
 
 # ------------------------------------------------------------ phases 4, 5 --
 def prefill_phase(torch, cfg, weights, k1):
+    """One prefill of 4 × 512 (first call): a K1 launch per layer, logits
+    against the plain attention path."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.train.step import make_prefill_step
@@ -443,6 +497,7 @@ def prefill_phase(torch, cfg, weights, k1):
     print(f"prefill: B{PREFILL_B} S{PREFILL_S} in {dt * 1e3:.3f} ms "
           f"(first call), {cfg.n_layers} K1 launches, logits vs plain "
           f"attention max abs err {err}")
+    return dict(first_call_ms=dt * 1e3, vs_plain_max_abs_err=err), tokens
 
 
 def _plain_attention(fa_mod):
@@ -550,12 +605,12 @@ def print_serve(cfg, t, total_s: float, peak: int, launches: str) -> None:
           f"memory {peak} B, {launches}")
 
 
-def decode_breakdown(torch, cfg, weights, out, kernel: str, label: str,
+def decode_breakdown(torch, cfg, weights, out, kernels, label: str,
                      steps: int = 4):
     """Where a decode step's time goes: ``steps`` more greedy steps on the
     served cache under the profiler — wall time per step, device busy
-    time per step, the share of the kernels whose name holds ``kernel``
-    and the heaviest kernels."""
+    time per step, the share of the kernels whose name holds one of
+    ``kernels`` and the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_serve_step
     step_fn = make_serve_step(cfg)
@@ -577,7 +632,7 @@ def decode_breakdown(torch, cfg, weights, out, kernel: str, label: str,
             for e in device_rows(prof)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    mine = sum(r[1] for r in rows if kernel in r[0])
+    mine = sum(r[1] for r in rows if any(k in r[0] for k in kernels))
     print(f"decode step breakdown {cfg.name} (profiled, {steps} steps): "
           f"wall {wall:.4f} ms/step, device busy {busy:.4f} ms/step (idle "
           f"share {1 - busy / wall:.4f}), {label} {mine:.4f} ms/step, "
@@ -783,7 +838,7 @@ def ssm_prefill_profile(torch, cfg, weights, tokens):
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in device_rows(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    k2 = [r for r in rows if "ssm_scan_kernel" in r[0]]
+    k2 = [r for r in rows if any(k in r[0] for k in K2_NAMES)]
     k2_ms, k2_n = sum(r[1] for r in k2), sum(r[2] for r in k2)
     check(k2_n == cfg.n_layers, f"profiled prefill shows {k2_n} K2 launches")
     gemm = sum(r[1] for r in rows if any(
@@ -817,20 +872,56 @@ def ssm_prefill_profile(torch, cfg, weights, tokens):
 def qwen_path(torch, k1, k2, tmp):
     """qwen3-1.7b through K1; returns (K1 launches, serve record)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
     cfg = get_config(QWEN)
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
     k1.launches = k2.launches = 0            # the main path starts
-    prefill_phase(torch, cfg, weights, k1)
+    prefill, tokens = prefill_phase(torch, cfg, weights, k1)
     serve, out = serve_phase(torch, cfg, weights, k1)
     launches, k2_launches = k1.launches, k2.launches   # ...and ends
     check(k2_launches == 0, f"the {cfg.name} path launched K2")
     expected = cfg.n_layers * (1 + 1 + PROMPT_LEN + GEN_LEN)
     check(launches == expected, f"the {cfg.name} path launched K1 "
           f"{launches} times, expected {expected}")
-    serve["checkpoint"] = ckpt
-    serve["breakdown"] = decode_breakdown(torch, cfg, weights, out,
-                                          "flash_fwd_kernel", "K1")
+    prefill.update(qwen_prefill_profile(torch, cfg, weights, tokens,
+                                        KERNEL_NAMES))
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
     return launches, serve
+
+
+def qwen_prefill_profile(torch, cfg, weights, tokens, k1_names):
+    """A warm prefill of 4 × 512 beside the first call: its time
+    unprofiled, then one profiled run split into K1 and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.step import make_prefill_step
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": tokens}
+    warm_ms = cuda_time_ms(lambda: prefill(weights, batch), 5, warmup=2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        prefill(weights, batch)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in device_rows(prof)]
+    busy = sum(r[1] for r in rows)
+    k1 = [r for r in rows if any(k in r[0] for k in k1_names)]
+    k1_ms, k1_n = sum(r[1] for r in k1), sum(r[2] for r in k1)
+    check(k1_n == cfg.n_layers, f"profiled prefill shows {k1_n} K1 launches")
+    print(f"prefill {cfg.name}: warm {warm_ms:.3f} ms; profiled wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.4f}), K1 {k1_ms:.4f} ms ({k1_ms / k1_n:.5f} "
+          f"ms/layer)")
+    return dict(warm_ms=warm_ms, profiled_wall_ms=wall, busy_ms=busy,
+                idle_share=1 - busy / wall, k1_ms=k1_ms,
+                k1_ms_per_layer=k1_ms / k1_n)
 
 
 def falcon_path(torch, k1, k2, tmp):
@@ -853,7 +944,7 @@ def falcon_path(torch, k1, k2, tmp):
           f"{launches} times, expected {expected}")
     serve.update(checkpoint=ckpt, prefill=prefill,
                  breakdown=decode_breakdown(torch, cfg, weights, out,
-                                            "ssm_scan_kernel", "K2"),
+                                            K2_NAMES, "K2"),
                  layers=ssm_layer_checks(torch, cfg, weights, tokens,
                                          prompts),
                  prefill_profile=ssm_prefill_profile(torch, cfg, weights,
@@ -861,11 +952,12 @@ def falcon_path(torch, k1, k2, tmp):
     return launches, serve
 
 
-def kernel_entry(name, source, replaces, launches, records, serve):
+def kernel_entry(name, source, replaces, names, launches, records, serve):
     head = records[0]
     return dict(
         name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
-        f"{source}", replaces=replaces, launches=launches,
+        f"{source}", replaces=replaces, kernel_names=list(names),
+        launches=launches,
         max_abs_err=max(r["max_abs_err"] for r in records), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -900,9 +992,8 @@ def main() -> int:
     print(f"built {fa.SOURCE} and {ss.SOURCE} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for source in (fa.SOURCE, ss.SOURCE):
-        for line in build.build_report(source)[1].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {source}: {line.strip()}")
+        for line in ptxas_summary(build.build_report(source)[1]):
+            print(f"  ptxas {source}: {line}")
     sys.stdout.flush()
 
     k1_records = kernel_checks(torch, fa)
@@ -923,11 +1014,11 @@ def main() -> int:
 
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
-                     "src/repro/kernels/flash_attention.py:82", k1_launches,
-                     k1_records, qwen_serve),
+                     "src/repro/kernels/flash_attention.py:82",
+                     fa.KERNEL_NAMES, k1_launches, k1_records, qwen_serve),
         kernel_entry("ssm_scan", ss.SOURCE,
-                     "src/repro/kernels/ssm_scan.py:45", k2_launches,
-                     k2_records, falcon_serve)]
+                     "src/repro/kernels/ssm_scan.py:45", K2_NAMES,
+                     k2_launches, k2_records, falcon_serve)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

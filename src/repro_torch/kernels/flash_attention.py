@@ -1,29 +1,38 @@
-"""Flash attention: the K1 Hopper kernel's wrapper and its plain version.
+"""Flash attention: the K1 Hopper kernels' wrapper and their plain versions.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
+The kernels (``csrc/flash_attention.cu``) replace the JAX package's Pallas
 TPU kernel ``flash_attention_kernel`` (``repro/kernels/flash_attention.py``)
-and covers what the model path needs beyond it: the model's (B, S, H, D)
+and cover what the model path needs beyond it: the model's (B, S, H, D)
 layout, a query offset that lives in device memory (decode), the causal
-and window masks and a ragged Skv.  See the source's header for what bounds
-it on an H100 and what its design does about that.
+and window masks and a ragged Skv.  One wrapper, two regimes: Sq > 1 goes
+to the prefill kernel (tensor cores for bf16, an FMA kernel for f32), Sq =
+1 to the split-KV decode kernel.  See the source's header for what bounds
+each on an H100 and what its design does about that.
 
 :func:`flash_attention_plain` is the port of ``repro.models.layers.
 flash_attention``: an online softmax scanned over kv chunks.  It is what
-runs for CPU tensors, and the version the kernel is held against on the
-card.  :data:`flash_attention_cuda` launches the kernel on CUDA tensors and
-raises on anything it does not take; it never falls back.
+runs for CPU tensors, and the version the kernels are held against on the
+card.  :func:`flash_attention_split_plain` repeats the decode kernel's
+arithmetic (per-split partials, merged in split order) for the tests.
+:data:`flash_attention_cuda` launches a kernel on CUDA tensors and raises
+on anything neither kernel takes; it never falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 64   # a block's 64 rows hold at least one query position
+MAX_GROUP = 64   # a prefill block's 64 rows hold at least one position
+DECODE_SPLIT = 64   # keys per decode split (SPLIT in the source)
+#: The kernels' names, as a profiler shows them.
+KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
+                "flash_decode_kernel")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 QOffset = Union[int, torch.Tensor]
@@ -84,6 +93,82 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.to(q.dtype)
 
 
+@dataclass(frozen=True)
+class DecodePlan:
+    """Grid and scratch of one decode launch, fixed by the cache capacity
+    alone (never by the live length, which lives on the device)."""
+    n_splits: int
+    split: int
+    grid: Tuple[int, int, int]     # (n_splits, Hkv, B)
+    scratch_floats: int            # m, l and acc per (b, kv head, split)
+    tickets: int                   # one per (b, kv head)
+    Skv: int
+
+    @property
+    def key_ranges(self) -> List[Tuple[int, int]]:
+        """[lo, hi) of each split, in split order."""
+        return [(s * self.split, min((s + 1) * self.split, self.Skv))
+                for s in range(self.n_splits)]
+
+
+def decode_plan(Skv: int, split: int = DECODE_SPLIT, *, B: int = 1,
+                Hkv: int = 1, group: int = 1, D: int = 128) -> DecodePlan:
+    """The decode kernel's plan for a cache of capacity ``Skv``: split s
+    covers keys [s * split, min((s + 1) * split, Skv))."""
+    if Skv < 1 or split < 1:
+        raise ValueError(f"decode plan: Skv {Skv}, split {split}")
+    n = -(-Skv // split)
+    return DecodePlan(
+        n_splits=n, split=split, grid=(n, Hkv, B),
+        scratch_floats=B * Hkv * n * group * (D + 2), tickets=B * Hkv,
+        Skv=Skv)
+
+
+def flash_attention_split_plain(q, k, v, *, causal: bool = True,
+                                window: Optional[int] = None,
+                                q_offset: QOffset = 0,
+                                split: int = DECODE_SPLIT):
+    """One-token attention (Sq = 1) as the decode kernel computes it.
+
+    Each split of :func:`decode_plan` yields a partial over its live keys:
+    m = max s, p = exp(s - m), l = sum p (f32) and acc = sum p v with p
+    cast to v's dtype.  The partials are merged in split order with weights
+    exp(m - M); a split with no live key adds nothing.  Output acc / max(l,
+    1e-37) in q's dtype.  Same arguments as :func:`flash_attention_plain`.
+    """
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    assert Sq == 1 and H % Hkv == 0, (q.shape, k.shape)
+    group = H // Hkv
+    plan = decode_plan(Skv, split)
+    kv = torch.arange(Skv, device=q.device)
+    live = kv <= q_offset if causal else torch.ones_like(kv, dtype=torch.bool)
+    if window is not None:
+        live = live & ((q_offset - kv) < window)
+    qg = q[:, 0].float().reshape(B, Hkv, group, D)
+    s = torch.einsum("bhgd,bchd->bhgc", qg, k.float()) * (1.0 / math.sqrt(D))
+    M = torch.full((B, Hkv, group), -math.inf, device=q.device)
+    parts = []
+    for lo, hi in plan.key_ranges:
+        ok = live[lo:hi]
+        sj = torch.where(ok, s[..., lo:hi], -math.inf)
+        m = sj.amax(dim=-1)
+        p = torch.where(ok, torch.exp(sj - torch.where(
+            torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+        acc = torch.einsum("bhgc,bchd->bhgd", p.to(v.dtype).float(),
+                           v[:, lo:hi].float())
+        parts.append((m, p.sum(dim=-1), acc))
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    out = torch.zeros((B, Hkv, group, D), device=q.device)
+    for m, l, acc in parts:          # in split order, as the kernel merges
+        w = torch.where(torch.isfinite(m), torch.exp(m - M), 0.0)
+        L = L + w * l
+        out = out + w[..., None] * acc
+    out = out / torch.clamp(L[..., None], min=1e-37)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """Head dim contiguous, every row start on a 16-byte boundary."""
     item = t.element_size()
@@ -91,25 +176,52 @@ def _aligned(t: torch.Tensor) -> bool:
             and all((s * item) % 16 == 0 for s in t.stride()[:-1]))
 
 
+_COMMON_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5)
+
+
 class FlashAttentionKernel:
-    """The K1 kernel's wrapper.  ``launches`` counts kernel launches."""
+    """The K1 kernels' wrapper.  ``launches`` counts kernel launches, one
+    per call whichever kernel it takes."""
 
     def __init__(self) -> None:
         self.launches = 0
-        self._fn = None
+        self._fns = None
+        #: (device index, stream) -> (scratch, tickets) of the decode kernel:
+        #: allocated once, grown when a call needs more, never cleared (the
+        #: kernel leaves its tickets at 0).
+        self._buffers: Dict[Tuple[int, int],
+                            Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def _function(self):
-        if self._fn is None:
+    def _functions(self):
+        if self._fns is None:
             from repro_torch.kernels import build
-            fn = build.load(SOURCE).repro_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            lib = build.load(SOURCE)
+            prefill, decode = lib.repro_flash_prefill, lib.repro_flash_decode
+            prefill.argtypes = (_COMMON_ARGS + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_void_p])
+            decode.argtypes = (_COMMON_ARGS + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p])
+            prefill.restype = decode.restype = ctypes.c_int
+            self._fns = (prefill, decode)
+        return self._fns
+
+    def _decode_buffers(self, device, stream: int, plan: DecodePlan):
+        key = (device.index, stream)
+        have = self._buffers.get(key)
+        if have is None or have[0].numel() < plan.scratch_floats \
+                or have[1].numel() < plan.tickets:
+            floats = max(plan.scratch_floats, 0 if have is None
+                         else have[0].numel())
+            tickets = max(plan.tickets, 0 if have is None
+                          else have[1].numel())
+            have = (torch.empty(floats, dtype=torch.float32, device=device),
+                    torch.zeros(tickets, dtype=torch.int32, device=device))
+            self._buffers[key] = have
+        return have
 
     def __call__(self, q, k, v, *, causal: bool = True,
                  window: Optional[int] = None, q_offset: QOffset = 0):
@@ -160,14 +272,22 @@ class FlashAttentionKernel:
             return out
         strides = (ctypes.c_longlong * 12)(*(
             s for t in (q, k, v, out) for s in t.stride()[:3]))
+        common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), ctypes.addressof(strides))
+        masks = (int(bool(causal)), -1 if window is None else window,
+                 offset_ptr, offset, 1.0 / math.sqrt(D))
+        prefill, decode = self._functions()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = self._function()(
-                _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-                B, Sq, Skv, H, Hkv, int(bool(causal)),
-                -1 if window is None else window, offset_ptr, offset,
-                1.0 / math.sqrt(D), stream)
+            if Sq == 1:
+                plan = decode_plan(Skv, B=B, Hkv=Hkv, group=H // Hkv, D=D)
+                scratch, tickets = self._decode_buffers(q.device, stream,
+                                                        plan)
+                err = decode(*common, B, Skv, H, Hkv, *masks,
+                             scratch.data_ptr(), tickets.data_ptr(),
+                             plan.n_splits, stream)
+            else:
+                err = prefill(*common, B, Sq, Skv, H, Hkv, *masks, stream)
         if err != 0:
             raise RuntimeError(f"flash attention kernel failed to launch "
                                f"(error {err})")
@@ -176,5 +296,5 @@ class FlashAttentionKernel:
 
 
 #: The process's one K1 wrapper; ``flash_attention_cuda.launches`` is the
-#: count a run reads to show that its path went through the kernel.
+#: count a run reads to show that its path went through the kernels.
 flash_attention_cuda = FlashAttentionKernel()

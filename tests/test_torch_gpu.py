@@ -1,5 +1,5 @@
-"""The port on the card: the K1 and K2 CUDA kernels against their plain
-versions, the smoke models (qwen3, falcon-mamba) on CUDA against the same
+"""The port on the card: the K1 kernels (prefill and split-KV decode) and
+the K2 kernel against their plain versions, the smoke models (qwen3, falcon-mamba) on CUDA against the same
 models on the CPU, and a checkpoint round trip of CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_cuda, flash_attention_plain, flash_attention_split_plain)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan_cuda, ssm_scan_plain)
 
@@ -50,6 +50,14 @@ def _rand(rng, shape, dtype, device):
     (3, 16, 8, 1, 300, 128, True, None, 157),   # decode against a cache
     (2, 4, 2, 5, 40, 32, True, 8, 30),          # offset and window
     (1, 2, 1, 8, 8, 64, True, 0, 0),            # empty window: zeros
+    (1, 4, 2, 200, 200, 128, True, 70, 0),      # window edge inside tiles
+    (1, 4, 2, 100, 100, 64, False, 30, 0),      # non-causal window
+    (1, 16, 1, 9, 9, 128, True, None, 0),       # group 16
+    (1, 64, 1, 20, 20, 16, True, None, 0),      # group 64: a row per head
+    (1, 6, 2, 50, 50, 32, True, None, 0),       # group 3 does not divide 64
+    (2, 16, 8, 300, 300, 128, True, None, 0),   # qwen3's heads, 5 tiles
+    (1, 4, 2, 1, 100, 64, False, None, 20),     # non-causal decode
+    (2, 4, 1, 1, 1, 32, True, None, 0),         # decode, a one-key cache
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
                               window, q_offset):
@@ -69,6 +77,55 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 50])
+@pytest.mark.parametrize("group", [1, 2, 16])
+@pytest.mark.parametrize("pos", [0, 63, 64, 127, 128])
+def test_decode_kernel_at_split_boundaries(cuda, dtype, pos, group, window):
+    """Decode against a 150-key cache (not a multiple of the 64-key split)
+    on both sides of split boundaries; a window of 50 crosses one.  Held
+    against both plain versions: the model's and the decode kernel's."""
+    rng = np.random.default_rng(pos * 3 + group)
+    B, Hkv, D = 2, 2, 64
+    q = _rand(rng, (B, 1, Hkv * group, D), dtype, cuda)
+    k = _rand(rng, (B, 150, Hkv, D), dtype, cuda)
+    v = _rand(rng, (B, 150, Hkv, D), dtype, cuda)
+    off = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    for plain in (flash_attention_plain, flash_attention_split_plain):
+        want = plain(q, k, v, window=window, q_offset=off)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_is_deterministic(cuda, dtype):
+    """Two decode calls in a row give the same bits: the partials merge in
+    split order, and the tickets are back at 0 after each launch."""
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (4, 1, 16, 128), dtype, cuda)
+    k = _rand(rng, (4, 1024, 8, 128), dtype, cuda)
+    v = _rand(rng, (4, 1024, 8, 128), dtype, cuda)
+    off = torch.tensor(1000, dtype=torch.int32, device=cuda)
+    outs = [flash_attention_cuda(q, k, v, q_offset=off) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_prefill_at_the_main_path_shape(cuda):
+    """qwen3's prefill: 4 x 512, 16 / 8 heads, head dim 128, bf16."""
+    rng = np.random.default_rng(9)
+    q = _rand(rng, (4, 512, 16, 128), torch.bfloat16, cuda)
+    k = _rand(rng, (4, 512, 8, 128), torch.bfloat16, cuda)
+    v = _rand(rng, (4, 512, 8, 128), torch.bfloat16, cuda)
+    got = flash_attention_cuda(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_kernel_reads_the_offset_on_the_device(cuda):
     """The query offset is read by the kernel, not by the host: changing
     the device scalar in place changes the mask of the next launch."""
@@ -85,17 +142,37 @@ def test_kernel_reads_the_offset_on_the_device(cuda):
     assert not torch.allclose(a, b)
 
 
-def test_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("Sq", [1, 6])
+def test_kernel_reads_strided_views(cuda, Sq):
     """The model's layout is read through strides: a per-layer slice of a
-    stacked cache goes in without a copy."""
+    stacked cache goes in without a copy, to either kernel, and so does a
+    query sliced out of a wider projection."""
     rng = np.random.default_rng(2)
-    cache = _rand(rng, (3, 2, 48, 2, 128), torch.bfloat16, cuda)
-    q = _rand(rng, (2, 1, 4, 128), torch.bfloat16, cuda)
-    off = torch.tensor(40, dtype=torch.int32, device=cuda)
+    cache = _rand(rng, (3, 2, 200, 2, 128), torch.bfloat16, cuda)
+    q = _rand(rng, (2, Sq, 8, 128), torch.bfloat16, cuda)[:, :, 2:6]
+    off = torch.tensor(140, dtype=torch.int32, device=cuda)
     got = flash_attention_cuda(q, cache[1], cache[2], q_offset=off)
     want = flash_attention_plain(q, cache[1], cache[2], q_offset=off)
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
+    """Neither kernel takes fp16, head dim 256 or a group over 64: the
+    wrapper raises before a launch, and nothing falls back."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda)  # noqa
+    before = flash_attention_cuda.launches
+    with pytest.raises(TypeError):
+        flash_attention_cuda(z(1, Sq, 2, 64, dt=torch.float16),
+                             *[z(1, 8, 1, 64, dt=torch.float16)] * 2)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(z(1, Sq, 2, 256), *[z(1, 8, 1, 256)] * 2)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention_cuda(z(1, Sq, 128, 64), *[z(1, 8, 1, 64)] * 2)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_cuda(z(1, Sq, 2, 64), *[z(1, 8, 1, 68)[..., :64]] * 2)
+    assert flash_attention_cuda.launches == before
 
 
 def test_smoke_model_on_cuda_matches_cpu(cuda):

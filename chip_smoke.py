@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -82,6 +83,26 @@ REL_LAYER_PLAIN = 1e-3
 REL_LAYER_DECODE = 3e-2
 #: K2's kernel name, as the profiler shows it.
 K2_NAMES = ("ssm_scan_kernel",)
+
+#: K1's backward against autograd of the plain version in f32 on the same
+#: inputs.  f32: only the order of the sums differs.  bf16: the kernels
+#: round P and dS to bf16 for their products and the gradients to bf16, so
+#: each gradient is held by its relative L2 error.  The log-sum-exp the
+#: forward writes: f32 from the same inputs, sum order and exp2 differ.
+BWD_TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+BWD_REL_BF16 = 1e-2
+LSE_TOL = dict(rtol=1e-4, atol=1e-4)
+#: The training path: qwen3-1.7b at full width, f32 master weights and
+#: AdamW moments, bf16 compute, 8 × 1024 tokens a step.
+TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
+#: While the final save commits, the step-3 and step-5 state files
+#: (20.65 GB each) are both on disk.
+TRAIN_DISK_NEED = 45e9
+#: Step 0's loss and global gradient norm through K1 against the same step
+#: through the plain attention (28 layers in bf16, the plain version's
+#: rounding of p per 512-key chunk against the kernel's per 64 keys).
+TOL_TRAIN = dict(rtol=1e-2, atol=1e-2)
 
 
 def fail(msg: str) -> None:
@@ -354,7 +375,7 @@ def _kernel_name(mangled: str) -> str:
     targs = rest[1:rest.index("EEv")]
     args = (["bf16"] if "bfloat16" in targs
             else ["f32"] if targs.startswith("f") else [])
-    args += re.findall(r"Li(\d+)E", targs)
+    args += re.findall(r"L[ib](\d+)E", targs)   # ints, then bool flags
     return f"{parts[-1]}<{', '.join(args)}>"
 
 
@@ -416,6 +437,147 @@ def scan_checks(torch, ss, cfg):
           f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no "
           f"library call computes it")
     return [rec]
+
+
+def hold_grad(got, want, dtype, what: str) -> float:
+    """A kernel gradient against the f32 plain one: f32 within BWD_TOL_F32,
+    bf16 within BWD_REL_BF16 relative L2.  Returns the error held."""
+    import torch
+    if dtype == torch.float32:
+        return assert_close(got, want, BWD_TOL_F32, what)
+    check(got.dtype == dtype, f"{what}: dtype {got.dtype}")
+    norm = want.float().norm().item()
+    if norm == 0:
+        check(max_err(got, want) == 0, f"{what}: nonzero where none is due")
+        return 0.0
+    rel = rel_err(got, want)
+    check(rel <= BWD_REL_BF16, f"{what}: relative L2 {rel} > {BWD_REL_BF16}")
+    return rel
+
+
+def bwd_checks(torch, fa):
+    """K1's forward log-sum-exp and its backward kernels against the plain
+    versions (f32 and bf16; D 16, 64, 128; groups 1 to 8; causal or not; a
+    window; ragged S; the training shape), two calls bit-equal, then the
+    backward's times at the training shape beside the plain version's,
+    SDPA's backward and the bound."""
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.float32).to(dtype)
+
+    cases = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
+        (2, 4, 2, 16, 16, 16, True, None, 0),       # the smoke configs' shape
+        (1, 8, 8, 70, 70, 64, True, None, 0),       # group 1, ragged
+        (1, 16, 2, 100, 100, 128, True, None, 0),   # group 8
+        (1, 4, 2, 20, 100, 64, False, None, 0),     # non-causal, Sq != Skv
+        (2, 4, 4, 130, 130, 64, True, 16, 0),       # sliding window
+        (1, 4, 2, 200, 200, 128, True, 70, 0),      # window edge in a tile
+        (2, 4, 2, 5, 40, 16, True, 8, 30),          # offset and window
+        (2, 16, 8, 300, 300, 128, True, None, 0),   # qwen3's heads, ragged
+    ]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    lse_worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, h, hkv, Sq, Skv, d, causal, window, q_off in cases:
+            q, dout = (rand(B, Sq, h, d, dtype=dtype) for _ in range(2))
+            k, v = (rand(B, Skv, hkv, d, dtype=dtype) for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=q_off)
+            what = f"K1 bwd {dtype} B{B} H{h}/{hkv} Sq{Sq} Skv{Skv} D{d} {kw}"
+            out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+            lse_worst = max(lse_worst, assert_close(
+                lse, fa.lse_plain(q, k, v, **kw), LSE_TOL, f"{what} lse"))
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: two calls differ")
+            want = fa.flash_attention_bwd_plain(q, k, v, dout, **kw)
+            for name, g, w in zip("qkv", got, want):
+                worst[dtype] = max(worst[dtype],
+                                   hold_grad(g, w, dtype, f"{what} d{name}"))
+            del got, again, want
+    print(f"K1 bwd: {len(cases)} shapes x f32, bf16 pass, two calls "
+          f"bit-equal; lse max abs err {lse_worst} (tol {LSE_TOL}); dq, dk, "
+          f"dv f32 max abs err {worst[torch.float32]} (tol {BWD_TOL_F32}), "
+          f"bf16 relative L2 <= {worst[torch.bfloat16]} (limit "
+          f"{BWD_REL_BF16})")
+
+    # the training shape (qwen3's heads, 8 x 1024, causal, bf16), timed
+    B, S, H, Hkv, D = TRAIN_B, TRAIN_S, 16, 8, 128
+    bf16 = torch.bfloat16
+    q, dout = (rand(B, S, H, D, dtype=bf16) for _ in range(2))
+    k, v = (rand(B, S, Hkv, D, dtype=bf16) for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    assert_close(lse, fa.lse_plain(q, k, v), LSE_TOL, "K1 lse, train shape")
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K1 bwd, train shape: two calls differ")
+    want = fa.flash_attention_bwd_plain(q, k, v, dout)
+    rels = [hold_grad(g, w, bf16, f"K1 bwd train shape d{name}")
+            for name, g, w in zip("qkv", got, want)]
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    del want, again
+    sdpa = sdpa_gqa(torch)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = sdpa(qh, kh, vh, is_causal=True)
+    doh = dout.transpose(1, 2)
+    lib = torch.autograd.grad(lib_out, (qh, kh, vh), doh, retain_graph=True)
+    for name, g, w in zip("qkv", got, lib):
+        check(rel_err(g, w.transpose(1, 2)) <= BWD_REL_BF16,
+              f"SDPA backward yardstick disagrees (d{name})")
+    backend = library_backend(torch, lambda: torch.autograd.grad(
+        lib_out, (qh, kh, vh), doh, retain_graph=True))
+    flops = 5 * 2 * B * H * D * (S * (S + 1) // 2)
+    nbytes = (2 * (3 * q.numel() + 2 * k.numel())   # q, o, dO, k, v read
+              + 4 * lse.numel()                       # lse read
+              + 2 * (q.numel() + 2 * k.numel()))      # dq, dk, dv written
+    rec = dict(
+        shape=f"train B{B} S{S} H{H}/{Hkv} D{D} causal bf16",
+        kernel="flash_bwd_preprocess_kernel + flash_bwd_dkdv_kernel + "
+               "flash_bwd_dq_kernel", max_abs_err=max(errs),
+        max_abs_err_dq_dk_dv=errs, rel_err_dq_dk_dv=rels,
+        library=f"SDPA backward ({backend})",
+        fwd_lse_ms=device_time_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, with_lse=True), 50),
+        fwd_ms=device_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 50),
+        **timings(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                      lse),
+                  lambda: fa.flash_attention_bwd_plain(q, k, v, dout),
+                  lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                              retain_graph=True), 30),
+        **bound(nbytes, flops, PEAK_BF16_FLOPS))
+    print(f"K1 bwd {rec['shape']}: dq, dk, dv relative L2 {rels} (limit "
+          f"{BWD_REL_BF16}), max abs err {errs} vs the f32 plain gradient, "
+          f"two calls bit-equal; device ms {rec['ms']:.5f} (3 kernels) plain "
+          f"{rec['plain_ms']:.5f} {rec['library']} {rec['library_ms']:.5f} "
+          f"bound {rec['bound_ms']:.5f} ({rec['bound_by']}, {flops} FLOP, "
+          f"{nbytes} B); per call ms {rec['call_ms']:.5f} plain "
+          f"{rec['plain_call_ms']:.5f} sdpa {rec['library_call_ms']:.5f}; "
+          f"K1 forward with lse {rec['fwd_lse_ms']:.5f} ms, without "
+          f"{rec['fwd_ms']:.5f} ms")
+    return [rec, dict(shape="checks", max_abs_err=worst[torch.float32],
+                      bf16_rel_err=worst[torch.bfloat16],
+                      lse_max_abs_err=lse_worst)]
+
+
+def library_backend(torch, fn) -> str:
+    """The name of the heaviest kernel one ``fn()`` launches: which of
+    PyTorch's attention backends served it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(device_rows(prof), key=lambda e: -e.self_device_time_total)
+    return rows[0].key[:100] if rows else "no device rows"
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -952,7 +1114,287 @@ def falcon_path(torch, k1, k2, tmp):
     return launches, serve
 
 
-def kernel_entry(name, source, replaces, names, launches, records, serve):
+# ------------------------------------------------------ the training path --
+def checksums(torch, tree):
+    """An exact checksum of every leaf: the int64 sum of its bits read as
+    integers of its own width, on the device."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    names, sums = [], []
+    for name, t in flatten_named(tree)[0]:
+        names.append(name)
+        sums.append(t.detach().view(ints[t.element_size()]).to(
+            torch.int64).sum())
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def train_step0_check(torch, cfg, data):
+    """Step 0 of the run, computed apart from it on the same weights and
+    batch: the loss and every leaf's gradient norm through K1, then the
+    loss and global gradient norm with the plain attention patched in."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm, lm
+    cuda = torch.device("cuda")
+    params = init_lm(cfg, SEED, device=cuda)
+    batch = data.sharded_batch(0, cuda)
+    named = flatten_named(params)[0]
+
+    def loss_and_norms():
+        leaves = [p.requires_grad_() for _, p in named]
+        loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                          loss_chunk=TRAIN_CHUNK)
+        grads = torch.autograd.grad(loss, leaves)
+        norms = torch.stack([g.float().norm() for g in grads]).tolist()
+        return loss.item(), norms
+
+    loss, norms = loss_and_norms()
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        loss_plain, norms_plain = loss_and_norms()
+    del params
+    gnorm = sum(n * n for n in norms) ** 0.5
+    gnorm_plain = sum(n * n for n in norms_plain) ** 0.5
+    by_name = {name: n for (name, _), n in zip(named, norms)}
+    bad = [k_ for k_, n in by_name.items()
+           if not (n > 0 and n < float("inf"))]
+    check(not bad, f"step 0: zero or non-finite gradient norms: {bad}")
+    attn = {k_: v_ for k_, v_ in by_name.items() if "attn/" in k_}
+    for part in ("wq", "wk", "wv", "q_norm", "k_norm"):
+        check(f"layers/attn/{part}" in attn, f"no gradient for attn/{part}")
+    for what, a, b in (("loss", loss, loss_plain),
+                       ("global gradient norm", gnorm, gnorm_plain)):
+        check(abs(a - b) <= TOL_TRAIN["atol"] + TOL_TRAIN["rtol"] * abs(b),
+              f"step 0 {what}: K1 {a} vs plain attention {b} beyond "
+              f"{TOL_TRAIN}")
+    print(f"train step 0 (apart from the run, same weights and batch): loss "
+          f"{loss} (plain attention {loss_plain}; ln vocab "
+          f"{math.log(cfg.vocab):.4f}), global grad norm {gnorm} (plain "
+          f"{gnorm_plain}), tol {TOL_TRAIN}; all {len(named)} leaves have "
+          f"finite nonzero gradient norms; attention: " + ", ".join(
+              f"{k_.split('/')[-1]} {v_:.4g}" for k_, v_ in attn.items()))
+    return dict(loss=loss, loss_plain=loss_plain, grad_norm=gnorm,
+                grad_norm_plain=gnorm_plain, leaf_grad_norms=by_name)
+
+
+def train_run(torch, cfg, loop, opt, spies, hooks):
+    """One ``repro_torch.train.loop.train`` call on the card, with the
+    checkpoint manager's snapshot, background write and restore timed."""
+    from repro_torch.checkpoint import manager as mgr_mod
+    from repro_torch.train.loop import train
+    real_snapshot = mgr_mod.snapshot_to_host
+    real_write = mgr_mod.CheckpointManager._write_and_commit
+    real_restore = mgr_mod.CheckpointManager.restore_or_init
+
+    def snapshot(tree, pinned=None):
+        t0 = time.perf_counter()
+        out = real_snapshot(tree, pinned)
+        spies["snapshot_s"].append(time.perf_counter() - t0)
+        return out
+
+    def write(self, step, host_tree, aux_extra):
+        t0 = time.perf_counter()
+        real_write(self, step, host_tree, aux_extra)
+        spies["write_s"].append(time.perf_counter() - t0)
+        spies["file_bytes"].append(os.path.getsize(self.path_for(step)))
+
+    def restore_or_init(self, init_fn, like=None, *, device=None):
+        t0 = time.perf_counter()
+        tree, step = real_restore(self, init_fn, like, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if step >= 0:
+            spies["restored"] = dict(
+                step=step, s=dt, sums=checksums(torch, tree),
+                file_bytes=os.path.getsize(self.path_for(step)))
+        spies["t_mark"] = time.perf_counter()
+        return tree, step
+
+    with mock.patch.object(mgr_mod, "snapshot_to_host", snapshot), \
+            mock.patch.object(mgr_mod.CheckpointManager, "_write_and_commit",
+                              write), \
+            mock.patch.object(mgr_mod.CheckpointManager, "restore_or_init",
+                              restore_or_init):
+        return train(cfg, loop, opt, seq_len=TRAIN_S,
+                     global_batch=TRAIN_B, hooks=hooks, device="cuda")
+
+
+def train_profile(torch, cfg, state, opt, data, k1_names, bwd_names):
+    """One more step on the final state under the profiler: device busy
+    time, idle share, K1's forward and backward shares, the heaviest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.step import make_train_step
+    step_fn = make_train_step(cfg, opt, loss_chunk=TRAIN_CHUNK)
+    batch = data.sharded_batch(TRAIN_STEPS, torch.device("cuda"))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step_fn(state["params"], state["opt"], batch)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in device_rows(prof)), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+
+    def share(names):
+        mine = [r for r in rows if any(n in r[0] for n in names)]
+        return sum(r[1] for r in mine), sum(r[2] for r in mine)
+
+    fwd_ms, fwd_n = share(k1_names)
+    bwd_ms, bwd_n = share(bwd_names)
+    gemm_ms, _ = share(("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
+    print(f"train step breakdown (profiled, 1 step): wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.4f}); "
+          f"K1 forward {fwd_ms:.3f} ms in {fwd_n} launches "
+          f"({fwd_ms / busy:.4f} of busy), K1 backward {bwd_ms:.3f} ms in "
+          f"{bwd_n} launches ({bwd_ms / busy:.4f}), matmuls {gemm_ms:.3f} "
+          f"ms ({gemm_ms / busy:.4f}), the rest "
+          f"{busy - fwd_ms - bwd_ms - gemm_ms:.3f} ms")
+    for name, ms, n in rows[:10]:
+        print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                k1_fwd_ms=fwd_ms, k1_fwd_launches=fwd_n, k1_bwd_ms=bwd_ms,
+                k1_bwd_launches=bwd_n, gemm_ms=gemm_ms,
+                other_ms=busy - fwd_ms - bwd_ms - gemm_ms,
+                top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
+                     for r in rows[:10]])
+
+
+def train_path(torch, k1, k1b, k2, tmp):
+    """qwen3-1.7b trained at full width through ``train()``: run 1 dies
+    after step 3's save commits, run 2 resumes from it bit-exactly and
+    finishes steps 4 and 5 with a blocking save.  Returns (K1 forward
+    launches, K1 backward launches, record)."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention import (BWD_KERNEL_NAMES,
+                                                     BWD_LAUNCHES_PER_CALL,
+                                                     KERNEL_NAMES)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig
+    cfg = get_config(QWEN)
+    free = shutil.disk_usage(tmp).free
+    check(free >= TRAIN_DISK_NEED, f"{tmp} has {free} B free; two state "
+          f"checkpoints of {cfg.name} need about {TRAIN_DISK_NEED:.0f} B")
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                      global_batch=TRAIN_B, seed=SEED))
+    step0 = train_step0_check(torch, cfg, data)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(tmp, "train")
+    loop = TrainLoopConfig(total_steps=TRAIN_STEPS,
+                           ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir,
+                           ckpt_keep=1, log_every=1, seed=SEED)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    spies = dict(snapshot_s=[], write_s=[], file_bytes=[])
+    steps = {}   # step -> (loss, seconds since the previous mark, K1, bwd)
+    at_die = {}
+
+    def on_step(step, state, metrics):
+        now = time.perf_counter()
+        steps[step] = (float(metrics["loss"]), now - spies["t_mark"],
+                       k1.launches, k1b.launches)
+        spies["t_mark"] = now
+        if step == TRAIN_DIE_AT:
+            at_die.update(checksums(torch, state))
+
+    hooks = dict(on_step=on_step, should_die=lambda s: s == TRAIN_DIE_AT)
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1b.launches = k2.launches = 0     # the main path starts
+    died = False
+    try:
+        train_run(torch, cfg, loop, opt, spies, hooks)
+    except SystemExit as e:
+        died = str(e) == f"injected failure at step {TRAIN_DIE_AT}"
+    check(died, f"run 1 did not die at step {TRAIN_DIE_AT}")
+    gc.collect()   # run 1's manager and state
+    run1_files = sorted(os.listdir(ckpt_dir))
+    check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
+          f"run 1 left {run1_files}")
+    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step))
+    fwd, bwd, k2_launches = k1.launches, k1b.launches, k2.launches  # ends
+    peak = torch.cuda.max_memory_allocated()
+    out["manager"].close()
+
+    check(k2_launches == 0, "the training path launched K2")
+    check(out["start_step"] == TRAIN_DIE_AT, f"run 2 started at "
+          f"{out['start_step']}, expected {TRAIN_DIE_AT}")
+    restored = spies["restored"]
+    check(restored["step"] == TRAIN_DIE_AT and restored["sums"] == at_die,
+          "the restored state is not bit-equal to step 3's")
+    check(sorted(steps) == list(range(TRAIN_STEPS)), f"steps {sorted(steps)}")
+    losses = [steps[i][0] for i in range(TRAIN_STEPS)]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 1.5,
+          f"step 0 loss {losses[0]} is not within 1.5 of ln vocab")
+    check(abs(losses[0] - step0["loss"]) <= 1e-3,
+          f"run's step 0 loss {losses[0]} vs the step apart {step0['loss']}")
+    # launches per step: the forward twice a layer (and again in the
+    # checkpointed recompute), the backward's kernels once a layer
+    per_fwd, per_bwd = 2 * cfg.n_layers, BWD_LAUNCHES_PER_CALL * cfg.n_layers
+    prev = (0, 0)
+    for i in range(TRAIN_STEPS):   # a restore launches no kernel
+        got = (steps[i][2] - prev[0], steps[i][3] - prev[1])
+        check(got == (per_fwd, per_bwd), f"step {i} launched K1 {got[0]} "
+              f"times and its backward {got[1]}, expected {per_fwd}, "
+              f"{per_bwd}")
+        prev = steps[i][2:]
+    check(fwd == TRAIN_STEPS * per_fwd and bwd == TRAIN_STEPS * per_bwd,
+          f"the training path launched K1 {fwd} and its backward {bwd} times")
+    final = sorted(os.listdir(ckpt_dir))
+    check(f"step_{TRAIN_STEPS - 1:010d}.scda" in final
+          and f"step_{TRAIN_DIE_AT:010d}.scda" not in final,
+          f"after the final save: {final}")
+
+    # times: steps 1 to 5 (step 0 is the first call; no step's interval
+    # holds a save: step 3's comes after its on_step)
+    step_s = statistics.median(steps[i][1] for i in range(1, TRAIN_STEPS))
+    tokens = TRAIN_B * TRAIN_S
+    n_params = cfg.param_count()
+    flops_per_token = 6 * n_params + 6 * cfg.n_layers * cfg.n_heads \
+        * cfg.head_dim * TRAIN_S
+    mfu = flops_per_token * tokens / step_s / PEAK_BF16_FLOPS
+    state_bytes = spies["file_bytes"][0]
+    snap_s, write_s = spies["snapshot_s"], spies["write_s"]
+    rec = dict(
+        losses=losses, step_s=[steps[i][1] for i in range(TRAIN_STEPS)],
+        step_median_s=step_s, tokens_per_s=tokens / step_s, train_mfu=mfu,
+        mfu_formula="(6 N + 6 L H D S) x tokens / step time / 989e12, no "
+                    "remat counted", params=n_params,
+        launches_per_step=dict(k1_fwd=per_fwd, k1_bwd=per_bwd),
+        snapshot_s=snap_s, write_s=write_s, file_bytes=spies["file_bytes"],
+        write_mb_s=[b / s / 1e6 for b, s in zip(spies["file_bytes"],
+                                                 write_s)],
+        restore_s=restored["s"],
+        restore_mb_s=restored["file_bytes"] / restored["s"] / 1e6,
+        peak_bytes=peak, step0=step0)
+    print(f"train {cfg.name}: B{TRAIN_B} S{TRAIN_S} loss_chunk {TRAIN_CHUNK}"
+          f", {TRAIN_STEPS} steps in two runs; losses {losses}; step time "
+          f"median {step_s * 1e3:.3f} ms over steps 1-5 (all: "
+          f"{[round(s * 1e3, 3) for s in rec['step_s']]} ms), "
+          f"{tokens / step_s:.1f} tokens/s, train_mfu {mfu:.4f} "
+          f"({rec['mfu_formula']}, N {n_params}); K1 {per_fwd} forward and "
+          f"{per_bwd} backward launches per step; peak memory {peak} B")
+    print(f"train checkpoints: state file {state_bytes} B; snapshot (sync) "
+          f"{snap_s} s; background write {write_s} s "
+          f"({[round(x, 1) for x in rec['write_mb_s']]} MB/s); restore "
+          f"{restored['s']:.3f} s ({rec['restore_mb_s']:.1f} MB/s); resumed "
+          f"at step {out['start_step']}, {len(at_die)} leaves bit-equal")
+    rec["profile"] = train_profile(torch, cfg, out["state"], opt, data,
+                                   KERNEL_NAMES, BWD_KERNEL_NAMES)
+    del out
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return fwd, bwd, rec
+
+
+def kernel_entry(name, source, replaces, names, launches, records, path):
     head = records[0]
     return dict(
         name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
@@ -961,7 +1403,7 @@ def kernel_entry(name, source, replaces, names, launches, records, serve):
         max_abs_err=max(r["max_abs_err"] for r in records), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shapes=records, serve=serve)
+        shapes=records, path=path)
 
 
 def main() -> int:
@@ -988,19 +1430,23 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ss
     t0 = time.perf_counter()
-    build.load_all([fa.SOURCE, ss.SOURCE])
-    print(f"built {fa.SOURCE} and {ss.SOURCE} in parallel in "
+    sources = [fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE]
+    build.load_all(sources)
+    print(f"built {', '.join(sources)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-    for source in (fa.SOURCE, ss.SOURCE):
+    for source in sources:
         for line in ptxas_summary(build.build_report(source)[1]):
             print(f"  ptxas {source}: {line}")
     sys.stdout.flush()
 
     k1_records = kernel_checks(torch, fa)
     k2_records = scan_checks(torch, ss, get_config(FALCON))
+    bwd_records = bwd_checks(torch, fa)
 
-    k1, k2 = fa.flash_attention_cuda, ss.ssm_scan_cuda
+    k1, k1b, k2 = (fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
+                   ss.ssm_scan_cuda)
     tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
+    k1b.launches = 0   # the serve paths must not launch the backward
     try:
         with torch.inference_mode():
             k1_launches, qwen_serve = qwen_path(torch, k1, k2, tmp)
@@ -1009,13 +1455,25 @@ def main() -> int:
             print(f"device memory allocated before {FALCON}: "
                   f"{torch.cuda.memory_allocated()} B")
             k2_launches, falcon_serve = falcon_path(torch, k1, k2, tmp)
+            check(k1b.launches == 0, "a serve path launched K1's backward")
+        gc.collect()
+        torch.cuda.empty_cache()   # falcon's weights are gone
+        print(f"device memory allocated before training: "
+              f"{torch.cuda.memory_allocated()} B")
+        train_fwd, train_bwd, train = train_path(torch, k1, k1b, k2, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    qwen_serve["train_launches"] = train_fwd
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
-                     fa.KERNEL_NAMES, k1_launches, k1_records, qwen_serve),
+                     fa.KERNEL_NAMES, k1_launches + train_fwd, k1_records,
+                     qwen_serve),
+        kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
+                     "none: the gradient of src/repro/models/layers.py:115 "
+                     "by autodiff", fa.BWD_KERNEL_NAMES, train_bwd,
+                     bwd_records, train),
         kernel_entry("ssm_scan", ss.SOURCE,
                      "src/repro/kernels/ssm_scan.py:45", K2_NAMES,
                      k2_launches, k2_records, falcon_serve)]

@@ -48,6 +48,14 @@
 //    (deterministic), writes the output and sets the ticket back to 0.
 //  * flash_prefill_f32_kernel (Sq > 1, f32): the plain FMA path, with S,
 //    P and the accumulator in shared memory; it serves the f32 checks.
+//
+// For training, both prefill kernels can also write each row's
+// log-sum-exp, the statistic the backward (flash_attention_bwd.cu)
+// recomputes P from: lse[b, h, i] = log2(sum_j exp2(s_ij * log2(e))) with
+// s = q.k^T/sqrt(D), that is the natural log-sum-exp times log2(e), in the
+// base-2 units the bf16 kernel works in; -inf for a row with no valid key.
+// In the bf16 kernel it is a template flag, so the serving instantiation
+// carries no extra store.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -150,12 +158,13 @@ struct PrefillSmem {
 
 // 3 blocks of 128 threads per SM: at most 168 registers a thread (ptxas
 // spills a few bytes at D = 128) and 3 x 69,632 B of shared memory.
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NT, 3)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, int B,
                      int Sq, int Skv, int Hkv, int group, int n_qt, int causal, int window,
-                     const int* __restrict__ q_offset_dev, int q_offset, float scale_log2) {
+                     const int* __restrict__ q_offset_dev, int q_offset, float scale_log2,
+                     float* __restrict__ lse) {
   using SM = PrefillSmem<D>;
   constexpr int LD = SM::LD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -317,6 +326,12 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     den[h] = fmaxf(l, 1e-37f);
+    if (LSE && t4 == 0) {  // (B, H, Sq), base 2; -inf where no key is valid
+      const int row = warp * 16 + g + 8 * h;
+      if (row < nrows)
+        lse[((long long)b * Hkv * group + hk * group + row % group) * Sq + q0 + row / group] =
+            l > 0.f ? fmaf(m_row[h], scale_log2, log2f(l)) : -INFINITY;
+    }
   }
   bf16* sO = sQ + warp * 16 * LD;
 #pragma unroll
@@ -358,7 +373,8 @@ __global__ void __launch_bounds__(NT)
 flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o, Strides st,
                          int Sq, int Skv, int group, int causal, int window,
-                         const int* __restrict__ q_offset_dev, int q_offset, float scale) {
+                         const int* __restrict__ q_offset_dev, int q_offset, float scale,
+                         float* __restrict__ lse) {
   using SM = F32Smem<D>;
   constexpr int LDT = SM::LDT, LDS = SM::LDS, RPW = BM / NWARPS;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -460,6 +476,10 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     o[b * st.o_b + (long long)(q0 + r / group) * st.o_s + (long long)(hk * group + r % group) * st.o_h +
       d] = sO[r * LDT + d] / fmaxf(sL[r], 1e-37f);
   }
+  if (lse != nullptr)  // (B, H, Sq), base 2; -inf where no key is valid
+    for (int r = tid; r < nrows; r += NT)
+      lse[((long long)b * gridDim.y * group + hk * group + r % group) * Sq + q0 + r / group] =
+          sL[r] > 0.f ? (sM[r] + logf(sL[r])) * 1.4426950408889634f : -INFINITY;
 }
 
 // ------------------------------------------------------------------- decode --
@@ -697,24 +717,39 @@ int allow_smem(Kernel kernel, int bytes, unsigned long long* done) {
   return (int)err;
 }
 
+template <int D, bool LSE>
+int launch_prefill_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                        int B, int Sq, int Skv, int Hkv, int group, int n_qt, int causal,
+                        int window, const int* q_offset_dev, int q_offset, float scale,
+                        float* lse, cudaStream_t stream) {
+  constexpr int bytes = PrefillSmem<D>::BYTES;
+  static unsigned long long done = 0;
+  int err = allow_smem(flash_prefill_kernel<D, LSE>, bytes, &done);
+  if (err) return err;
+  const float log2e = 1.4426950408889634f;
+  flash_prefill_kernel<D, LSE><<<n_qt * Hkv * B, NT, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), st, B, Sq, Skv, Hkv, group, n_qt, causal, window, q_offset_dev,
+      q_offset, scale * log2e, lse);
+  return 0;
+}
+
 template <int D>
 int launch_prefill(int dtype, const void* q, const void* k, const void* v, void* o,
                    const Strides& st, int B, int Sq, int Skv, int H, int Hkv, int causal,
-                   int window, const int* q_offset_dev, int q_offset, float scale,
+                   int window, const int* q_offset_dev, int q_offset, float scale, float* lse,
                    cudaStream_t stream) {
   const int group = H / Hkv;
   const int positions = BM / group;
   const int n_qt = (Sq + positions - 1) / positions;
   if (dtype == 1) {
-    constexpr int bytes = PrefillSmem<D>::BYTES;
-    static unsigned long long done = 0;
-    int err = allow_smem(flash_prefill_kernel<D>, bytes, &done);
+    const int err = lse ? launch_prefill_bf16<D, true>(q, k, v, o, st, B, Sq, Skv, Hkv, group,
+                                                       n_qt, causal, window, q_offset_dev,
+                                                       q_offset, scale, lse, stream)
+                        : launch_prefill_bf16<D, false>(q, k, v, o, st, B, Sq, Skv, Hkv, group,
+                                                        n_qt, causal, window, q_offset_dev,
+                                                        q_offset, scale, nullptr, stream);
     if (err) return err;
-    const float log2e = 1.4426950408889634f;
-    flash_prefill_kernel<D><<<n_qt * Hkv * B, NT, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), st, B, Sq, Skv, Hkv, group, n_qt, causal, window, q_offset_dev,
-        q_offset, scale * log2e);
   } else {
     constexpr int bytes = F32Smem<D>::BYTES;
     static unsigned long long done = 0;
@@ -723,7 +758,7 @@ int launch_prefill(int dtype, const void* q, const void* k, const void* v, void*
     flash_prefill_f32_kernel<D><<<dim3(n_qt, Hkv, B), NT, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), st, Sq, Skv, group, causal,
-        window, q_offset_dev, q_offset, scale);
+        window, q_offset_dev, q_offset, scale, lse);
   }
   return (int)cudaGetLastError();
 }
@@ -758,20 +793,21 @@ Strides to_strides(const long long* s) {
 // q_offset plus *q_offset_dev when that pointer is not null.  Each returns
 // 0, a cudaError_t, or -1 / -2 for an unsupported dtype / head dim.
 
-// Sq > 1: the tensor-core kernel for bf16, the FMA kernel for f32.
+// Sq > 1: the tensor-core kernel for bf16, the FMA kernel for f32.  lse,
+// when not null, receives (B, H, Sq) f32 log-sum-exps (base 2, see above).
 extern "C" int repro_flash_prefill(int dtype, int D, const void* q, const void* k,
                                    const void* v, void* o, const long long* strides, int B,
                                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                                    const int* q_offset_dev, int q_offset, float scale,
-                                   void* stream) {
+                                   float* lse, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_prefill<16>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, s);
-    case 32: return launch_prefill<32>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, s);
-    case 64: return launch_prefill<64>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, s);
-    case 128: return launch_prefill<128>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, s);
+    case 16: return launch_prefill<16>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
+    case 32: return launch_prefill<32>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
+    case 64: return launch_prefill<64>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
+    case 128: return launch_prefill<128>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     default: return -2;
   }
 }

@@ -16,6 +16,15 @@ card.  :func:`flash_attention_split_plain` repeats the decode kernel's
 arithmetic (per-split partials, merged in split order) for the tests.
 :data:`flash_attention_cuda` launches a kernel on CUDA tensors and raises
 on anything neither kernel takes; it never falls back.
+
+The gradient (``csrc/flash_attention_bwd.cu``, FlashAttention-2's
+backward: a preprocess, a dK/dV kernel and a dQ kernel) has no Pallas
+counterpart: JAX differentiates the plain ``flash_attention``.
+:data:`flash_attention_bwd_cuda` launches it from the prefill kernels'
+log-sum-exp (:func:`lse_plain` is that statistic's plain version,
+:func:`delta_plain` the preprocess's); its plain version is autograd of
+:func:`flash_attention_plain` (:func:`flash_attention_bwd_plain`).
+``ops.flash_attention`` ties the two kernels into autograd.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.runtime import needs_grad
+
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 64   # a prefill block's 64 rows hold at least one position
@@ -33,6 +44,15 @@ DECODE_SPLIT = 64   # keys per decode split (SPLIT in the source)
 #: The kernels' names, as a profiler shows them.
 KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
                 "flash_decode_kernel")
+BWD_SOURCE = "flash_attention_bwd.cu"
+#: The backward's kernels, as a profiler shows them: the preprocess, then
+#: dK/dV and dQ (tensor cores for bf16, FMA kernels for f32).
+BWD_KERNEL_NAMES = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dkdv_fma_kernel",
+                    "flash_bwd_dq_fma_kernel")
+#: Kernels one backward call launches, whatever the dtype.
+BWD_LAUNCHES_PER_CALL = 3
+LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 QOffset = Union[int, torch.Tensor]
@@ -169,6 +189,80 @@ def flash_attention_split_plain(q, k, v, *, causal: bool = True,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def lse_plain(q, k, v, *, causal: bool = True,
+              window: Optional[int] = None, q_offset: int = 0):
+    """The prefill kernels' log-sum-exp output, (B, H, Sq) f32: the
+    natural log-sum-exp of each row's valid scores q.k/sqrt(D), times
+    log2(e) (the base-2 units the backward recomputes P in); -inf for a
+    row with no valid key.  Same arguments as
+    :func:`flash_attention_plain`."""
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    kr = k.float().repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bshd,bchd->bhsc", q.float(), kr) / math.sqrt(D)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = kv_pos <= q_pos if causal else torch.ones_like(
+        kv_pos <= q_pos)
+    if window is not None:
+        mask = mask & ((q_pos - kv_pos) < window)
+    s = torch.where(mask, s, -math.inf)
+    return torch.logsumexp(s, dim=-1) * LOG2E
+
+
+def delta_plain(out, dout):
+    """The backward's preprocess: rowsum(dO * O) in f32, (B, H, Sq)."""
+    return (out.float() * dout.float()).sum(-1).transpose(1, 2)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
+                              window: Optional[int] = None, q_offset: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention_plain` by autograd, in f32
+    from q, k, v and dO upcast to f32: the version the backward kernels
+    are held against."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, window=window,
+                                    q_offset=q_offset)
+        return torch.autograd.grad(out, leaves, dout.float())
+
+
+def _check_qkv(q, k, v, what: str):
+    """The checks every K1 launch makes; returns (B, Sq, H, D, Skv, Hkv)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: q is on {q.device}, the kernel runs on "
+                         f"CUDA tensors only")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: q, k, v on different devices")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                        f"needs one of {sorted(map(str, _DTYPE_CODE))} for "
+                        f"all three")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{what}: shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Bk, Skv, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v "
+                         f"{tuple(k.shape)}")
+    if D not in HEAD_DIMS or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{what}: head dim {D} (takes {HEAD_DIMS}), group "
+                         f"{H // Hkv} (at most {MAX_GROUP})")
+    if not all(map(_aligned, (q, k, v))):
+        raise ValueError(f"{what}: q, k, v need a contiguous head dim and "
+                         f"16-byte aligned rows")
+    return B, Sq, H, D, Skv, Hkv
+
+
+def _check_window(window, what: str) -> None:
+    if window is not None and not isinstance(window, int):
+        raise TypeError(f"{what}: window must be an int or None")
+    if window is not None and window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """Head dim contiguous, every row start on a 16-byte boundary."""
     item = t.element_size()
@@ -199,7 +293,8 @@ class FlashAttentionKernel:
             prefill, decode = lib.repro_flash_prefill, lib.repro_flash_decode
             prefill.argtypes = (_COMMON_ARGS + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_float, ctypes.c_void_p])
+                                   ctypes.c_float, ctypes.c_void_p,
+                                   ctypes.c_void_p])
             decode.argtypes = (_COMMON_ARGS + [ctypes.c_int] * 6
                                + [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_float, ctypes.c_void_p,
@@ -224,40 +319,25 @@ class FlashAttentionKernel:
         return have
 
     def __call__(self, q, k, v, *, causal: bool = True,
-                 window: Optional[int] = None, q_offset: QOffset = 0):
+                 window: Optional[int] = None, q_offset: QOffset = 0,
+                 with_lse: bool = False):
         """Same contract as :func:`flash_attention_plain`, on CUDA tensors
-        of float32 or bfloat16 with head dim in :data:`HEAD_DIMS`."""
-        if q.device.type != "cuda":
-            raise ValueError(f"flash attention kernel: q is on {q.device}, "
-                             f"the kernel runs on CUDA tensors only")
-        if k.device != q.device or v.device != q.device:
-            raise ValueError("flash attention kernel: q, k, v on different "
-                             "devices")
-        if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-                or v.dtype != q.dtype:
-            raise TypeError(f"flash attention kernel: dtypes "
-                            f"{q.dtype}/{k.dtype}/{v.dtype}; needs one of "
-                            f"{sorted(map(str, _DTYPE_CODE))} for all three")
-        if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-            raise ValueError(f"flash attention kernel: shapes {tuple(q.shape)}"
-                             f" {tuple(k.shape)} {tuple(v.shape)}")
-        B, Sq, H, D = q.shape
-        Bk, Skv, Hkv, Dk = k.shape
-        if Bk != B or Dk != D or Hkv == 0 or H % Hkv:
-            raise ValueError(f"flash attention kernel: q {tuple(q.shape)} "
-                             f"does not match k/v {tuple(k.shape)}")
-        if D not in HEAD_DIMS or H // Hkv > MAX_GROUP:
-            raise ValueError(f"flash attention kernel: head dim {D} (takes "
-                             f"{HEAD_DIMS}), group {H // Hkv} (at most "
-                             f"{MAX_GROUP})")
-        if not all(map(_aligned, (q, k, v))):
-            raise ValueError("flash attention kernel: q, k, v need a "
-                             "contiguous head dim and 16-byte aligned rows")
-        if window is not None and not isinstance(window, int):
-            raise TypeError("flash attention kernel: window must be an int "
-                            "or None")
-        if window is not None and window < 0:
-            raise ValueError(f"flash attention kernel: window {window} < 0")
+        of float32 or bfloat16 with head dim in :data:`HEAD_DIMS`.
+
+        ``with_lse=True`` (Sq > 1 only) returns ``(out, lse)`` with the
+        rows' log-sum-exp as :func:`lse_plain` defines it.  The output
+        carries no gradient, so inputs that require one under grad mode
+        raise: ``ops.flash_attention`` is the differentiable entry.
+        """
+        what = "flash attention kernel"
+        B, Sq, H, D, Skv, Hkv = _check_qkv(q, k, v, what)
+        _check_window(window, what)
+        if needs_grad(q, k, v):
+            raise RuntimeError(f"{what}: q, k or v requires grad; its output "
+                               f"would drop it (call ops.flash_attention)")
+        if with_lse and Sq == 1:
+            raise ValueError(f"{what}: the decode kernel (Sq = 1) writes no "
+                             f"log-sum-exp")
         offset_ptr, offset = None, 0
         if isinstance(q_offset, torch.Tensor):
             if q_offset.device != q.device or q_offset.dtype != torch.int32 \
@@ -268,8 +348,10 @@ class FlashAttentionKernel:
         else:
             offset = int(q_offset)
         out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+               if with_lse else None)
         if out.numel() == 0:
-            return out
+            return (out, lse) if with_lse else out
         strides = (ctypes.c_longlong * 12)(*(
             s for t in (q, k, v, out) for s in t.stride()[:3]))
         common = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
@@ -287,14 +369,88 @@ class FlashAttentionKernel:
                              scratch.data_ptr(), tickets.data_ptr(),
                              plan.n_splits, stream)
             else:
-                err = prefill(*common, B, Sq, Skv, H, Hkv, *masks, stream)
+                err = prefill(*common, B, Sq, Skv, H, Hkv, *masks,
+                              None if lse is None else lse.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"flash attention kernel failed to launch "
                                f"(error {err})")
         self.launches += 1
-        return out
+        return (out, lse) if with_lse else out
+
+
+class FlashAttentionBwdKernel:
+    """The K1 backward kernels' wrapper.  ``launches`` counts kernel
+    launches: each call launches :data:`BWD_LAUNCHES_PER_CALL`."""
+
+    _PHASES = ("repro_flash_bwd_preprocess", "repro_flash_bwd_dkdv",
+               "repro_flash_bwd_dq")
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fns = None
+
+    def _functions(self):
+        if self._fns is None:
+            from repro_torch.kernels import build
+            lib = build.load(BWD_SOURCE)
+            fns = [getattr(lib, name) for name in self._PHASES]
+            for fn in fns:
+                fn.argtypes = ([ctypes.c_int, ctypes.c_int]
+                               + [ctypes.c_void_p] * 11
+                               + [ctypes.c_int] * 8
+                               + [ctypes.c_float, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            self._fns = fns
+        return self._fns
+
+    def __call__(self, q, k, v, out, dout, lse, *, causal: bool = True,
+                 window: Optional[int] = None, q_offset: int = 0):
+        """(dq, dk, dv) in q's dtype for :func:`flash_attention_plain`'s
+        output ``out`` and its gradient ``dout`` (both (B, Sq, H, D), rows
+        aligned as q's), from the forward's ``lse`` ((B, H, Sq) f32,
+        contiguous).  ``q_offset`` is a host int."""
+        what = "flash attention backward kernel"
+        B, Sq, H, D, Skv, Hkv = _check_qkv(q, k, v, what)
+        _check_window(window, what)
+        if isinstance(q_offset, torch.Tensor):
+            raise TypeError(f"{what}: q_offset must be a host int")
+        for name, t in (("out", out), ("dout", dout)):
+            if t.shape != q.shape or t.dtype != q.dtype \
+                    or t.device != q.device or not _aligned(t):
+                raise ValueError(f"{what}: {name} must match q's shape, "
+                                 f"dtype and device, with aligned rows")
+        if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+                or lse.device != q.device or not lse.is_contiguous():
+            raise ValueError(f"{what}: lse must be (B, H, Sq) float32, "
+                             f"contiguous, on q's device")
+        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+        if q.numel() == 0 or k.numel() == 0:
+            return dq.zero_(), dk.zero_(), dv.zero_()
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 24)(*(
+            s for t in (q, k, v, out, dout, dq, dk, dv)
+            for s in t.stride()[:3]))
+        args = (_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), ctypes.addressof(strides), B, Sq, Skv, H,
+                Hkv, int(bool(causal)), -1 if window is None else window,
+                int(q_offset), 1.0 / math.sqrt(D))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            for name, fn in zip(self._PHASES, self._functions()):
+                err = fn(*args, stream)
+                if err != 0:
+                    raise RuntimeError(f"{what}: {name} failed to launch "
+                                       f"(error {err})")
+                self.launches += 1
+        return dq, dk, dv
 
 
 #: The process's one K1 wrapper; ``flash_attention_cuda.launches`` is the
 #: count a run reads to show that its path went through the kernels.
 flash_attention_cuda = FlashAttentionKernel()
+#: The process's one K1 backward wrapper, counted the same way.
+flash_attention_bwd_cuda = FlashAttentionBwdKernel()

@@ -6,23 +6,64 @@ a CPU tensor goes to the kernel's plain torch version.  The choice follows
 the tensor's device and nothing else: there is no fallback from the card.
 The model's attention and Mamba1 blocks call this dispatcher, so on the
 card the kernels are on the model's path.
+
+Gradients: on the card, attention whose q, k or v requires grad goes
+through :class:`FlashAttentionFunction`, K1's forward with its log-sum-exp
+and K1's backward kernels; a case they do not cover (the decode kernel, a
+query offset held in a tensor) raises.  K2 has no backward yet and raises
+on inputs that require grad.  On the CPU autograd differentiates the plain
+versions.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels.flash_attention import (QOffset,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+from repro_torch.runtime import needs_grad
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 under autograd: the prefill kernel with its log-sum-exp forward,
+    the three backward kernels backward.  ``torch.utils.checkpoint``
+    re-runs the forward, so a remat'd layer launches it twice a step."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                q_offset: int):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(),
+                                              lse, **ctx.masks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, kv_chunk: int = 512,
                     q_offset: QOffset = 0):
-    """(B, S, H, D) attention: the K1 kernel on CUDA, the plain version on
-    the CPU (``kv_chunk`` sizes the plain version's chunks only)."""
+    """(B, S, H, D) attention: the K1 kernels on CUDA (forward, and the
+    backward when q, k or v requires grad), the plain version on the CPU
+    (``kv_chunk`` sizes the plain version's chunks only)."""
     if q.device.type == "cuda":
+        if needs_grad(q, k, v):
+            if q.shape[1] == 1 or isinstance(q_offset, torch.Tensor):
+                raise NotImplementedError(
+                    "flash attention: no backward kernel for the decode "
+                    "kernel (Sq = 1) or a query offset held in a tensor")
+            return FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                int(q_offset))
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)
     if q.device.type != "cpu":

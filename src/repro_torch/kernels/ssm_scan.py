@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import needs_grad
+
 SOURCE = "ssm_scan.cu"
 MAX_STATE = 32   # a channel's N states sit on the lanes of one warp
 MAX_BATCH = 65535  # the batch is the launch grid's y dimension
@@ -77,7 +79,8 @@ class SsmScanKernel:
     def __call__(self, decay, inc, C):
         """Same contract as :func:`ssm_scan_plain`, on contiguous CUDA
         tensors, all three float32 or all three bfloat16, N ≤
-        :data:`MAX_STATE`."""
+        :data:`MAX_STATE`.  Forward only: inputs that require grad under
+        grad mode raise (Mamba training comes with K2's backward)."""
         if decay.device.type != "cuda":
             raise ValueError(f"ssm scan kernel: decay is on {decay.device}, "
                              f"the kernel runs on CUDA tensors only")
@@ -94,6 +97,10 @@ class SsmScanKernel:
             raise ValueError(f"ssm scan kernel: shapes {tuple(decay.shape)} "
                              f"{tuple(inc.shape)} {tuple(C.shape)}; needs "
                              f"(B, S, d, N) twice and (B, S, N)")
+        if needs_grad(decay, inc, C):
+            raise NotImplementedError(
+                "ssm scan kernel: an input requires grad and K2 has no "
+                "backward yet; its output would drop the gradient")
         B, S, d, N = decay.shape
         if not 1 <= N <= MAX_STATE or B > MAX_BATCH:
             raise ValueError(f"ssm scan kernel: state size {N} (takes 1 to "

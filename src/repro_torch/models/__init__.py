@@ -2,7 +2,8 @@
 Mamba1 ssm families)."""
 from repro_torch.models.lm import (cast_params, compute_dtype, forward,
                                    forward_hidden, init_cache, init_lm,
-                                   param_bytes, serve_step, unembed)
+                                   lm_loss, param_bytes, serve_step, unembed)
 
 __all__ = ["cast_params", "compute_dtype", "forward", "forward_hidden",
-           "init_cache", "init_lm", "param_bytes", "serve_step", "unembed"]
+           "init_cache", "init_lm", "lm_loss", "param_bytes", "serve_step",
+           "unembed"]

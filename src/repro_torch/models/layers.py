@@ -28,6 +28,15 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 Params = Dict[str, Any]
 
 
+class _ShapesOnly:
+    """Stands in for a generator where only shapes and dtypes are wanted:
+    every draw is an empty tensor on the meta device."""
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
+
+
 def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
           dtype=torch.float32):
     """Normal(0, scale²) weights drawn in f32 and cast to ``dtype``,
@@ -35,6 +44,8 @@ def _init(gen: torch.Generator, shape, scale=None, *, stack: int = 0,
     many layers' copies along a leading axis."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = ((stack,) if stack else ()) + tuple(shape)
+    if gen is SHAPES_ONLY:
+        return torch.empty(full, dtype=dtype, device="meta")
     return (torch.randn(full, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
 

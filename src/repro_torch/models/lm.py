@@ -1,5 +1,6 @@
-"""The language model: init, prefill forward and cached decode — the port
-of the dense and ssm (Mamba1) branches of ``repro/models/lm.py``.
+"""The language model: init, prefill forward, cached decode and the
+training loss — the port of the dense and ssm (Mamba1) branches of
+``repro/models/lm.py``.
 
 Parameters are the reference's nested dict with layers *stacked* on a
 leading axis (``params["layers"]["attn"]["wq"]`` is ``(n_layers, d_model,
@@ -8,9 +9,14 @@ layer loop is a Python loop over views of the stacked tensors.
 
 The reference casts every layer's f32 weights to the compute dtype inside
 each step; at full width that would rewrite the whole model once per
-decoded token.  Here the weights are cast once (:func:`cast_params`) when
-they are loaded, and the forward functions require weights already in the
-compute dtype.  A cast is deterministic, so the results are the same.
+decoded token.  For serving, the weights are cast once
+(:func:`cast_params`) when they are loaded, and the serving forward
+requires weights already in the compute dtype.  Training does what the
+reference does: :func:`lm_loss` takes f32 master weights and
+``forward_hidden(..., remat=True)`` casts each layer's weights inside the
+layer body, which ``torch.utils.checkpoint`` re-runs in the backward pass.
+A cast is deterministic, so both paths give the same numbers for the same
+weights.
 
 Families other than ``dense`` and Mamba1 ``ssm`` raise
 :class:`NotImplementedError`.
@@ -20,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -53,10 +60,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     reference's; the numbers are not (torch's generator is not JAX's).
     Each leaf is cast to ``dtype`` as soon as it is drawn, so a bf16 model
     never holds its f32 weights at once (the same values as
-    ``cast_params`` of the f32 weights)."""
+    ``cast_params`` of the f32 weights).  ``device="meta"`` draws nothing:
+    the tree of shapes and dtypes a restore is given as ``like``."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (L.SHAPES_ONLY if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     n = cfg.n_layers
     kw = dict(stack=n, dtype=dtype)
     p: Params = {
@@ -126,32 +135,50 @@ def _attn_kwargs(cfg: ModelConfig):
                 eps=cfg.norm_eps)
 
 
+def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
+           kv_chunk: int, dtype: Optional[torch.dtype] = None):
+    """One layer's residual update of ``x``; with ``dtype`` the layer's
+    weights are cast to it first (the training path's per-layer cast)."""
+    if dtype is not None:
+        lp = cast_params(lp, dtype)
+    eps = cfg.norm_eps
+    if cfg.family == "ssm":
+        return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
+                                 cfg)
+    h = L.rms_norm(x, lp["ln1"], eps)
+    x = x + L.attention_block(lp["attn"], h, window=window,
+                              kv_chunk=kv_chunk, **_attn_kwargs(cfg))
+    h = L.rms_norm(x, lp["ln2"], eps)
+    return x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,
-                   kv_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+                   kv_chunk: int = 512, remat: bool = False) \
+        -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) → final hidden states (B, S, d). Returns (hidden,
-    moe_aux); the aux loss of the dense and ssm families is 0."""
+    moe_aux); the aux loss of the dense and ssm families is 0.
+
+    ``remat=False`` (serving) takes weights already cast to the compute
+    dtype.  ``remat=True`` (training) takes master weights of any float
+    dtype: the embedding rows are cast after the gather, each layer's
+    weights inside its layer body, and each body runs under
+    ``torch.utils.checkpoint``, so the backward pass recomputes a layer's
+    internals instead of keeping them (the reference's remat'd scan).
+    """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
-    _check_dtype(params, dtype)
-    eps = cfg.norm_eps
+    if not remat:
+        _check_dtype(params, dtype)
     x = params["embed"][tokens].to(dtype)
-    layers = _unstack(params["layers"], cfg.n_layers)
-    if cfg.family == "ssm":
-        for lp in layers:
-            x = x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
-                                  cfg)
-        x = L.rms_norm(x, params["final_norm"], eps)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     windows = _windows_per_layer(cfg, x.shape[1])
-    for i, lp in enumerate(layers):
-        h = L.rms_norm(x, lp["ln1"], eps)
-        h = L.attention_block(lp["attn"], h,
-                              window=None if windows is None else windows[i],
-                              kv_chunk=kv_chunk, **_attn_kwargs(cfg))
-        x = x + h
-        h = L.rms_norm(x, lp["ln2"], eps)
-        x = x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
-    x = L.rms_norm(x, params["final_norm"], eps)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        window = None if windows is None else windows[i]
+        if remat:
+            x = checkpoint(_layer, cfg, lp, x, window, kv_chunk, dtype,
+                           use_reentrant=False)
+        else:
+            x = _layer(cfg, lp, x, window, kv_chunk)
+    x = L.rms_norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -164,6 +191,45 @@ def forward(cfg: ModelConfig, params: Params, tokens, **kw):
     """Full logits (small-model / test path)."""
     hidden, _ = forward_hidden(cfg, params, tokens, **kw)
     return unembed(cfg, params, hidden).float()
+
+
+# --------------------------------------------------------------------------
+# Loss with a sequence-chunked, remat'd softmax head
+# --------------------------------------------------------------------------
+
+def _chunk_loss(h, w, y):
+    """Sum over a chunk of (logsumexp - gold logit), the logits in f32."""
+    logits = (h @ w).float()
+    gold = torch.gather(logits, -1, y[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
+            loss_chunk: int = 256, remat: bool = True):
+    """Mean next-token cross entropy of ``labels`` (B, S) (integer ids)
+    given ``tokens`` (B, S), from master weights (see
+    :func:`forward_hidden`'s ``remat``).
+
+    The head runs over ``loss_chunk``-token slices of the sequence, each
+    under ``torch.utils.checkpoint``, so the (B, S, vocab) f32 logits never
+    exist whole: a chunk's are recomputed in the backward pass.  The
+    unembedding is cast to the compute dtype once per call.
+    """
+    hidden, _ = forward_hidden(cfg, params, tokens, remat=remat)
+    B, S, _ = hidden.shape
+    n = max(1, S // loss_chunk)
+    chunk = S // n
+    if n * chunk != S:
+        raise ValueError(f"seq {S} not divisible into {n} loss chunks")
+    w = (params["embed"].T if cfg.tie_embeddings
+         else params["lm_head"]).to(hidden.dtype)
+    labels = labels.long()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        part = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, hidden[:, part], w,
+                                   labels[:, part], use_reentrant=False)
+    return total / (B * S)   # the dense and ssm families have no aux loss
 
 
 # --------------------------------------------------------------------------
@@ -253,4 +319,5 @@ def param_bytes(params: Params) -> int:
 
 
 __all__ = ["compute_dtype", "init_lm", "cast_params", "forward_hidden",
-           "unembed", "forward", "init_cache", "serve_step", "param_bytes"]
+           "unembed", "forward", "lm_loss", "init_cache", "serve_step",
+           "param_bytes"]

@@ -14,3 +14,9 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; the port runs on the GPU unless "
             "device='cpu' is passed")
     return dev
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would track an output computed from ``tensors``:
+    a kernel wrapper whose output has no ``grad_fn`` must refuse then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

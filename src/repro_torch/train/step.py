@@ -1,10 +1,51 @@
-"""Serve step builders — the port of ``make_prefill_step`` and
-``make_serve_step`` from ``repro/train/step.py``.  PyTorch runs eagerly,
-so each builder returns a plain function (no ``jit``)."""
+"""Train and serve step builders — the port of ``repro/train/step.py``.
+
+PyTorch runs eagerly, so each builder returns a plain function (no
+``jit``).  ``make_train_step(cfg, opt)`` returns
+    (params, opt_state, batch) → (params, opt_state, metrics)
+with the sequence-chunked loss head; unlike the reference's pure step it
+updates ``params`` and ``opt_state`` in place (AdamW in place, gradients
+freed as they are used) and returns the same objects.
+"""
 from __future__ import annotations
 
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint.pytree_io import flatten_named
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.optim import adamw
+
+
+def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
+                    loss_chunk: int = 256,
+                    grad_transform: Optional[Callable] = None):
+    """Build the loss + grad + update step."""
+
+    def step(params, opt_state, batch):
+        named, rebuild = flatten_named(params)
+        leaves = [p.requires_grad_(True) for _, p in named]
+        loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                          loss_chunk=loss_chunk)
+        grads = rebuild(list(torch.autograd.grad(loss, leaves)))
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt_state, stats = adamw.update(opt, grads, opt_state,
+                                                params)
+        metrics = {"loss": loss.detach(), **stats}
+        return params, opt_state, metrics
+
+    return step
+
+
+def make_eval_step(cfg: ModelConfig, loss_chunk: int = 256):
+    def step(params, batch):
+        with torch.no_grad():
+            return lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                              loss_chunk=loss_chunk)
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig):

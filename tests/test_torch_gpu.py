@@ -1,6 +1,8 @@
-"""The port on the card: the K1 kernels (prefill and split-KV decode) and
-the K2 kernel against their plain versions, the smoke models (qwen3, falcon-mamba) on CUDA against the same
-models on the CPU, and a checkpoint round trip of CUDA tensors.  Every
+"""The port on the card: the K1 kernels (prefill and split-KV decode, and
+the backward) and the K2 kernel against their plain versions, the smoke
+models (qwen3, falcon-mamba) on CUDA against the same models on the CPU,
+qwen3's training path (loss, gradients, kill and resume), and checkpoint
+round trips of CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -13,7 +15,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain, flash_attention_split_plain)
+    BWD_LAUNCHES_PER_CALL, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+    flash_attention_cuda, flash_attention_plain, flash_attention_split_plain,
+    lse_plain)
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan_cuda, ssm_scan_plain)
 
@@ -278,3 +282,237 @@ def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
         assert torch.equal(got["a"].view(torch.int16),
                            tree["a"].view(torch.int16))
         assert torch.equal(got["b"]["c"], tree["b"]["c"])
+
+
+# ------------------------------------------------------------ K1 backward --
+#: The backward against autograd of the plain version in f32 on the same
+#: inputs.  f32: only the order of the sums differs.  bf16: the kernels round
+#: P and dS to bf16 for their products and the gradients to bf16, so each
+#: gradient is held by its relative L2 error.
+BWD_TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+BWD_REL_BF16 = 1e-2
+#: The log-sum-exp in f32 from the same inputs: the sum order and exp2's
+#: rounding differ.
+LSE_TOL = dict(rtol=1e-4, atol=1e-4)
+
+BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
+    (2, 4, 2, 16, 16, 16, True, None, 0),        # the smoke configs' shape
+    (1, 8, 8, 70, 70, 64, True, None, 0),        # group 1, ragged tiles
+    (1, 16, 2, 100, 100, 128, True, None, 0),    # group 8
+    (1, 4, 2, 20, 100, 32, False, None, 0),      # non-causal, Sq != Skv
+    (2, 4, 4, 130, 130, 64, True, 16, 0),        # sliding window
+    (1, 4, 2, 200, 200, 128, True, 70, 0),       # window edge inside tiles
+    (1, 4, 2, 100, 100, 64, False, 30, 0),       # non-causal window
+    (2, 4, 2, 5, 40, 32, True, 8, 30),           # offset and window
+    (1, 6, 2, 50, 50, 32, True, None, 0),        # group 3 does not divide 64
+    (1, 64, 1, 20, 20, 16, True, None, 0),       # group 64
+    (1, 2, 1, 8, 8, 64, True, 0, 0),             # empty window: all zero
+    (2, 16, 8, 300, 300, 128, True, None, 0),    # qwen3's heads, ragged
+    (1, 16, 8, 1024, 1024, 128, True, None, 0),  # qwen3's training length
+]
+
+
+def _bwd_inputs(rng, dtype, cuda, B, H, Hkv, Sq, Skv, D):
+    return (_rand(rng, (B, Sq, H, D), dtype, cuda),
+            _rand(rng, (B, Skv, Hkv, D), dtype, cuda),
+            _rand(rng, (B, Skv, Hkv, D), dtype, cuda),
+            _rand(rng, (B, Sq, H, D), dtype, cuda))
+
+
+def _hold_grad(got, want, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **BWD_TOL_F32, msg=what)
+        return
+    assert got.dtype == dtype, what
+    norm = want.norm().item()
+    if norm == 0:
+        assert not got.float().abs().max().item(), what
+        return
+    rel = ((got.float() - want).norm() / norm).item()
+    assert rel <= BWD_REL_BF16, f"{what}: relative L2 {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal,window,q_offset",
+                         BWD_CASES)
+def test_backward_matches_plain_autograd(cuda, dtype, B, H, Hkv, Sq, Skv, D,
+                                         causal, window, q_offset):
+    rng = np.random.default_rng(Sq * 7 + Skv + D)
+    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, B, H, Hkv, Sq, Skv, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_plain(q, k, v, **kw), **LSE_TOL)
+    before = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == before + BWD_LAUNCHES_PER_CALL
+    want = flash_attention_bwd_plain(q, k, v, dout, **kw)
+    for name, g, w in zip("qkv", got, want):
+        _hold_grad(g, w, dtype, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_deterministic(cuda, dtype):
+    """No atomics: two backward calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(11)
+    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, 16, 8, 300, 300, 128)
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    a = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    b = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_lse_output_leaves_the_forward_unchanged(cuda):
+    rng = np.random.default_rng(12)
+    q, k, v, _ = _bwd_inputs(rng, torch.bfloat16, cuda, 2, 16, 8, 130, 130,
+                             128)
+    plain = flash_attention_cuda(q, k, v)
+    out, _ = flash_attention_cuda(q, k, v, with_lse=True)
+    assert torch.equal(plain, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_goes_through_the_kernels(cuda, dtype):
+    """ops.flash_attention under autograd: one forward launch, the backward
+    kernels' launches, and the gradients of the plain version."""
+    rng = np.random.default_rng(13)
+    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, 8, 2, 70, 70, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    out = ops.flash_attention(*leaves, window=40)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == f0 + 1
+    assert flash_attention_bwd_cuda.launches == b0 + BWD_LAUNCHES_PER_CALL
+    want = flash_attention_bwd_plain(q, k, v, dout, window=40)
+    for name, leaf, w in zip("qkv", leaves, want):
+        _hold_grad(leaf.grad, w, dtype, f"d{name}")
+
+
+def test_no_kernel_drops_a_gradient(cuda):
+    """Where no backward kernel exists the call raises: the decode kernel,
+    a query offset held in a tensor, a direct launch of K1's forward with
+    inputs that require grad, and K2."""
+    rng = np.random.default_rng(14)
+    q = _rand(rng, (1, 1, 4, 64), torch.float32, cuda).requires_grad_()
+    k = _rand(rng, (1, 30, 2, 64), torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="decode"):
+        ops.flash_attention(q, k, k)
+    q6 = _rand(rng, (1, 6, 4, 64), torch.float32, cuda).requires_grad_()
+    off = torch.tensor(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="tensor"):
+        ops.flash_attention(q6, k, k, q_offset=off)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_attention_cuda(q6, k, k)
+    with torch.no_grad():   # without grad mode the forward kernels serve
+        assert flash_attention_cuda(q6, k, k).shape == q6.shape
+    x = torch.rand(1, 4, 3, 2, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        ssm_scan_cuda(x, x, torch.zeros(1, 4, 2, device=cuda))
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        ops.ssm_scan(x, x, torch.zeros(1, 4, 2, device=cuda))
+
+
+# ------------------------------------------------------- the training path --
+#: The smoke model (f32) on CUDA against the CPU: K1's kernels against the
+#: plain attention, cuBLAS against the CPU's matmuls; only sum orders differ.
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _smoke_batch(cfg, B=2, S=32, seed=5):
+    seq = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1))
+    return (torch.from_numpy(seq[:, :-1].astype(np.int32)),
+            torch.from_numpy(seq[:, 1:].astype(np.int64)))
+
+
+def test_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
+    """lm_loss and every leaf's gradient through K1's forward and backward
+    on the card against the same on the CPU."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_lm, lm_loss
+    cfg = smoke(get_config("qwen3-1.7b"))
+    tok, lab = _smoke_batch(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16)
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            assert flash_attention_cuda.launches - f0 == 2 * cfg.n_layers
+            assert flash_attention_bwd_cuda.launches - b0 == \
+                BWD_LAUNCHES_PER_CALL * cfg.n_layers
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
+
+
+def _leaf_names(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def _get(tree, name):
+    for part in name.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
+                                                               tmp_path):
+    """tests/test_system.py::TestTrainLoop's restart, on the card."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train
+    cfg = smoke(get_config("qwen3-1.7b"))
+
+    def run(path, hooks=None):
+        loop = TrainLoopConfig(total_steps=12, ckpt_every=4,
+                               ckpt_dir=str(path), log_every=100)
+        return train(cfg, loop, AdamWConfig(total_steps=12), seq_len=32,
+                     global_batch=4, hooks=hooks)
+
+    with pytest.raises(SystemExit):
+        run(tmp_path / "c", {"should_die": lambda s: s == 6})
+    out = run(tmp_path / "c")
+    assert out["start_step"] == 4
+    assert out["state"]["params"]["embed"].device.type == "cuda"
+    ref = run(tmp_path / "ref")
+    assert abs(out["losses"][-1] - ref["losses"][-1]) < 0.05
+    for o in (out, ref):
+        o["manager"].close()
+
+
+def test_pinned_snapshot_is_not_reached_by_in_place_updates(cuda,
+                                                            tmp_path):
+    """save() returns once CUDA leaves are copied into pinned host
+    buffers; an in-place update right after does not reach the file, and a
+    second save reuses the buffers."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    rng = np.random.default_rng(21)
+    tree = {"w": _rand(rng, (256, 1024), torch.float32, cuda),
+            "h": _rand(rng, (64, 32), torch.bfloat16, cuda)}
+    want = {k: v.clone() for k, v in tree.items()}
+    with CheckpointManager(str(tmp_path / "c")) as mgr:
+        mgr.save(1, tree)
+        for v in tree.values():
+            v.add_(1)
+        mgr.wait()
+        pinned = dict(mgr._pinned)
+        assert all(b.is_pinned() for b in pinned.values())
+        mgr.save(2, tree, blocking=True)
+        assert all(mgr._pinned[k] is b for k, b in pinned.items())
+        got, _ = mgr.restore(1, device=cuda)
+        again, _ = mgr.restore(2, device=cuda)
+    for k in tree:
+        assert torch.equal(got[k], want[k]) and torch.equal(again[k], tree[k])

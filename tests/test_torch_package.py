@@ -26,7 +26,8 @@ VERBATIM = [f"core/{m}.py" for m in (
     "configs/llama4_scout_17b_a16e.py", "configs/llava_next_mistral_7b.py",
     "configs/nemotron_4_15b.py", "configs/qwen3_1p7b.py",
     "configs/whisper_medium.py", "configs/yi_6b.py",
-    "configs/zamba2_2p7b.py", "checkpoint/layout.py", "checkpoint/planner.py"]
+    "configs/zamba2_2p7b.py", "checkpoint/layout.py", "checkpoint/planner.py",
+    "journal/__init__.py", "journal/journal.py"]
 
 _IMPORT = re.compile(r"^(\s*)(from|import)(\s+)repro(?=[.\s])", re.M)
 _FORBIDDEN = re.compile(
@@ -89,17 +90,26 @@ def test_serve_entry_point_raises_without_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["init_lm", "init_cache",
-                                   "params_from_numpy"])
-def test_entry_points_default_to_cuda(no_cuda, entry):
+                                   "params_from_numpy", "train",
+                                   "launch_train"])
+def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
     import numpy as np
     from repro_torch.configs import get_config, smoke
     from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import train as launch
     from repro_torch.models import init_cache, init_lm
+    from repro_torch.train.loop import TrainLoopConfig, train
     cfg = smoke(get_config("qwen3-1.7b"))
+    ckpt = str(tmp_path / "c")
     call = {"init_lm": lambda: init_lm(cfg, 0),
             "init_cache": lambda: init_cache(cfg, 2, 8),
             "params_from_numpy": lambda: params_from_numpy(
-                {"w": np.zeros(3, np.float32)}, "cuda")}[entry]
+                {"w": np.zeros(3, np.float32)}, "cuda"),
+            "train": lambda: train(cfg, TrainLoopConfig(
+                total_steps=2, ckpt_dir=ckpt)),
+            "launch_train": lambda: launch.main([
+                "--arch", "qwen3-1.7b", "--steps", "2", "--ckpt-dir",
+                ckpt])}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
 
@@ -118,5 +128,6 @@ def test_kernel_build_paths_come_from_the_package():
     assert build.CSRC == PORT / "kernels" / "csrc"
     assert (build.CSRC / "flash_attention.cu").is_file()
     assert (build.CSRC / "ssm_scan.cu").is_file()
+    assert (build.CSRC / "flash_attention_bwd.cu").is_file()
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -21,12 +21,19 @@ prompt, then 32 greedy tokens).
   16, vocab 65 024; 14.0 GB of weights) through the K2 selective-scan
   kernel, which every prefill layer launches and no decode step does.
 
+Then qwen3-1.7b trains at full width (8 x 1024 tokens a step) through K1's
+forward and its backward, dies after step 3's save and resumes.  K1's
+backward is timed kernel by kernel (preprocess, dK/dV, dQ) at the training
+shape and in a profiled training step.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Every phase asserts; any failure exits non-zero.  The
 line before the last is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
-prints no result.  Needs about 16 GB free in the temporary directory.
+prints no result.  Needs about 45 GB free in the temporary directory.
+``--kernels-only`` builds and checks the kernels and stops before the
+model paths.
 """
 from __future__ import annotations
 
@@ -84,6 +91,9 @@ REL_LAYER_DECODE = 3e-2
 #: K2's kernel name, as the profiler shows it.
 K2_NAMES = ("ssm_scan_kernel",)
 
+#: K1's backward kernels by part: a part's kernels hold its substring.
+BWD_PARTS = {"preprocess": "flash_bwd_preprocess", "dkdv": "flash_bwd_dkdv",
+             "dq": "flash_bwd_dq"}
 #: K1's backward against autograd of the plain version in f32 on the same
 #: inputs.  f32: only the order of the sums differs.  bf16: the kernels
 #: round P and dS to bf16 for their products and the gradients to bf16, so
@@ -144,6 +154,12 @@ def device_time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of the kernels one ``fn()`` launches (the sum of
     their durations in a ``torch.profiler`` CUDA trace): what the card
     spends, without the host's launch overhead."""
+    return sum(device_split_ms(fn, iters, warmup=warmup).values())
+
+
+def device_split_ms(fn, iters: int, parts=(), warmup: int = 3):
+    """Mean device time a ``fn()`` spends in the kernels whose names hold
+    each of ``parts``, by part; without parts, ``{"": all its kernels}``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -154,9 +170,12 @@ def device_time_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_rows(prof))
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    rows = device_rows(prof)
+    check(sum(e.self_device_time_total for e in rows) > 0,
+          "the profiler recorded no device time")
+    return {part: sum(e.self_device_time_total for e in rows
+                      if part in e.key) / 1e3 / iters
+            for part in (parts or ("",))}
 
 
 def device_rows(prof):
@@ -345,10 +364,14 @@ def sdpa_gqa(torch):
 def ptxas_summary(log: str):
     """One line per compiled kernel from nvcc's ``-Xptxas=-v`` log: its
     name and template arguments, registers, spills and static shared
-    memory."""
+    memory; and each of ptxas's performance warnings (wgmma serialized)."""
     name, spill = None, ""
     for line in log.splitlines():
-        if "Compiling entry function" in line:
+        if "Potential Performance Loss" in line:
+            what = line.split("Potential Performance Loss:", 1)[1]
+            yield (f"{_kernel_name(line.split(chr(39))[1])}: WARNING"
+                   f"{what.split(' for the function')[0]}")
+        elif "Compiling entry function" in line:
             name = _kernel_name(line.split("'")[1])
         elif "spill stores" in line:
             spill = line.strip()
@@ -476,6 +499,11 @@ def bwd_checks(torch, fa):
         (2, 4, 4, 130, 130, 64, True, 16, 0),       # sliding window
         (1, 4, 2, 200, 200, 128, True, 70, 0),      # window edge in a tile
         (2, 4, 2, 5, 40, 16, True, 8, 30),          # offset and window
+        (1, 6, 2, 50, 50, 32, True, None, 0),       # group 3
+        (1, 40, 8, 140, 140, 128, True, None, 0),   # group 5 (llama4-scout)
+        (1, 48, 8, 160, 160, 128, True, 50, 0),     # group 6 (nemotron-4), window
+        (1, 8, 2, 129, 257, 128, False, None, 0),   # ragged position and key blocks
+        (2, 16, 8, 129, 257, 128, True, None, 128),  # q_offset > 0 at D 128
         (2, 16, 8, 300, 300, 128, True, None, 0),   # qwen3's heads, ragged
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -533,10 +561,28 @@ def bwd_checks(torch, fa):
               f"SDPA backward yardstick disagrees (d{name})")
     backend = library_backend(torch, lambda: torch.autograd.grad(
         lib_out, (qh, kh, vh), doh, retain_graph=True))
-    flops = 5 * 2 * B * H * D * (S * (S + 1) // 2)
+    product = 2 * B * H * D * (S * (S + 1) // 2)   # one causal product
+    flops = 5 * product
     nbytes = (2 * (3 * q.numel() + 2 * k.numel())   # q, o, dO, k, v read
               + 4 * lse.numel()                       # lse read
               + 2 * (q.numel() + 2 * k.numel()))      # dq, dk, dv written
+    # each kernel's own work: the preprocess reads o and dO and writes
+    # Delta; dK/dV computes 4 products and dQ 3 (S and dP twice), each
+    # reading q, dO, k, v, lse and Delta and writing its gradients
+    inputs = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * lse.numel()
+    split_bounds = dict(
+        preprocess=bound(2 * 2 * q.numel() + 4 * lse.numel(),
+                         2 * q.numel(), PEAK_BF16_FLOPS),
+        dkdv=bound(inputs + 2 * 2 * k.numel(), 4 * product, PEAK_BF16_FLOPS),
+        dq=bound(inputs + 2 * q.numel(), 3 * product, PEAK_BF16_FLOPS))
+    split = device_split_ms(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse), 30,
+        tuple(BWD_PARTS.values()))
+    fwd_bound = bound(2 * (q.numel() + 2 * k.numel() + out.numel())
+                      + 4 * lse.numel(), 2 * product, PEAK_BF16_FLOPS)
+    with torch.no_grad():
+        fwd_library_ms = device_time_ms(
+            lambda: sdpa(qh, kh, vh, is_causal=True), 50)
     rec = dict(
         shape=f"train B{B} S{S} H{H}/{Hkv} D{D} causal bf16",
         kernel="flash_bwd_preprocess_kernel + flash_bwd_dkdv_kernel + "
@@ -546,6 +592,11 @@ def bwd_checks(torch, fa):
         fwd_lse_ms=device_time_ms(
             lambda: fa.flash_attention_cuda(q, k, v, with_lse=True), 50),
         fwd_ms=device_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 50),
+        fwd_bound_ms=fwd_bound["bound_ms"], fwd_bound_by=fwd_bound["bound_by"],
+        fwd_library_ms=fwd_library_ms,
+        **{f"{part}_ms": split[name] for part, name in BWD_PARTS.items()},
+        **{f"{part}_bound_ms": b["bound_ms"]
+           for part, b in split_bounds.items()},
         **timings(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
                                                       lse),
                   lambda: fa.flash_attention_bwd_plain(q, k, v, dout),
@@ -560,7 +611,12 @@ def bwd_checks(torch, fa):
           f"{nbytes} B); per call ms {rec['call_ms']:.5f} plain "
           f"{rec['plain_call_ms']:.5f} sdpa {rec['library_call_ms']:.5f}; "
           f"K1 forward with lse {rec['fwd_lse_ms']:.5f} ms, without "
-          f"{rec['fwd_ms']:.5f} ms")
+          f"{rec['fwd_ms']:.5f} ms, bound {rec['fwd_bound_ms']:.5f} "
+          f"({rec['fwd_bound_by']}), SDPA forward {fwd_library_ms:.5f} ms")
+    print("K1 bwd split, train shape: " + "; ".join(
+        f"{part} {rec[part + '_ms']:.5f} ms (bound "
+        f"{rec[part + '_bound_ms']:.5f}, {split_bounds[part]['bound_by']})"
+        for part in BWD_PARTS))
     return [rec, dict(shape="checks", max_abs_err=worst[torch.float32],
                       bf16_rel_err=worst[torch.bfloat16],
                       lse_max_abs_err=lse_worst)]
@@ -1247,6 +1303,7 @@ def train_profile(torch, cfg, state, opt, data, k1_names, bwd_names):
 
     fwd_ms, fwd_n = share(k1_names)
     bwd_ms, bwd_n = share(bwd_names)
+    split = {part: share((name,)) for part, name in BWD_PARTS.items()}
     gemm_ms, _ = share(("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
     print(f"train step breakdown (profiled, 1 step): wall {wall:.3f} ms, "
           f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.4f}); "
@@ -1255,11 +1312,16 @@ def train_profile(torch, cfg, state, opt, data, k1_names, bwd_names):
           f"{bwd_n} launches ({bwd_ms / busy:.4f}), matmuls {gemm_ms:.3f} "
           f"ms ({gemm_ms / busy:.4f}), the rest "
           f"{busy - fwd_ms - bwd_ms - gemm_ms:.3f} ms")
+    print("  K1 backward by kernel: " + "; ".join(
+        f"{part} {ms:.3f} ms in {n} launches"
+        for part, (ms, n) in split.items()))
     for name, ms, n in rows[:10]:
         print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                 k1_fwd_ms=fwd_ms, k1_fwd_launches=fwd_n, k1_bwd_ms=bwd_ms,
-                k1_bwd_launches=bwd_n, gemm_ms=gemm_ms,
+                k1_bwd_launches=bwd_n,
+                **{f"k1_bwd_{part}_ms": ms for part, (ms, _) in split.items()},
+                gemm_ms=gemm_ms,
                 other_ms=busy - fwd_ms - bwd_ms - gemm_ms,
                 top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
                      for r in rows[:10]])
@@ -1394,7 +1456,10 @@ def train_path(torch, k1, k1b, k2, tmp):
     return fwd, bwd, rec
 
 
-def kernel_entry(name, source, replaces, names, launches, records, path):
+def kernel_entry(name, source, replaces, names, launches, records, path,
+                 extra=()):
+    """One kernel's entry of the ``kernels`` line: the contract's keys from
+    its first (main-path) record, then ``extra`` keys of that record."""
     head = records[0]
     return dict(
         name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
@@ -1403,10 +1468,17 @@ def kernel_entry(name, source, replaces, names, launches, records, path):
         max_abs_err=max(r["max_abs_err"] for r in records), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shapes=records, path=path)
+        **{key: head[key] for key in extra}, shapes=records, path=path)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--kernels-only", action="store_true",
+        help="build the kernels and run their checks and timings, then stop "
+             "before the model paths (prints no result line)")
+    args = parser.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from the root of a repro checkout "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -1442,6 +1514,10 @@ def main() -> int:
     k1_records = kernel_checks(torch, fa)
     k2_records = scan_checks(torch, ss, get_config(FALCON))
     bwd_records = bwd_checks(torch, fa)
+    if args.kernels_only:
+        print("kernel checks passed; --kernels-only: the model paths were "
+              "not run")
+        return 0
 
     k1, k1b, k2 = (fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
                    ss.ssm_scan_cuda)
@@ -1473,7 +1549,8 @@ def main() -> int:
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES, train_bwd,
-                     bwd_records, train),
+                     bwd_records, train,
+                     extra=[f"{part}_ms" for part in BWD_PARTS]),
         kernel_entry("ssm_scan", ss.SOURCE,
                      "src/repro/kernels/ssm_scan.py:45", K2_NAMES,
                      k2_launches, k2_records, falcon_serve)]

@@ -18,36 +18,67 @@
 // FlashAttention-2's backward, three kernels, no atomics (deterministic):
 //
 //  * flash_bwd_preprocess_kernel: Delta = rowsum(dO o O) in f32, a warp a row.
-//  * flash_bwd_dkdv_kernel: one block per (b, kv head, 64 keys).  The block
-//    walks the query rows (query position, q head of the group) that can see
-//    one of its keys, 32 rows a tile, through a 2-stage cp.async ring; each
-//    warp holds 16 keys' dK and dV accumulators (f32) in registers for the
-//    whole walk.  S^T = K Q^T and dP^T = V dO^T by mma.sync.m16n8k16 (bf16 ->
-//    f32), P^T and dS^T on the accumulator fragments, then dV += P^T dO and
-//    dK += dS^T Q with P^T and dS^T repacked to bf16 A fragments in registers
-//    (P in f32 for dS, rounded to bf16 for the products, as FlashAttention-2
-//    does).  The GQA sum is the walk over the group's rows, so no block
-//    writes another's keys.
-//  * flash_bwd_dq_kernel: one block per (b, kv head, 64 query rows), the
-//    forward's tiling: K/V tiles of 64 keys through a 2-stage ring, each
-//    warp's 16 rows of dQ in registers.  S = Q K^T, dP = dO V^T, dS, then
-//    dQ += dS K.
+//  * flash_bwd_dkdv_kernel (bf16): one block per (b, kv head, 128 keys), two
+//    warpgroups of 64 keys, each keeping its keys' dK and dV in f32
+//    registers for the whole walk.  K and V arrive once by TMA; then the
+//    block walks the q heads of the group one after the other and, for
+//    each, the tiles of 64 query positions that see one of its keys: Q and
+//    dO tiles by TMA, the tile's log-sum-exp and Delta by plain loads,
+//    through a 4-stage ring of mbarrier full/empty pairs.  Per tile, S^T =
+//    K Q^T and dP^T = V dO^T by wgmma from shared memory (m64n64k16), P^T
+//    and dS^T on the accumulators, then dV += P^T dO and dK += dS^T Q by
+//    wgmma with A from registers (the accumulators rounded to bf16) and dO
+//    or Q read through the transpose bit, so Q and dO land once in one
+//    layout for both uses.  A tile's dV and dK products complete behind the
+//    next tile's S^T and dP^T, so the tensor cores keep work queued.  The
+//    GQA sum is the walk, so no block writes another's keys.  The epilogue
+//    stages bf16 dK and dV in the warpgroup's own K and V tiles and stores
+//    them by TMA, which clips keys past Skv.
+//  * flash_bwd_dq_kernel (bf16): one block per (b, q head, 128 positions),
+//    two warpgroups of 64 positions: Q and dO by TMA once, K/V tiles of 64
+//    keys of its kv head through the ring; S = Q K^T, dP = dO V^T, dS, then
+//    dQ += dS K (K through the transpose bit), pipelined as above.  Heaviest
+//    causal blocks first.  It recomputes S and dP: fusing dQ into the dK/dV
+//    walk would need atomics or an ordering between blocks to stay
+//    deterministic.
 //
-// Tiles that lie wholly outside the masks are never visited (the walks start
-// and end where the causal diagonal and the window allow); masks are
-// evaluated only on tiles that cross the diagonal, the window's edge or Skv.
+// No producer warpgroup: warp 0 (dK/dV) or thread 0 (dQ) of the first
+// warpgroup also keeps the ring full, refilling the stage of the tile
+// before the one it starts once both warpgroups have released it.  With a
+// third warpgroup, 384 threads a block leave ptxas 168 registers a thread,
+// and `setmaxnreg` did not raise what it allocates for the consumers: the
+// dK/dV consumer (192 accumulator registers) spilled and its wgmma were
+// serialized.  Two warpgroups take up to 255 (PERF.md has the numbers).
+//
+// The walks are those of `bwd_plan` in kernels/flash_attention.py: a
+// warpgroup visits the 64-wide tiles that hold a position (dK/dV) or key
+// (dQ) that sees, or is seen by, one of its rows, and evaluates masks only on
+// tiles that cross the causal diagonal, the window's edge, Sq or Skv.  A
+// block loads the union of its two warpgroups' tiles; a warpgroup skips a
+// tile outside its own walk.  TMA fills positions past Sq and keys past Skv
+// with zeros; positions past Sq get lse = +inf and Delta = 0, so their P and
+// dS are 0.
+//
+// Shared memory: every operand tile is 64 rows x D in column blocks of the
+// swizzle's width (128 bytes for D >= 64, 64 for D = 32, 32 for D = 16), the
+// layout both TMA's swizzle and wgmma's descriptors name.  At D = 128 the
+// dK/dV kernel holds K and V (64 KB) and four stages of Q and dO (128 KB),
+// the dQ kernel Q and dO (64 KB) and four stages of K and V (128 KB): one
+// block of 256 threads per SM.
 // What bounds it: 5 products of 2.B.H.Sq.Skv.D flops (halved by a causal
 // mask) against reading q, k, v, o, dO once and writing dq, dk, dv once; at
 // qwen3's training shape (B 8, S 1024, 16/8 heads, D 128) that is 86 GFLOP
-// against 0.2 GB, so the tensor cores' rate bounds it.  mma.sync cannot
-// reach that rate on Hopper (wgmma can); this first form keeps 16 keys or
-// rows a warp, as the forward does, and PERF.md has its time.
+// against 0.2 GB, so the tensor cores' rate bounds it.  The kernels do 7
+// products (dQ recomputes S and dP); PERF.md has their times.
 //
 // f32 (the smoke configurations and the checks) takes plain FMA kernels with
 // every tile in shared memory: flash_bwd_dkdv_fma_kernel and
-// flash_bwd_dq_fma_kernel, the same walks as the bf16 kernels.
+// flash_bwd_dq_fma_kernel, 64 keys or rows a block and query rows (query
+// position, q head of the group) interleaved, 32 a tile.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
 #include <math.h>
 
@@ -55,11 +86,20 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;   // threads per block, every kernel
-constexpr int BM = 64;    // keys per dK/dV block; query rows per dQ block
-constexpr int BN = 64;    // keys per kv tile of the dQ kernels
-constexpr int BQ = 32;    // query rows per tile of the dK/dV kernels
+constexpr int NT = 128;   // threads per block of the preprocess and FMA kernels
+constexpr int BM = 64;    // FMA: keys per dK/dV block; query rows per dQ block
+constexpr int BN = 64;    // FMA: keys per kv tile of the dQ kernel
+constexpr int BQ = 32;    // FMA: query rows per tile of the dK/dV kernel
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The tensor-core kernels: two warpgroups of 64 rows each, up to 255
+// registers a thread (two warps per SM sub-partition).
+constexpr int WG = 128;               // threads per warpgroup
+constexpr int TC_THREADS = 2 * WG;
+constexpr int ROWS = 64;              // rows of every operand tile
+constexpr int BLOCK_ROWS = 2 * ROWS;  // keys (dK/dV) or positions (dQ) a block
+constexpr int STAGES = 4;             // the ring of walked tiles
+constexpr long long WAIT_LIMIT = 1ll << 33;  // cycles (seconds) before a wait traps
 
 // Element strides (batch, seq, head) of one (B, S, heads, D) tensor.
 struct Stride {
@@ -87,102 +127,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy `nrows` rows of a (ROWS x D) bf16 tile into shared memory (row pitch
-// LD) in 16-byte pieces, zero-filling rows [nrows, ROWS).
-template <int D, int ROWS, int LD, typename RowPtr>
-__device__ __forceinline__ void load_rows_async(bf16* dst, int nrows, RowPtr row_ptr, int tid) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r < nrows;
-    cp_async16(dst + r * LD + c, ok ? row_ptr(r) + c : row_ptr(0), ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The two products every kernel here is made of, for one warp's 16 rows
-// (fragment layout of m16n8k16: this lane holds rows g and g + 8, columns
-// 2 * t4 and 2 * t4 + 1 of each 8-column block).
-//
-// acc (16 x 8 NB) += X (16 rows at sX, pitch LD, D wide) . Y^T, Y the NB * 8
-// rows at sY: both operands row-major in shared memory, as Q and K are.
-template <int D, int NB, int LD>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* sX, const bf16* sY,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, sX + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NB / 2; ++np) {
-      uint32_t b[4];  // Y rows are B's columns: b0, b1 of blocks 2np, 2np + 1
-      ldsm_x4(b, sY + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                     ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 16 KC, as f32 accumulator fragments of 2 KC
-// blocks, rounded to bf16 here) . Z, Z the 16 KC rows at sZ (row-major,
-// pitch LD), as V is in the forward's P V.
-template <int D, int KC, int LD>
-__device__ __forceinline__ void mma_pz(float (*acc)[4], const float (*p)[4], const bf16* sZ,
-                                       int lane) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-                           pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-                           pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                           pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];  // Z^T fragments of column blocks 2dp, 2dp + 1
-      ldsm_x4_trans(b, sZ + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                           (2 * dp + (lane >> 4)) * 8);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Row r of a kv head's query rows is query position r / group of q head
-// hk * group + r % group.
+// Row r of a kv head's query rows (FMA kernels) is query position r / group
+// of q head hk * group + r % group.
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const void* base, const Stride& s, int b, int hk,
                                             int group, int r) {
@@ -199,29 +150,208 @@ __device__ __forceinline__ float tile_lse(const Args& a, int b, int hk, int r, i
   return l == -INFINITY ? INFINITY : l;
 }
 
-// Write a warp's 16 rows x D f32 accumulator fragments, times `mul`, to the
-// rows [row0, row0 + 16) of `out` that are below `nrows`, staged through the
-// warp's own 16 rows of shared memory at `stage`.
-template <int D, int LD, typename OutPtr>
-__device__ __forceinline__ void store_rows(const float (*acc)[4], float mul, bf16* stage,
-                                           int row0, int nrows, OutPtr out_row, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
+// ------------------------------------------------ Hopper: TMA, mbarriers --
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      :: "r"(smem_u32(bar))
+      : "memory");
+}
+// Arrive, and expect `bytes` more of TMA traffic before the phase completes.
+__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+      :: "r"(smem_u32(bar)), "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait that lasts
+// seconds is a fault: trap, so the launch fails instead of hanging.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+  }
+}
+
+// A 4-D box (d, head, seq, batch) of a tensor map into shared memory,
+// counted on `bar`; and back out of shared memory (tma_store).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int d, int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(d), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int d, int h,
+                                          int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(d), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory, made visible to TMA and wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma --
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads or writes of accumulators across the
+// asynchronous products that own them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + c) =
-        __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
-    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + c) =
-        __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
-  }
-  __syncwarp();
-  constexpr int CH = D / 8;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    if (row0 + r >= nrows) continue;
-    *reinterpret_cast<uint4*>(out_row(row0 + r) + c) =
-        *reinterpret_cast<const uint4*>(stage + r * LD + c);
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) = A (64 x 16) . B^T (64 x 16), both K-major in shared
+// memory: the first k-step of a product (d is only written).
+__device__ __forceinline__ void wgmma_ss64_init(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 64, f32) += A (64 x 16) . B^T (64 x 16), the later k-steps.
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 fragments in registers) . B (16 x N),
+// B MN-major in shared memory (read through the transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // ------------------------------------------------------------- preprocess --
@@ -265,227 +395,531 @@ __device__ __forceinline__ bool valid(const Args& a, int kv, int pos) {
   return ok;
 }
 
-// ------------------------------------------------------------ bf16 dK, dV --
+// ------------------------------------------------ bf16 tiles and the walks --
+// One operand tile: ROWS rows of D bf16 in column blocks of SW bytes a row,
+// the swizzle's span; a block is ROWS * SW bytes, and the 16-byte chunks of
+// a row are permuted by the row's place in 8 (CUTLASS's Swizzle<3,4,3> at
+// 128 bytes), the layout TMA writes and wgmma reads.
 template <int D>
-struct DkvSmem {
-  static constexpr int LD = D + 8;  // 16-byte pad: ldmatrix free of bank conflicts
-  static constexpr int K = 0, V = BM * LD, Q = 2 * BM * LD;  // Q, dO: 2 stages each
-  static constexpr int DO = Q + 2 * BQ * LD;
-  static constexpr int STATS = (DO + 2 * BQ * LD) * 2;  // bytes: lse, Delta x 2 stages
-  static constexpr int BYTES = STATS + 4 * BQ * 4;
+struct Tile {
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;  // bytes a row of a column block
+  static constexpr int BOX = SW / 2;                // elements a row of a column block
+  static constexpr int BLOCKS = D / BOX;            // column blocks
+  static constexpr int BLOCK_BYTES = ROWS * SW;
+  static constexpr int BYTES = ROWS * D * 2;
+  static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma's swizzle code
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2) flash_bwd_dkdv_kernel(Args a) {
-  using SM = DkvSmem<D>;
-  constexpr int LD = SM::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const sK = reinterpret_cast<bf16*>(smem) + SM::K;
-  bf16* const sV = reinterpret_cast<bf16*>(smem) + SM::V;
-  bf16* const sQ0 = reinterpret_cast<bf16*>(smem) + SM::Q;
-  bf16* const sO0 = reinterpret_cast<bf16*>(smem) + SM::DO;
-  float* const sL0 = reinterpret_cast<float*>(smem + SM::STATS);  // lse[2][BQ]
-  float* const sD0 = sL0 + 2 * BQ;                                 // Delta[2][BQ]
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | Tile<D>::MODE << 62;
+}
+// wgmma's view of k-step ks (16 of the D columns) of a tile whose rows are
+// the product's M or N (K-major).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
+  constexpr int PER = Tile<D>::SW / 32;  // k-steps per column block
+  return smem_desc<D>(tile + (ks / PER) * Tile<D>::BLOCK_BYTES + (ks % PER) * 32, 16,
+                      8 * Tile<D>::SW);
+}
+// wgmma's view of k-step ks (16 rows) of a tile whose D columns are the
+// product's N (MN-major: the transpose bit).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
+  return smem_desc<D>(tile + ks * 16 * Tile<D>::SW, Tile<D>::BLOCK_BYTES, 8 * Tile<D>::SW);
+}
+// Byte offset of element (r, c) of a tile.
+template <int D>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  using TL = Tile<D>;
+  const uint32_t lin = (c / TL::BOX) * TL::BLOCK_BYTES + r * TL::SW + (c % TL::BOX) * 2;
+  return lin ^ (((lin >> 7) & (TL::SW / 16 - 1)) << 4);
+}
 
-  // Causal: the first key tiles see the most rows; they go first.
+// A dK/dV warpgroup's walk: the tiles [lo, hi) of ROWS query positions that
+// see one of the keys [j0, j0 + ROWS); lo == hi when none does.
+__device__ __forceinline__ void dkdv_walk(const Args& a, int j0, int* lo, int* hi) {
+  const int j1 = min(j0 + ROWS, a.Skv);
+  int p_lo = a.causal ? max(0, j0 - a.q_offset) : 0;
+  int p_hi = a.window >= 0 ? min(a.Sq, j1 - 1 + a.window - a.q_offset) : a.Sq;
+  if (j0 >= j1 || (a.causal && a.window == 0) || p_lo >= p_hi) p_lo = p_hi = 0;
+  *lo = p_lo / ROWS;
+  *hi = (p_hi + ROWS - 1) / ROWS;
+}
+// A dQ warpgroup's walk: the tiles [lo, hi) of ROWS keys that one of the
+// query positions [p0, p0 + ROWS) sees.
+__device__ __forceinline__ void dq_walk(const Args& a, int p0, int* lo, int* hi) {
+  const int p1 = min(p0 + ROWS, a.Sq);
+  int k_lo = a.window >= 0 ? max(0, p0 + a.q_offset - a.window + 1) : 0;
+  int k_hi = a.causal ? min(a.Skv, p1 + a.q_offset) : a.Skv;
+  if (p0 >= p1 || (a.causal && a.window == 0) || k_lo >= k_hi) k_lo = k_hi = 0;
+  *lo = k_lo / ROWS;
+  *hi = (k_hi + ROWS - 1) / ROWS;
+}
+// The tiles a block loads: the union of its two warpgroups' walks.
+__device__ __forceinline__ void block_walk(const int* lo, const int* hi, int* t_lo, int* n_t) {
+  const bool e0 = lo[0] == hi[0], e1 = lo[1] == hi[1];
+  *t_lo = e0 ? lo[1] : e1 ? lo[0] : min(lo[0], lo[1]);
+  *n_t = max(hi[0], hi[1]) - *t_lo;
+}
+// No pair of ROWS positions from p0 and ROWS keys from k0 is masked.
+__device__ __forceinline__ bool mask_free(const Args& a, int p0, int k0) {
+  return p0 + ROWS <= a.Sq && k0 + ROWS <= a.Skv &&
+         (!a.causal || k0 + ROWS - 1 <= p0 + a.q_offset) &&
+         (a.window < 0 || p0 + ROWS - 1 + a.q_offset - k0 < a.window);
+}
+
+// A row with no valid key has lse = -inf; +inf makes its P 0, not NaN.
+__device__ __forceinline__ float no_key(float lse) { return lse == -INFINITY ? INFINITY : lse; }
+
+// x, opaque to the compiler: a descriptor built from it inside the walk is
+// not hoisted out of it, where it would hold registers the whole way.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* once, int once_count, uint64_t* full,
+                                          int full_count, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    bar_init(once, once_count);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], full_count);
+      bar_init(&empty[s], 2 * WG / 32);  // each warp arrives once a tile
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// P = exp2(s log2(e) / sqrt(D) - lse) and dS = P (dP - Delta) on a 64 x 64
+// pair of accumulators, then both rounded to the bf16 A fragments of the
+// next products (k-step kk: columns [16 kk, 16 kk + 16)).  Row r of this
+// lane's element e of block j is 16 warp + g + 8 (e / 2), its column
+// 8 j + 2 t4 + e % 2; `lse` and `delta` give a row's or a column's value,
+// `live` whether a pair is unmasked.
+template <typename Lse, typename Delta, typename Live>
+__device__ __forceinline__ void softmax_grad(float* s, float* dp, float sl2, Lse lse,
+                                             Delta delta, Live live, uint32_t (*pa)[4],
+                                             uint32_t (*da)[4]) {
+  wgmma_wait<1>();
+  fence_regs<32>(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[4 * j + e], sl2, -lse(j, e)));
+      s[4 * j + e] = live(j, e) ? p : 0.f;
+    }
+  wgmma_wait<0>();
+  fence_regs<32>(dp);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - delta(j, e));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      da[kk][i] = pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+    }
+}
+
+// Write a 64 x D accumulator, times `mul`, as bf16 into a tile.
+template <int D>
+__device__ __forceinline__ void stage_tile(unsigned char* tile, const float* acc, float mul,
+                                           int warp, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(tile + tile_offset<D>(16 * warp + g + 8 * h,
+                                                               8 * j + 2 * t4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+}
+
+// ------------------------------------------------------------ bf16 dK, dV --
+struct DkvMaps {
+  CUtensorMap q, dout, k, v, dk, dv;
+};
+
+template <int D>
+struct DkvSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int T = Tile<D>::BYTES;
+  static constexpr int K = 0, V = 2 * T, Q = 4 * T, DO = Q + STAGES * T;
+  static constexpr int LSE = DO + STAGES * T, DELTA = LSE + STAGES * ROWS * 4;
+  static constexpr int BARS = DELTA + STAGES * ROWS * 4;  // kv, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ DkvMaps maps, const Args a) {
+  using SM = DkvSmem<D>;
+  using TL = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  float* const s_lse = reinterpret_cast<float*>(smem + SM::LSE);  // [STAGES][ROWS]
+  float* const s_delta = reinterpret_cast<float*>(smem + SM::DELTA);
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  // Causal: the first key blocks are seen by the most positions; they go first.
   int lin = blockIdx.x;
   const int hk = lin % a.Hkv;
   lin /= a.Hkv;
   const int b = lin % a.B;
-  const int j0 = (lin / a.B) * BM;
-  const int nk = min(BM, a.Skv - j0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int group = a.group;
-  int r_lo, r_hi;
-  rows_seeing(a, j0, nk, &r_lo, &r_hi);
+  const int j_blk = (lin / a.B) * BLOCK_ROWS;
+  int lo[2], hi[2], t_lo, n_t;
+  dkdv_walk(a, j_blk, &lo[0], &hi[0]);
+  dkdv_walk(a, j_blk + ROWS, &lo[1], &hi[1]);
+  block_walk(lo, hi, &t_lo, &n_t);
+  const int n_iter = n_t * a.group;  // each q head of the group, one after another
+  init_ring(kv_full, 1, full, 32, empty);
 
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  load_rows_async<D, BM, LD>(sK, nk, [&](int r) { return kb + (long long)(j0 + r) * a.sk.s; }, tid);
-  load_rows_async<D, BM, LD>(sV, nk, [&](int r) { return vb + (long long)(j0 + r) * a.sv.s; }, tid);
-  auto load_rows = [&](int r0, int stage) {
-    const int n = min(BQ, r_hi - r0);
-    load_rows_async<D, BQ, LD>(sQ0 + stage * BQ * LD, n, [&](int r) {
-      return row_ptr<bf16>(a.q, a.sq, b, hk, group, r0 + r);
-    }, tid);
-    load_rows_async<D, BQ, LD>(sO0 + stage * BQ * LD, n, [&](int r) {
-      return row_ptr<bf16>(a.dout, a.sdo, b, hk, group, r0 + r);
-    }, tid);
-    for (int r = tid; r < BQ; r += NT) {
-      sL0[stage * BQ + r] = tile_lse(a, b, hk, r0 + r, r_hi);
-      sD0[stage * BQ + r] = r0 + r < r_hi ? a.delta[stat_index(a, b, hk, r0 + r)] : 0.f;
+  const int c = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool loader = threadIdx.x < 32;  // warp 0 also keeps the ring full
+
+  // The loader warp's two halves of filling the stage of walk step `it`:
+  // the step's statistics into registers (early, so that their latency
+  // hides behind a tile's work), then, once the stage is free, those into
+  // shared memory and Q and dO by TMA.
+  auto load_stats = [&](int it, float* l, float* d) {
+    const int hq = hk * a.group + it / n_t, p0 = (t_lo + it % n_t) * ROWS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + lane + 32 * h;
+      const long long at = ((long long)b * a.H + hq) * a.Sq + p;
+      l[h] = p < a.Sq ? no_key(a.lse[at]) : INFINITY;  // padding: P = 0, dS = 0
+      d[h] = p < a.Sq ? a.delta[at] : 0.f;
     }
   };
-  if (r_lo < r_hi) load_rows(r_lo, 0);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
+  auto fill = [&](int it, const float* l, const float* d) {
+    const int stage = it % STAGES, hq = hk * a.group + it / n_t, p0 = (t_lo + it % n_t) * ROWS;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const float sl2 = a.scale * LOG2E;
-
-  int stage = 0;
-  for (int r0 = r_lo; r0 < r_hi; r0 += BQ, stage ^= 1) {
-    __syncthreads();  // every warp is done with the other stage
-    if (r0 + BQ < r_hi) load_rows(r0 + BQ, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and this tile have landed
-    __syncthreads();
-    const bf16* sQ = sQ0 + stage * BQ * LD;
-    const bf16* sO = sO0 + stage * BQ * LD;
-    const float* sL = sL0 + stage * BQ;
-    const float* sD = sD0 + stage * BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys (unscaled).
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, BQ / 8, LD>(s, sK + warp * 16 * LD, sQ, lane);
-    mma_abt<D, BQ / 8, LD>(dp, sV + warp * 16 * LD, sO, lane);
-
-    // P^T and dS^T; masks only where the tile crosses a mask's edge.
-    const int pos_lo = a.q_offset + r0 / group, pos_hi = a.q_offset + (r0 + BQ - 1) / group;
-    const bool full = j0 + BM <= a.Skv && (!a.causal || j0 + BM - 1 <= pos_lo) &&
-                      (a.window < 0 || pos_hi - j0 < a.window);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t4 + (e & 1);
-        float p = exp2f(fmaf(s[n][e], sl2, -sL[c]));
-        if (!full && !valid(a, j0 + warp * 16 + g + 8 * (e >> 1), a.q_offset + (r0 + c) / group))
-          p = 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - sD[c]);
+    for (int h = 0; h < 2; ++h) {
+      s_lse[stage * ROWS + lane + 32 * h] = l[h];
+      s_delta[stage * ROWS + lane + 32 * h] = d[h];
+    }
+    if (lane == 0) {
+      bar_arrive_expect(&full[stage], 2 * TL::BYTES);
+      for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+        const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
+        tma_load(smem + SM::Q + at, &maps.q, &full[stage], cb * TL::BOX, hq, p0, b);
+        tma_load(smem + SM::DO + at, &maps.dout, &full[stage], cb * TL::BOX, hq, p0, b);
       }
-
-    // dV += P^T dO, dK += dS^T Q.
-    mma_pz<D, BQ / 16, LD>(dv, s, sO, lane);
-    mma_pz<D, BQ / 16, LD>(dk, dp, sQ, lane);
+    } else {
+      bar_arrive(&full[stage]);
+    }
+  };
+  if (loader) {
+    if (lane == 0) {
+      bar_arrive_expect(kv_full, 4 * TL::BYTES);
+      for (int half = 0; half < 2; ++half)
+        for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+          const int at = half * TL::BYTES + cb * TL::BLOCK_BYTES, j = j_blk + half * ROWS;
+          tma_load(smem + SM::K + at, &maps.k, kv_full, cb * TL::BOX, hk, j, b);
+          tma_load(smem + SM::V + at, &maps.v, kv_full, cb * TL::BOX, hk, j, b);
+        }
+    }
+    float l[STAGES][2], d[STAGES][2];  // every stage starts free
+#pragma unroll
+    for (int it = 0; it < STAGES; ++it)
+      if (it < n_iter) load_stats(it, l[it], d[it]);
+#pragma unroll
+    for (int it = 0; it < STAGES; ++it)
+      if (it < n_iter) fill(it, l[it], d[it]);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with K, V and the last tile
 
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.sdk.b + hk * a.sdk.h;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.sdv.b + hk * a.sdv.h;
-  const int row0 = warp * 16;
-  store_rows<D, LD>(dk, a.scale, sK + row0 * LD, row0, nk,
-                    [&](int r) { return dkb + (long long)(j0 + r) * a.sdk.s; }, lane);
-  store_rows<D, LD>(dv, 1.f, sV + row0 * LD, row0, nk,
-                    [&](int r) { return dvb + (long long)(j0 + r) * a.sdv.s; }, lane);
+  // Each warpgroup: 64 keys' dK and dV for the whole walk.
+  const int j0 = j_blk + c * ROWS;
+  const int my_lo = c ? lo[1] : lo[0], my_hi = c ? hi[1] : hi[0];
+  const uint32_t sK = smem_u32(smem + SM::K + c * TL::BYTES);
+  const uint32_t sV = smem_u32(smem + SM::V + c * TL::BYTES);
+  const float sl2 = a.scale * LOG2E;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  // A tile's dV and dK products are waited for only after the next tile's
+  // S^T and dP^T are started, so the tensor cores always have work queued;
+  // its stage is released then.  `pa` and `da` hold the pending products'
+  // P^T and dS^T until they are done.
+  uint32_t pa[4][4], da[4][4];
+  int pending = -1;  // the stage whose dV, dK products are in flight
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[stage]);
+  };
+  bar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it % STAGES, t = t_lo + it % n_t;
+    // the step whose stage the loader refills after this one: it - 1's
+    const int refill = it - 1 + STAGES;
+    const bool refills = loader && it >= 1 && refill < n_iter;
+    float l[2], d[2];
+    if (refills) load_stats(refill, l, d);
+    bar_wait(&full[stage], (it / STAGES) & 1);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+    if (t >= my_lo && t < my_hi) {
+      const uint32_t sQ = smem_u32(smem + SM::Q + stage * TL::BYTES);
+      const uint32_t sO = smem_u32(smem + SM::DO + stage * TL::BYTES);
+      const uint32_t tK = opaque(sK), tV = opaque(sV);
+      const float* L = s_lse + stage * ROWS;
+      const float* Dl = s_delta + stage * ROWS;
+      const int p0 = t * ROWS;
+      const bool unmasked = mask_free(a, p0, j0);
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 positions, unscaled)
+      float s[32], dp[32];
+      wgmma_fence();
+      wgmma_ss64_init(s, desc_k<D>(tK, 0), desc_k<D>(sQ, 0));
+#pragma unroll
+      for (int ks = 1; ks < D / 16; ++ks) wgmma_ss64(s, desc_k<D>(tK, ks), desc_k<D>(sQ, ks));
+      wgmma_commit();
+      wgmma_ss64_init(dp, desc_k<D>(tV, 0), desc_k<D>(sO, 0));
+#pragma unroll
+      for (int ks = 1; ks < D / 16; ++ks) wgmma_ss64(dp, desc_k<D>(tV, ks), desc_k<D>(sO, ks));
+      wgmma_commit();
+      if (pending >= 0) {  // the previous tile's dV and dK products
+        wgmma_wait<2>();
+        release(pending);
+      }
+      softmax_grad(
+          s, dp, sl2, [&](int j, int e) { return L[8 * j + 2 * t4 + (e & 1)]; },
+          [&](int j, int e) { return Dl[8 * j + 2 * t4 + (e & 1)]; },
+          [&](int j, int e) {
+            return unmasked || valid(a, j0 + 16 * warp + g + 8 * (e >> 1),
+                                     a.q_offset + p0 + 8 * j + 2 * t4 + (e & 1));
+          },
+          pa, da);
+      // dV += P^T dO, dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dv, pa[kk], desc_mn<D>(sO, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dk, da[kk], desc_mn<D>(sQ, kk));
+      wgmma_commit();
+      pending = stage;
+    } else {
+      if (pending >= 0) {
+        wgmma_wait<0>();
+        release(pending);
+        pending = -1;
+      }
+      release(stage);
+    }
+    if (refills) {  // both warpgroups are done with step it - 1: reuse its stage
+      bar_wait(&empty[(it - 1) % STAGES], ((it - 1) / STAGES) & 1);
+      fill(refill, l, d);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs<D / 2>(dv);
+  fence_regs<D / 2>(dk);
+  if (pending >= 0) release(pending);
+
+  // dK / sqrt(D) and dV in bf16, staged in this warpgroup's own K and V tiles
+  unsigned char* const tk = smem + SM::K + c * TL::BYTES;
+  unsigned char* const tv = smem + SM::V + c * TL::BYTES;
+  stage_tile<D>(tk, dk, a.scale, warp, g, t4);
+  stage_tile<D>(tv, dv, 1.f, warp, g, t4);
+  fence_async_smem();
+  warpgroup_sync(1 + c);
+  if (tid == 0 && j0 < a.Skv) {
+    for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+      tma_store(&maps.dk, tk + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+      tma_store(&maps.dv, tv + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+    }
+    tma_store_wait();
+  }
 }
 
 // ------------------------------------------------------------------ bf16 dQ --
-template <int D>
-struct DqSmem {
-  static constexpr int LD = D + 8;
-  static constexpr int TILE = BM * LD;  // BM == BN
-  static constexpr int Q = 0, DO = TILE, K = 2 * TILE;  // then V, K, V of stage 1
-  static constexpr int BYTES = 6 * TILE * 2;
+struct DqMaps {
+  CUtensorMap q, dout, k, v, dq;
 };
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2) flash_bwd_dq_kernel(Args a, int n_qt) {
+struct DqSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int T = Tile<D>::BYTES;
+  static constexpr int Q = 0, DO = 2 * T, K = 4 * T, V = K + STAGES * T;
+  static constexpr int LSE = V + STAGES * T, DELTA = LSE + BLOCK_ROWS * 4;
+  static constexpr int BARS = DELTA + BLOCK_ROWS * 4;  // qo, full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ DqMaps maps, const Args a, int n_qb) {
   using SM = DqSmem<D>;
-  constexpr int LD = SM::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const sQ = reinterpret_cast<bf16*>(smem) + SM::Q;
-  bf16* const sO = reinterpret_cast<bf16*>(smem) + SM::DO;
-  bf16* const sK0 = reinterpret_cast<bf16*>(smem) + SM::K;  // K, V of stage s at 2 s TILE
+  using TL = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  float* const s_lse = reinterpret_cast<float*>(smem + SM::LSE);  // [BLOCK_ROWS]
+  float* const s_delta = reinterpret_cast<float*>(smem + SM::DELTA);
+  uint64_t* const qo_full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
+  uint64_t* const full = qo_full + 1;
+  uint64_t* const empty = full + STAGES;
 
-  // Heaviest causal q tiles first, as in the forward.
+  // Heaviest causal position blocks first, as in the forward.
   int lin = blockIdx.x;
-  const int hk = lin % a.Hkv;
-  lin /= a.Hkv;
+  const int hq = lin % a.H;
+  lin /= a.H;
   const int b = lin % a.B;
-  const int qt = n_qt - 1 - lin / a.B;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int p_blk = (n_qb - 1 - lin / a.B) * BLOCK_ROWS;
+  const int hk = hq / a.group;
+  int lo[2], hi[2], t_lo, n_t;
+  dq_walk(a, p_blk, &lo[0], &hi[0]);
+  dq_walk(a, p_blk + ROWS, &lo[1], &hi[1]);
+  block_walk(lo, hi, &t_lo, &n_t);
+  init_ring(qo_full, 32, full, 1, empty);
+
+  const int c = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int group = a.group;
-  const int positions = BM / group;
-  const int p0 = qt * positions;
-  const int nq = min(positions, a.Sq - p0);
-  const int r0 = p0 * group, nrows = nq * group;
-  int kv_begin, kv_end;
-  keys_seen(a, p0, nq, &kv_begin, &kv_end);
-  const int q_lo = a.q_offset + p0, q_hi = q_lo + nq - 1;
-
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  auto load_kv = [&](int j0, int stage) {
-    const int nk = min(BN, kv_end - j0);
-    load_rows_async<D, BN, LD>(sK0 + 2 * stage * SM::TILE, nk,
-                               [&](int r) { return kb + (long long)(j0 + r) * a.sk.s; }, tid);
-    load_rows_async<D, BN, LD>(sK0 + (2 * stage + 1) * SM::TILE, nk,
-                               [&](int r) { return vb + (long long)(j0 + r) * a.sv.s; }, tid);
+  // Thread 0 also keeps the ring of K/V tiles full.
+  auto fill = [&](int it) {
+    const int stage = it % STAGES, k0 = (t_lo + it) * ROWS;
+    bar_arrive_expect(&full[stage], 2 * TL::BYTES);
+    for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+      const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
+      tma_load(smem + SM::K + at, &maps.k, &full[stage], cb * TL::BOX, hk, k0, b);
+      tma_load(smem + SM::V + at, &maps.v, &full[stage], cb * TL::BOX, hk, k0, b);
+    }
   };
-  load_rows_async<D, BM, LD>(sQ, nrows, [&](int r) {
-    return row_ptr<bf16>(a.q, a.sq, b, hk, group, r0 + r);
-  }, tid);
-  load_rows_async<D, BM, LD>(sO, nrows, [&](int r) {
-    return row_ptr<bf16>(a.dout, a.sdo, b, hk, group, r0 + r);
-  }, tid);
-  if (kv_begin < kv_end) load_kv(kv_begin, 0);
-  cp_async_commit();
+  if (threadIdx.x < 32) {  // the block's positions' statistics, Q and dO
+    float l[BLOCK_ROWS / 32], d[BLOCK_ROWS / 32];
+#pragma unroll
+    for (int h = 0; h < BLOCK_ROWS / 32; ++h) {
+      const int p = p_blk + lane + 32 * h;
+      const long long at = ((long long)b * a.H + hq) * a.Sq + p;
+      l[h] = p < a.Sq ? no_key(a.lse[at]) : INFINITY;  // padding: P = 0, dS = 0
+      d[h] = p < a.Sq ? a.delta[at] : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < BLOCK_ROWS / 32; ++h) {
+      s_lse[lane + 32 * h] = l[h];
+      s_delta[lane + 32 * h] = d[h];
+    }
+    if (lane == 0) {
+      bar_arrive_expect(qo_full, 4 * TL::BYTES);
+      for (int half = 0; half < 2; ++half)
+        for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+          const int at = half * TL::BYTES + cb * TL::BLOCK_BYTES, p = p_blk + half * ROWS;
+          tma_load(smem + SM::Q + at, &maps.q, qo_full, cb * TL::BOX, hq, p, b);
+          tma_load(smem + SM::DO + at, &maps.dout, qo_full, cb * TL::BOX, hq, p, b);
+        }
+      for (int it = 0; it < min(STAGES, n_t); ++it) fill(it);  // every stage starts free
+    } else {
+      bar_arrive(qo_full);
+    }
+  }
 
-  // This lane's rows g and g + 8 of the warp's 16: their statistics.
+  // Each warpgroup: 64 positions' dQ for the whole walk.
+  const int p0 = p_blk + c * ROWS;
+  const int my_lo = c ? lo[1] : lo[0], my_hi = c ? hi[1] : hi[0];
+  const uint32_t sQ = smem_u32(smem + SM::Q + c * TL::BYTES);
+  const uint32_t sO = smem_u32(smem + SM::DO + c * TL::BYTES);
+  const float sl2 = a.scale * LOG2E;
+  bar_wait(qo_full, 0);
   float lse_row[2], delta_row[2];
   int pos_row[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + g + 8 * h;
-    lse_row[h] = tile_lse(a, b, hk, r0 + r, r0 + nrows);
-    delta_row[h] = r < nrows ? a.delta[stat_index(a, b, hk, r0 + r)] : 0.f;
-    pos_row[h] = q_lo + r / group;
+    const int r = 16 * warp + g + 8 * h;
+    lse_row[h] = s_lse[c * ROWS + r];
+    delta_row[h] = s_delta[c * ROWS + r];
+    pos_row[h] = a.q_offset + p0 + r;
   }
-  float dq[D / 8][4];
+  float dq[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const float sl2 = a.scale * LOG2E;
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-  int stage = 0;
-  for (int j0 = kv_begin; j0 < kv_end; j0 += BN, stage ^= 1) {
-    __syncthreads();  // every warp is done with the other stage
-    if (j0 + BN < kv_end) load_kv(j0 + BN, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and this tile have landed
-    __syncthreads();
-    const bf16* sK = sK0 + 2 * stage * SM::TILE;
-    const bf16* sV = sK + SM::TILE;
-
-    float s[BN / 8][4], dp[BN / 8][4];
+  // A tile's dQ product is waited for only after the next tile's S and dP
+  // are started, so the tensor cores always have work queued; its stage is
+  // released then.  `da` holds the pending product's dS until it is done.
+  uint32_t da[4][4];
+  int pending = -1;  // the stage whose dQ product is in flight
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[stage]);
+  };
+  for (int it = 0; it < n_t; ++it) {
+    const int stage = it % STAGES, t = t_lo + it;
+    bar_wait(&full[stage], (it / STAGES) & 1);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+    if (t >= my_lo && t < my_hi) {
+      const uint32_t sK = smem_u32(smem + SM::K + stage * TL::BYTES);
+      const uint32_t sV = smem_u32(smem + SM::V + stage * TL::BYTES);
+      const uint32_t tQ = opaque(sQ), tO = opaque(sO);
+      const int k0 = t * ROWS;
+      const bool unmasked = mask_free(a, p0, k0);
+      // S = Q K^T and dP = dO V^T (64 positions x 64 keys, unscaled)
+      float s[32], dp[32];
+      wgmma_fence();
+      wgmma_ss64_init(s, desc_k<D>(tQ, 0), desc_k<D>(sK, 0));
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+      for (int ks = 1; ks < D / 16; ++ks) wgmma_ss64(s, desc_k<D>(tQ, ks), desc_k<D>(sK, ks));
+      wgmma_commit();
+      wgmma_ss64_init(dp, desc_k<D>(tO, 0), desc_k<D>(sV, 0));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, BN / 8, LD>(s, sQ + warp * 16 * LD, sK, lane);
-    mma_abt<D, BN / 8, LD>(dp, sO + warp * 16 * LD, sV, lane);
-
-    const bool full = j0 + BN <= a.Skv && (!a.causal || j0 + BN - 1 <= q_lo) &&
-                      (a.window < 0 || q_hi - j0 < a.window);
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[n][e], sl2, -lse_row[e >> 1]));
-        if (!full && !valid(a, j0 + n * 8 + 2 * t4 + (e & 1), pos_row[e >> 1])) p = 0.f;
-        dp[n][e] = p * (dp[n][e] - delta_row[e >> 1]);
+      for (int ks = 1; ks < D / 16; ++ks) wgmma_ss64(dp, desc_k<D>(tO, ks), desc_k<D>(sV, ks));
+      wgmma_commit();
+      if (pending >= 0) {  // the previous tile's dQ product
+        wgmma_wait<2>();
+        release(pending);
       }
-    mma_pz<D, BN / 16, LD>(dq, dp, sK, lane);  // dQ += dS K
+      uint32_t pa[4][4];
+      softmax_grad(
+          s, dp, sl2, [&](int, int e) { return lse_row[e >> 1]; },
+          [&](int, int e) { return delta_row[e >> 1]; },
+          [&](int j, int e) {
+            return unmasked || valid(a, k0 + 8 * j + 2 * t4 + (e & 1), pos_row[e >> 1]);
+          },
+          pa, da);
+      // dQ += dS K
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq, da[kk], desc_mn<D>(sK, kk));
+      wgmma_commit();
+      pending = stage;
+    } else {
+      if (pending >= 0) {
+        wgmma_wait<0>();
+        release(pending);
+        pending = -1;
+      }
+      release(stage);
+    }
+    // thread 0 refills the stage of step it - 1 once both warpgroups are done
+    if (threadIdx.x == 0 && it >= 1 && it - 1 + STAGES < n_t) {
+      bar_wait(&empty[(it - 1) % STAGES], ((it - 1) / STAGES) & 1);
+      fill(it - 1 + STAGES);
+    }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the last tile
+  wgmma_wait<0>();
+  fence_regs<D / 2>(dq);
+  if (pending >= 0) release(pending);
 
-  const int row0 = warp * 16;
-  store_rows<D, LD>(dq, a.scale, sQ + row0 * LD, row0, nrows, [&](int r) {
-    return static_cast<bf16*>(a.dq) + b * a.sdq.b + (long long)((r0 + r) / group) * a.sdq.s +
-           (long long)(hk * group + (r0 + r) % group) * a.sdq.h;
-  }, lane);
+  // dQ / sqrt(D) in bf16, staged in this warpgroup's own Q tile
+  unsigned char* const tq = smem + SM::Q + c * TL::BYTES;
+  stage_tile<D>(tq, dq, a.scale, warp, g, t4);
+  fence_async_smem();
+  warpgroup_sync(1 + c);
+  if (tid == 0 && p0 < a.Sq) {
+    for (int cb = 0; cb < TL::BLOCKS; ++cb)
+      tma_store(&maps.dq, tq + cb * TL::BLOCK_BYTES, cb * TL::BOX, hq, p0, b);
+    tma_store_wait();
+  }
 }
 
 // --------------------------------------------------------- FMA dK, dV, dQ --
@@ -690,6 +1124,44 @@ int allow_smem(Kernel kernel, int bytes, unsigned long long* done) {
   return (int)err;
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda the runtime has loaded,
+// so this library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (B, S, heads, D) bf16 tensor, as the 4-D array
+// (D, heads, S, B) with its own strides, in boxes of one column block of
+// ROWS positions of one head, swizzled as Tile<D> lays them out.  TMA needs
+// a 16-byte aligned base and 16-byte strides (the wrapper checks both).
+template <int D>
+int tensor_map(CUtensorMap* map, const void* base, const Stride& st, int B, int S, int heads) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -3;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {Tile<D>::BOX, 1, ROWS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = Tile<D>::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : Tile<D>::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of range: zeros
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
 template <int D>
 int launch_preprocess(int dtype, const Args& a, cudaStream_t s) {
   const long long rows = (long long)a.B * a.Sq * a.H;
@@ -701,16 +1173,24 @@ int launch_preprocess(int dtype, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// n_blocks: the bf16 grid's blocks of BLOCK_ROWS keys per (b, kv head).
 template <int D>
-int launch_dkdv(int dtype, const Args& a, cudaStream_t s) {
-  const int n_kt = (a.Skv + BM - 1) / BM;
-  const int blocks = n_kt * a.Hkv * a.B;
+int launch_dkdv(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
   static unsigned long long done_bf16 = 0, done_f32 = 0;
   if (dtype == 1) {
-    int err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvSmem<D>::BYTES, &done_bf16);
+    DkvMaps m;
+    int err = tensor_map<D>(&m.q, a.q, a.sq, a.B, a.Sq, a.H);
+    if (!err) err = tensor_map<D>(&m.dout, a.dout, a.sdo, a.B, a.Sq, a.H);
+    if (!err) err = tensor_map<D>(&m.k, a.k, a.sk, a.B, a.Skv, a.Hkv);
+    if (!err) err = tensor_map<D>(&m.v, a.v, a.sv, a.B, a.Skv, a.Hkv);
+    if (!err) err = tensor_map<D>(&m.dk, a.dk, a.sdk, a.B, a.Skv, a.Hkv);
+    if (!err) err = tensor_map<D>(&m.dv, a.dv, a.sdv, a.B, a.Skv, a.Hkv);
+    if (!err) err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvSmem<D>::BYTES, &done_bf16);
     if (err) return err;
-    flash_bwd_dkdv_kernel<D><<<blocks, NT, DkvSmem<D>::BYTES, s>>>(a);
+    flash_bwd_dkdv_kernel<D>
+        <<<n_blocks * a.Hkv * a.B, TC_THREADS, DkvSmem<D>::BYTES, s>>>(m, a);
   } else {
+    const int blocks = (a.Skv + BM - 1) / BM * a.Hkv * a.B;
     int err = allow_smem(flash_bwd_dkdv_fma_kernel<float, D>, FmaDkvSmem<D>::BYTES, &done_f32);
     if (err) return err;
     flash_bwd_dkdv_fma_kernel<float, D><<<blocks, NT, FmaDkvSmem<D>::BYTES, s>>>(a);
@@ -718,16 +1198,23 @@ int launch_dkdv(int dtype, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// n_blocks: the bf16 grid's blocks of BLOCK_ROWS positions per (b, q head).
 template <int D>
-int launch_dq(int dtype, const Args& a, cudaStream_t s) {
-  const int positions = BM / a.group;
-  const int n_qt = (a.Sq + positions - 1) / positions;
+int launch_dq(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
   static unsigned long long done_bf16 = 0, done_f32 = 0;
   if (dtype == 1) {
-    int err = allow_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::BYTES, &done_bf16);
+    DqMaps m;
+    int err = tensor_map<D>(&m.q, a.q, a.sq, a.B, a.Sq, a.H);
+    if (!err) err = tensor_map<D>(&m.dout, a.dout, a.sdo, a.B, a.Sq, a.H);
+    if (!err) err = tensor_map<D>(&m.k, a.k, a.sk, a.B, a.Skv, a.Hkv);
+    if (!err) err = tensor_map<D>(&m.v, a.v, a.sv, a.B, a.Skv, a.Hkv);
+    if (!err) err = tensor_map<D>(&m.dq, a.dq, a.sdq, a.B, a.Sq, a.H);
+    if (!err) err = allow_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::BYTES, &done_bf16);
     if (err) return err;
-    flash_bwd_dq_kernel<D><<<n_qt * a.Hkv * a.B, NT, DqSmem<D>::BYTES, s>>>(a, n_qt);
+    flash_bwd_dq_kernel<D>
+        <<<n_blocks * a.H * a.B, TC_THREADS, DqSmem<D>::BYTES, s>>>(m, a, n_blocks);
   } else {
+    const int n_qt = (a.Sq + BM / a.group - 1) / (BM / a.group);
     int err = allow_smem(flash_bwd_dq_fma_kernel<float, D>, FmaDqSmem<D>::BYTES, &done_f32);
     if (err) return err;
     flash_bwd_dq_fma_kernel<float, D>
@@ -743,7 +1230,7 @@ enum Phase { PREPROCESS, DKDV, DQ };
 int run(Phase phase, int dtype, int D, const void* q, const void* k, const void* v,
         const void* o, const void* dout, void* dq, void* dk, void* dv, const float* lse,
         float* delta, const long long* strides, int B, int Sq, int Skv, int H, int Hkv,
-        int causal, int window, int q_offset, float scale, void* stream) {
+        int causal, int window, int q_offset, float scale, int n_blocks, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   Args a{q, k, v, o, dout, dq, dk, dv, lse, delta,
          stride_at(strides, 0), stride_at(strides, 1), stride_at(strides, 2),
@@ -754,8 +1241,8 @@ int run(Phase phase, int dtype, int D, const void* q, const void* k, const void*
 #define REPRO_BWD_PHASE(DD)                                               \
   switch (phase) {                                                         \
     case PREPROCESS: return launch_preprocess<DD>(dtype, a, s);            \
-    case DKDV: return launch_dkdv<DD>(dtype, a, s);                        \
-    default: return launch_dq<DD>(dtype, a, s);                            \
+    case DKDV: return launch_dkdv<DD>(dtype, a, n_blocks, s);              \
+    default: return launch_dq<DD>(dtype, a, n_blocks, s);                  \
   }
   switch (D) {
     case 16: REPRO_BWD_PHASE(16)
@@ -775,16 +1262,18 @@ int run(Phase phase, int dtype, int D, const void* q, const void* k, const void*
 // be contiguous and every row 16-byte aligned (the Python wrapper checks).
 // lse: the forward's (B, H, Sq) log-sum-exps; delta: (B, H, Sq) f32, written
 // by the preprocess and read by the other two.  window < 0 disables the
-// window.  Each returns 0, a cudaError_t, or -1 / -2 for an unsupported
-// dtype / head dim.
+// window.  n_blocks: the bf16 grids' blocks along the sequence, from
+// `bwd_plan` (keys for dK/dV, positions for dQ); the preprocess and the f32
+// kernels size their own grids.  Each returns 0, a cudaError_t, or -1 / -2 /
+// -3 for an unsupported dtype / head dim / a tensor map libcuda refused.
 #define REPRO_BWD_ENTRY(NAME, PHASE)                                                          \
   extern "C" int NAME(int dtype, int D, const void* q, const void* k, const void* v,         \
                       const void* o, const void* dout, void* dq, void* dk, void* dv,          \
                       const float* lse, float* delta, const long long* strides, int B,        \
                       int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,  \
-                      float scale, void* stream) {                                            \
+                      float scale, int n_blocks, void* stream) {                              \
     return run(PHASE, dtype, D, q, k, v, o, dout, dq, dk, dv, lse, delta, strides, B, Sq,     \
-               Skv, H, Hkv, causal, window, q_offset, scale, stream);                         \
+               Skv, H, Hkv, causal, window, q_offset, scale, n_blocks, stream);               \
   }
 REPRO_BWD_ENTRY(repro_flash_bwd_preprocess, PREPROCESS)
 REPRO_BWD_ENTRY(repro_flash_bwd_dkdv, DKDV)

@@ -24,11 +24,13 @@ counterpart: JAX differentiates the plain ``flash_attention``.
 log-sum-exp (:func:`lse_plain` is that statistic's plain version,
 :func:`delta_plain` the preprocess's); its plain version is autograd of
 :func:`flash_attention_plain` (:func:`flash_attention_bwd_plain`).
-``ops.flash_attention`` ties the two kernels into autograd.
+:func:`bwd_plan` gives the tiles the bf16 backward kernels walk and sizes
+their grids.  ``ops.flash_attention`` ties the two kernels into autograd.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
@@ -46,12 +48,17 @@ KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
                 "flash_decode_kernel")
 BWD_SOURCE = "flash_attention_bwd.cu"
 #: The backward's kernels, as a profiler shows them: the preprocess, then
-#: dK/dV and dQ (tensor cores for bf16, FMA kernels for f32).
+#: dK/dV and dQ (wgmma and TMA for bf16, FMA kernels for f32).
 BWD_KERNEL_NAMES = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkdv_fma_kernel",
                     "flash_bwd_dq_fma_kernel")
 #: Kernels one backward call launches, whatever the dtype.
 BWD_LAUNCHES_PER_CALL = 3
+#: The bf16 backward kernels: rows of every tile a warpgroup owns or walks
+#: (ROWS in the source), and keys or positions a block owns (two
+#: warpgroups).
+BWD_TILE = 64
+BWD_BLOCK = 2 * BWD_TILE
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -142,6 +149,99 @@ def decode_plan(Skv: int, split: int = DECODE_SPLIT, *, B: int = 1,
         n_splits=n, split=split, grid=(n, Hkv, B),
         scratch_floats=B * Hkv * n * group * (D + 2), tickets=B * Hkv,
         Skv=Skv)
+
+
+@dataclass(frozen=True)
+class BwdWalk:
+    """One warpgroup of a bf16 backward block: the :data:`BWD_TILE` rows it
+    owns, [rows, rows + BWD_TILE) (keys for dK/dV, query positions for dQ,
+    some maybe past the end), and the tiles of :data:`BWD_TILE` it visits,
+    each as its first query position (dK/dV) or key (dQ) and whether the
+    kernel evaluates masks on it."""
+    rows: int
+    tiles: Tuple[Tuple[int, bool], ...]
+
+
+@dataclass(frozen=True)
+class BwdBlock:
+    """A bf16 backward block: the tiles it loads (the union of its
+    warpgroups' walks, in walk order) and its two warpgroups."""
+    tiles: Tuple[int, ...]
+    walks: Tuple[BwdWalk, BwdWalk]
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The walks of the bf16 backward kernels for one (b, head): the dK/dV
+    kernel's blocks of :data:`BWD_BLOCK` keys of a kv head, each walking
+    its tiles once for each of the ``group`` q heads, and the dQ kernel's
+    blocks of :data:`BWD_BLOCK` positions of a q head.  The grids are these
+    blocks times (Hkv, B) and (H, B)."""
+    dkdv: Tuple[BwdBlock, ...]
+    dq: Tuple[BwdBlock, ...]
+    group: int
+
+
+def _dkdv_tiles(j0, Sq, Skv, causal, window, q_offset):
+    """First positions of the tiles that see a key of [j0, j0 + BWD_TILE)."""
+    j1 = min(j0 + BWD_TILE, Skv)
+    p_lo = max(0, j0 - q_offset) if causal else 0
+    p_hi = Sq if window is None else min(Sq, j1 - 1 + window - q_offset)
+    if j0 >= j1 or (causal and window == 0) or p_lo >= p_hi:
+        return []
+    return [t * BWD_TILE for t in range(p_lo // BWD_TILE,
+                                        -(-p_hi // BWD_TILE))]
+
+
+def _dq_tiles(p0, Sq, Skv, causal, window, q_offset):
+    """First keys of the tiles that a position of [p0, p0 + BWD_TILE)
+    sees."""
+    p1 = min(p0 + BWD_TILE, Sq)
+    k_lo = 0 if window is None else max(0, p0 + q_offset - window + 1)
+    k_hi = min(Skv, p1 + q_offset) if causal else Skv
+    if p0 >= p1 or (causal and window == 0) or k_lo >= k_hi:
+        return []
+    return [t * BWD_TILE for t in range(k_lo // BWD_TILE,
+                                        -(-k_hi // BWD_TILE))]
+
+
+def _unmasked(p0, k0, Sq, Skv, causal, window, q_offset):
+    """No pair of BWD_TILE positions from p0 and BWD_TILE keys from k0 is
+    masked (the source's ``mask_free``)."""
+    last = BWD_TILE - 1
+    return (p0 + BWD_TILE <= Sq and k0 + BWD_TILE <= Skv
+            and (not causal or k0 + last <= p0 + q_offset)
+            and (window is None or p0 + last + q_offset - k0 < window))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(Sq: int, Skv: int, group: int = 1, causal: bool = True,
+             window: Optional[int] = None, q_offset: int = 0) -> BwdPlan:
+    """The tiles each bf16 backward block visits, as the kernels compute
+    them (``dkdv_walk``, ``dq_walk``, ``block_walk`` and ``mask_free`` in
+    the source): a dK/dV warpgroup visits the tiles of query positions that
+    see one of its keys, a dQ warpgroup the tiles of keys that one of its
+    positions sees, and a tile needs masks when it crosses the causal
+    diagonal, the window's edge, Sq or Skv.  Masks depend on the position
+    alone, so every q head of a group walks the same tiles."""
+    if Sq < 1 or Skv < 1 or group < 1:
+        raise ValueError(f"bwd plan: Sq {Sq}, Skv {Skv}, group {group}")
+    masks = (Sq, Skv, causal, window, q_offset)
+
+    def block(start, tiles_of, pair):
+        walks = []
+        for rows in (start, start + BWD_TILE):
+            walks.append(BwdWalk(rows, tuple(
+                (t, not _unmasked(*pair(rows, t), *masks))
+                for t in tiles_of(rows, *masks))))
+        union = sorted({t for w in walks for t, _ in w.tiles})
+        return BwdBlock(tuple(union), tuple(walks))
+
+    dkdv = tuple(block(j, _dkdv_tiles, lambda rows, t: (t, rows))
+                 for j in range(0, Skv, BWD_BLOCK))
+    dq = tuple(block(p, _dq_tiles, lambda rows, t: (rows, t))
+               for p in range(0, Sq, BWD_BLOCK))
+    return BwdPlan(dkdv=dkdv, dq=dq, group=group)
 
 
 def flash_attention_split_plain(q, k, v, *, causal: bool = True,
@@ -398,7 +498,8 @@ class FlashAttentionBwdKernel:
                 fn.argtypes = ([ctypes.c_int, ctypes.c_int]
                                + [ctypes.c_void_p] * 11
                                + [ctypes.c_int] * 8
-                               + [ctypes.c_float, ctypes.c_void_p])
+                               + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
                 fn.restype = ctypes.c_int
             self._fns = fns
         return self._fns
@@ -408,7 +509,8 @@ class FlashAttentionBwdKernel:
         """(dq, dk, dv) in q's dtype for :func:`flash_attention_plain`'s
         output ``out`` and its gradient ``dout`` (both (B, Sq, H, D), rows
         aligned as q's), from the forward's ``lse`` ((B, H, Sq) f32,
-        contiguous).  ``q_offset`` is a host int."""
+        contiguous).  ``q_offset`` is a host int.  The bf16 kernels' grids
+        come from :func:`bwd_plan`; the f32 kernels size their own."""
         what = "flash attention backward kernel"
         B, Sq, H, D, Skv, Hkv = _check_qkv(q, k, v, what)
         _check_window(window, what)
@@ -438,10 +540,15 @@ class FlashAttentionBwdKernel:
                 delta.data_ptr(), ctypes.addressof(strides), B, Sq, Skv, H,
                 Hkv, int(bool(causal)), -1 if window is None else window,
                 int(q_offset), 1.0 / math.sqrt(D))
+        blocks = (0, 0, 0)
+        if q.dtype == torch.bfloat16:
+            plan = bwd_plan(Sq, Skv, H // Hkv, bool(causal), window,
+                            int(q_offset))
+            blocks = (0, len(plan.dkdv), len(plan.dq))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            for name, fn in zip(self._PHASES, self._functions()):
-                err = fn(*args, stream)
+            for name, fn, n in zip(self._PHASES, self._functions(), blocks):
+                err = fn(*args, n, stream)
                 if err != 0:
                     raise RuntimeError(f"{what}: {name} failed to launch "
                                        f"(error {err})")

@@ -305,6 +305,10 @@ BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
     (1, 4, 2, 100, 100, 64, False, 30, 0),       # non-causal window
     (2, 4, 2, 5, 40, 32, True, 8, 30),           # offset and window
     (1, 6, 2, 50, 50, 32, True, None, 0),        # group 3 does not divide 64
+    (1, 40, 8, 140, 140, 128, True, None, 0),    # group 5 (llama4-scout)
+    (1, 48, 8, 160, 160, 128, True, 50, 0),      # group 6 (nemotron-4), window
+    (1, 8, 2, 129, 257, 128, False, None, 0),    # ragged position and key blocks
+    (2, 16, 8, 129, 257, 128, True, None, 128),  # q_offset > 0 at D 128
     (1, 64, 1, 20, 20, 16, True, None, 0),       # group 64
     (1, 2, 1, 8, 8, 64, True, 0, 0),             # empty window: all zero
     (2, 16, 8, 300, 300, 128, True, None, 0),    # qwen3's heads, ragged

@@ -18,25 +18,31 @@ prompt, then 32 greedy tokens).
   decode kernel in every decode step; a warm prefill is timed after the
   path;
 - falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
-  16, vocab 65 024; 14.0 GB of weights) through the K2 selective-scan
-  kernel, which every prefill layer launches and no decode step does.
+  16, vocab 65 024; 14.0 GB of weights) through the fused K2 selective
+  scan, which every prefill layer launches and no decode step does; then
+  each of its layers held at full width through the fused K2, the
+  unfused K2 (decay and inc built in full) and the plain scan.
 
-Then qwen3-1.7b trains at full width (8 x 1024 tokens a step) through K1's
-forward and its backward, dies after step 3's save and resumes.  K1's
-backward is timed kernel by kernel (preprocess, dK/dV, dQ) at the training
-shape and in a profiled training step.
+Then both families train at full width (8 x 1024 tokens a step, f32 master
+weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
+after step 3's save, run 2 resumes bit-exactly.  qwen3-1.7b trains through
+K1's forward and its backward; falcon-mamba-7b, cut to 16 of its 64 layers
+(its state at full depth would not fit the card), through the fused K2
+forward and K2's backward kernel.  The backward kernels are timed at the
+training shape and in a profiled training step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Every phase asserts; any failure exits non-zero.  The
 line before the last is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
-prints no result.  Needs about 45 GB free in the temporary directory.
+prints no result.  Needs about 52 GB free in the temporary directory.
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -61,6 +67,9 @@ DECODE_OFFSETS = (63, 95, 511, 1023)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12   # outside the tensor cores
+#: Exponentials a second: 16 a clock on each SM's special function units
+#: (Hopper's MUFU rate), 132 SMs, 1.98 GHz boost clock.
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 #: falcon-mamba's bf16 checkpoint is 14.0 GB; the temporary directory
 #: must hold it.
 DISK_NEED = 16e9
@@ -87,9 +96,18 @@ TOL_SCAN = dict(rtol=1e-5, atol=1e-5)
 #: such differences until the logits decorrelate (the run prints how far),
 #: so the logits of two rounding paths are reported, not held.
 REL_LAYER_PLAIN = 1e-3
+#: The fused K2 forward against mamba1_scan_plain: both build decay with
+#: an accurate f32 exp of the same rounded product and inc with the same
+#: two rounded products, and round the state identically; only the order of
+#: y's sum over n differs (the unfused K2's TOL_SCAN).  K2's backward
+#: against autograd of mamba1_scan_plain on f32 copies of the same inputs:
+#: in f32 each gradient's largest error within SCAN_BWD_REL_MAX of its
+#: largest element (sums over up to 8192 channels, or B S steps for dA, in
+#: another order); for bf16 inputs dx, ddt, dB and dC (rounded to bf16 once)
+#: by relative L2, dA (f32) as in f32.
+SCAN_BWD_REL_MAX = 1e-4
+SCAN_BWD_REL_BF16 = 1e-2
 REL_LAYER_DECODE = 3e-2
-#: K2's kernel name, as the profiler shows it.
-K2_NAMES = ("ssm_scan_kernel",)
 
 #: K1's backward kernels by part: a part's kernels hold its substring.
 BWD_PARTS = {"preprocess": "flash_bwd_preprocess", "dkdv": "flash_bwd_dkdv",
@@ -102,17 +120,30 @@ BWD_PARTS = {"preprocess": "flash_bwd_preprocess", "dkdv": "flash_bwd_dkdv",
 BWD_TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 BWD_REL_BF16 = 1e-2
 LSE_TOL = dict(rtol=1e-4, atol=1e-4)
-#: The training path: qwen3-1.7b at full width, f32 master weights and
-#: AdamW moments, bf16 compute, 8 × 1024 tokens a step.
+#: The training paths: qwen3-1.7b at full width, and falcon-mamba-7b at full
+#: width cut to FALCON_TRAIN_LAYERS of its 64 layers (its state at 64 layers,
+#: 16 B a parameter with the gradients, would be 112 GB); f32 master
+#: weights and AdamW moments, bf16 compute, 8 × 1024 tokens a step.
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
-#: While the final save commits, the step-3 and step-5 state files
-#: (20.65 GB each) are both on disk.
-TRAIN_DISK_NEED = 45e9
+FALCON_TRAIN_LAYERS = 16
+#: One falcon layer at the training shape, kernel path against plain path
+#: on the same inputs: its bf16 output as REL_LAYER_PLAIN, its bf16
+#: gradients (each rounded once from f32 sums taken in another order) by
+#: relative L2.
+REL_LAYER_GRAD = 1e-2
 #: Step 0's loss and global gradient norm through K1 against the same step
 #: through the plain attention (28 layers in bf16, the plain version's
 #: rounding of p per 512-key chunk against the kernel's per 64 keys).
 TOL_TRAIN = dict(rtol=1e-2, atol=1e-2)
+
+
+_START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """Mark the start of a phase with the run's elapsed seconds."""
+    print(f"[{time.perf_counter() - _START:.1f} s] {name}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -402,12 +433,15 @@ def _kernel_name(mangled: str) -> str:
     return f"{parts[-1]}<{', '.join(args)}>"
 
 
-def bound(nbytes: int, flops: int, peak_flops: float):
+def bound(nbytes: int, flops: int, peak_flops: float, exps: int = 0):
+    """The least time for the work: bytes at the memory rate, or its
+    operations, the larger of its flops at ``peak_flops`` and its
+    exponentials at the SFU rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = max(flops / peak_flops, exps / PEAK_EXP_PER_S) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, exps=exps)
 
 
 def scan_checks(torch, ss, cfg):
@@ -459,6 +493,225 @@ def scan_checks(torch, ss, cfg):
           f"({rec['bound_by']}, {nbytes} B); per call ms "
           f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no "
           f"library call computes it")
+    return [rec]
+
+
+def fused_cases(torch):
+    """(B, S, d, N, dtype, B and C as strided row slices) for the fused
+    forward and the backward: ragged S (S not a multiple of the 16-step
+    state interval), N of 1, 3, 16 and 32, d that no block divides, bf16
+    and f32, strided B and C."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [(1, 1, 1, 1, f32, False),      # one step, one state
+            (2, 37, 5, 3, f32, False),     # ragged S, N not a power of two
+            (3, 70, 33, 8, f32, True),     # d no block divides, strided
+            (1, 130, 7, 1, f32, False),    # one lane per channel
+            (2, 20, 3, 32, f32, True),     # a channel fills a warp
+            (2, 9, 100, 16, f32, False),   # the model's N
+            (1, 64, 300, 16, f32, True),   # S a multiple of 16, many blocks
+            (2, 41, 24, 16, bf16, True),   # bf16 inputs, read as f32
+            (1, 33, 17, 3, bf16, False)]
+
+
+def fused_inputs(torch, gen, B, S, d, N, dtype, strided):
+    """x, dt, B, C, A as the model makes them (dt a softplus, A = -exp of
+    log(1..N) per channel), x, dt, B, C in ``dtype``; B and C as row
+    slices of one (B, S, 5 + 2N) tensor when ``strided``."""
+    cuda = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.float32)
+    x = rand(B, S, d).to(dtype)
+    dt = torch.nn.functional.softplus(rand(B, S, d) - 1.0).to(dtype)
+    if strided:
+        dbc = rand(B, S, 5 + 2 * N).to(dtype)
+        Bs, Cs = dbc[..., 5:5 + N], dbc[..., 5 + N:]
+    else:
+        Bs, Cs = rand(B, S, N).to(dtype), rand(B, S, N).to(dtype)
+    A = -torch.exp(torch.log(torch.arange(
+        1, N + 1, device=cuda, dtype=torch.float32)).expand(d, N).contiguous()
+        + 0.3 * rand(d, N))
+    return x, dt, Bs, Cs, A
+
+
+def fused_scan_checks(torch, ss, cfg):
+    """The fused K2 forward against mamba1_scan_plain on small cases (with
+    its states against scan_states_plain), then the main path's shapes
+    with times: falcon-mamba's prefill 4 x 512 and its training 8 x 1024
+    (with the states autograd keeps), d_inner, N, bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = 0.0
+    for B, S, d, N, dtype, strided in fused_cases(torch):
+        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype,
+                                        strided)
+        states = torch.full(ss.states_shape(B, S, d, N), float("nan"),
+                            device="cuda")
+        got = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        bare = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A)
+        torch.cuda.synchronize()
+        what = f"K2 fused B{B} S{S} d{d} N{N} {dtype} strided {strided}"
+        check(torch.equal(got, bare), f"{what}: y depends on the states")
+        worst = max(worst, assert_close(
+            got, ss.mamba1_scan_plain(x, dt, Bs, Cs, A), TOL_SCAN, what))
+        worst = max(worst, assert_close(
+            states, ss.scan_states_plain(x, dt, Bs, A), TOL_SCAN,
+            f"{what} states"))
+    print(f"K2 fused small cases: {len(fused_cases(torch))} pass (y and "
+          f"states), max abs err {worst} (tol {TOL_SCAN})")
+
+    records = []
+    d, N = cfg.d_inner, cfg.ssm_state
+    for label, B, S in (("prefill", PREFILL_B, PREFILL_S),
+                        ("train", TRAIN_B, TRAIN_S)):
+        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N,
+                                        torch.bfloat16, True)
+        with_states = label == "train"
+        states = torch.empty(ss.states_shape(B, S, d, N), device="cuda") \
+            if with_states else None
+        got = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        want = ss.mamba1_scan_plain(x, dt, Bs, Cs, A)
+        err = assert_close(got, want, TOL_SCAN, f"K2 fused {label} shape")
+        del want
+        elems = B * S * d * N
+        nbytes = (2 * 2 * B * S * d + 2 * 2 * B * S * N + 4 * d * N
+                  + 4 * B * S * d + (states.numel() * 4 if with_states
+                                     else 0))
+        # per state element and step: dt A, dt x, (dt x) B, h's multiply
+        # and add, y's multiply and add
+        rec = dict(shape=f"{label} B{B} S{S} d{d} N{N} bf16"
+                   + (" with states" if with_states else ""),
+                   max_abs_err=err, small_cases_max_abs_err=worst,
+                   **timings(lambda: ss.ssm_scan_fused_cuda(
+                       x, dt, Bs, Cs, A, states=states),
+                       lambda: ss.mamba1_scan_plain(x, dt, Bs, Cs, A),
+                       None, 20),
+                   **bound(nbytes, 7 * elems, PEAK_F32_FLOPS, exps=elems))
+        print(f"K2 fused {rec['shape']}: err {err} device ms "
+              f"{rec['ms']:.5f} plain {rec['plain_ms']:.5f} bound "
+              f"{rec['bound_ms']:.5f} ({rec['bound_by']}: {elems} exp, "
+              f"{nbytes} B); per call ms {rec['call_ms']:.5f} plain "
+              f"{rec['plain_call_ms']:.5f}; no library call computes it")
+        if with_states:   # what writing the states costs
+            rec["no_states_ms"] = device_time_ms(
+                lambda: ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A), 20)
+            print(f"K2 fused {label} shape without states: device ms "
+                  f"{rec['no_states_ms']:.5f}")
+        records.append(rec)
+        del x, dt, Bs, Cs, A, states, got
+    return records
+
+
+def hold_scan_grad(got, want, bf16: bool, what: str) -> float:
+    """A K2 backward gradient against the f32 plain one: relative L2 for a
+    bf16 gradient, else the largest error over the largest element."""
+    import torch
+    if bf16 and got.dtype == torch.bfloat16:
+        rel = rel_err(got, want) if want.norm() > 0 else max_err(got, want)
+        check(rel <= SCAN_BWD_REL_BF16, f"{what}: relative L2 {rel} > "
+              f"{SCAN_BWD_REL_BF16}")
+        return rel
+    check(got.dtype == want.dtype, f"{what}: dtype {got.dtype}")
+    scale = want.abs().max().item()
+    rel = max_err(got, want) / scale if scale > 0 else max_err(got, want)
+    check(rel <= SCAN_BWD_REL_MAX, f"{what}: max abs err over the largest "
+          f"element {rel} > {SCAN_BWD_REL_MAX}")
+    return rel
+
+
+def scan_bwd_checks(torch, ss, ops, cfg):
+    """K2's backward against autograd of mamba1_scan_plain (f32 copies of
+    the inputs) on the fused cases and at falcon-mamba's training shape
+    (bf16), two calls bit-equal, autograd through ops.mamba1_scan; then
+    its time at the training shape beside its plain version's and the
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    names = ("x", "dt", "B", "C", "A")
+
+    def check_case(B, S, d, N, dtype, strided):
+        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype,
+                                        strided)
+        dy = torch.randn((B, S, d), generator=gen, device="cuda")
+        states = torch.empty(ss.states_shape(B, S, d, N), device="cuda")
+        ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        got = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+        again = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+        torch.cuda.synchronize()
+        what = f"K2 bwd B{B} S{S} d{d} N{N} {dtype} strided {strided}"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two calls differ")
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (x, dt, Bs, Cs, A)]
+        want = torch.autograd.grad(ss.mamba1_scan_plain(*leaves), leaves, dy)
+        errs = [hold_scan_grad(g, w, dtype == torch.bfloat16, f"{what} d{n}")
+                for n, g, w in zip(names, got, want)]
+        abs_errs = [max_err(g, w) for g, w in zip(got, want)]
+        return errs, (x, dt, Bs, Cs, A, dy, states, abs_errs)
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for case in fused_cases(torch):
+        errs, _ = check_case(*case)
+        worst[case[4]] = max(worst[case[4]], *errs)
+    for B, S, d, N, _, strided in fused_cases(torch)[-2:]:   # bf16's in f32
+        errs, _ = check_case(B, S, d, N, torch.float32, strided)
+        worst[torch.float32] = max(worst[torch.float32], *errs)
+
+    # autograd through the dispatcher: one forward and one backward call
+    x, dt, Bs, Cs, A = fused_inputs(torch, gen, 2, 50, 40, 16,
+                                    torch.float32, True)
+    dy = torch.randn((2, 50, 40), generator=gen, device="cuda")
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dt, Bs, Cs, A)]
+    f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
+    y = ops.mamba1_scan(*leaves)
+    check(y.grad_fn is not None, "ops.mamba1_scan output has no grad_fn")
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    check((ss.ssm_scan_fused_cuda.launches - f0,
+           ss.ssm_scan_bwd_cuda.launches - b0)
+          == (1, ss.BWD_LAUNCHES_PER_CALL),
+          "autograd through ops.mamba1_scan did not call each kernel once")
+    plain = [t.detach().clone().requires_grad_() for t in (x, dt, Bs, Cs, A)]
+    want = torch.autograd.grad(ss.mamba1_scan_plain(*plain), plain, dy)
+    for n, g, w in zip(names, grads, want):
+        hold_scan_grad(g, w, False, f"K2 bwd through autograd d{n}")
+    print(f"K2 bwd: {len(fused_cases(torch)) + 2} cases pass, two calls "
+          f"bit-equal; f32 max err over largest element "
+          f"{worst[torch.float32]} (limit {SCAN_BWD_REL_MAX}); bf16 relative "
+          f"L2 <= {worst[torch.bfloat16]} (limit {SCAN_BWD_REL_BF16}); "
+          f"autograd through ops.mamba1_scan calls each wrapper once")
+
+    # the training shape: falcon-mamba's 8 x 1024, d_inner, N, bf16
+    B, S, d, N = TRAIN_B, TRAIN_S, cfg.d_inner, cfg.ssm_state
+    errs, (x, dt, Bs, Cs, A, dy, states, abs_errs) = check_case(
+        B, S, d, N, torch.bfloat16, True)
+    elems = B * S * d * N
+    nbytes = (2 * 2 * B * S * d + 2 * 2 * B * S * N + 4 * d * N   # inputs
+              + 4 * B * S * d + 4 * states.numel()                # dy, states
+              + 2 * 2 * B * S * d + 2 * 2 * B * S * N + 4 * d * N)  # grads
+    # per state element and step: the recomputed step (5), g (2), its six
+    # products and three sums into dA, ddt, dx, dB, dC and the carry
+    rec = dict(shape=f"train B{B} S{S} d{d} N{N} bf16",
+               kernel="ssm_scan_bwd_kernel + ssm_scan_bwd_reduce_kernel",
+               max_abs_err=max(abs_errs), err_dx_ddt_dB_dC_dA=errs,
+               max_abs_err_dx_ddt_dB_dC_dA=abs_errs,
+               small_cases_f32_err=worst[torch.float32],
+               small_cases_bf16_rel_err=worst[torch.bfloat16],
+               **timings(lambda: ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy,
+                                                      states),
+                         lambda: ss.mamba1_scan_bwd_plain(x, dt, Bs, Cs, A,
+                                                          dy), None, 20),
+               **bound(nbytes, 20 * elems, PEAK_F32_FLOPS, exps=elems))
+    split = device_split_ms(lambda: ss.ssm_scan_bwd_cuda(
+        x, dt, Bs, Cs, A, dy, states), 10, ss.BWD_KERNEL_NAMES)
+    rec.update(main_ms=split[ss.BWD_KERNEL_NAMES[0]],
+               reduce_ms=split[ss.BWD_KERNEL_NAMES[1]])
+    print(f"K2 bwd {rec['shape']}: dx, ddt, dB, dC relative L2, dA max err "
+          f"over largest {errs} (max abs err {abs_errs}); device ms {rec['ms']:.5f} (main "
+          f"{rec['main_ms']:.5f}, reduce {rec['reduce_ms']:.5f}) plain "
+          f"{rec['plain_ms']:.5f} bound {rec['bound_ms']:.5f} "
+          f"({rec['bound_by']}: {elems} exp, {nbytes} B); per call ms "
+          f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no library "
+          f"call computes it")
     return [rec]
 
 
@@ -864,9 +1117,9 @@ def decode_breakdown(torch, cfg, weights, out, kernels, label: str,
 
 
 # ------------------------------------------------ the falcon-mamba path --
-def _plain_scan(ss_mod):
-    def plain(decay, inc, C, *, chunk=256):
-        return ss_mod.ssm_scan_plain(decay, inc, C, chunk=chunk)
+def _plain_fused(ss_mod):
+    def plain(x, dt, Bs, Cs, A, *, chunk=256):
+        return ss_mod.mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=chunk)
     return plain
 
 
@@ -877,10 +1130,28 @@ def _layer(tree, i):
     return tree[i]
 
 
-def ssm_prefill_phase(torch, cfg, weights, k2):
-    """One prefill of 4 × 512: a K2 launch per layer and finite logits;
-    then the same prefill with the plain scan, and how far apart the two
-    runs' logits end."""
+def zero_counts(K) -> None:
+    for k in K.values():
+        k.launches = 0
+
+
+def counts(K):
+    return {name: k.launches for name, k in K.items()}
+
+
+def check_counts(K, want, what: str):
+    """Every kernel's launches since the counts were set to 0: those named
+    in ``want`` as given there, every other kernel none."""
+    got = counts(K)
+    expect = {name: want.get(name, 0) for name in K}
+    check(got == expect, f"{what}: launches {got}, expected {expect}")
+    return got
+
+
+def ssm_prefill_phase(torch, cfg, weights, kf):
+    """One prefill of 4 × 512: a fused K2 launch per layer and finite
+    logits; then the same prefill with the plain scan, and how far apart
+    the two runs' logits end."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss_mod
     from repro_torch.train.step import make_prefill_step
@@ -889,7 +1160,7 @@ def ssm_prefill_phase(torch, cfg, weights, k2):
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen, device=cuda, dtype=torch.int32)
     prefill = make_prefill_step(cfg)
-    before = k2.launches
+    before = kf.launches
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -897,12 +1168,12 @@ def ssm_prefill_phase(torch, cfg, weights, k2):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(k2.launches - before == cfg.n_layers,
-          f"prefill launched K2 {k2.launches - before} times, expected "
-          f"{cfg.n_layers}")
+    check(kf.launches - before == cfg.n_layers,
+          f"prefill launched the fused K2 {kf.launches - before} times, "
+          f"expected {cfg.n_layers}")
     check(tuple(logits.shape) == (PREFILL_B, cfg.vocab)
           and bool(torch.isfinite(logits).all()), "prefill logits")
-    with mock.patch.object(ops, "ssm_scan", _plain_scan(ss_mod)):
+    with mock.patch.object(ops, "mamba1_scan", _plain_fused(ss_mod)):
         plain = prefill(weights, {"tokens": tokens})
     check(bool(torch.isfinite(plain).all()), "plain-scan prefill logits")
     rec = dict(first_call_ms=dt * 1e3, peak_bytes=peak,
@@ -910,7 +1181,7 @@ def ssm_prefill_phase(torch, cfg, weights, k2):
                vs_plain_max_abs_err=max_err(logits, plain),
                vs_plain_rel_err=rel_err(logits, plain))
     print(f"prefill {cfg.name}: B{PREFILL_B} S{PREFILL_S} in {dt * 1e3:.3f}"
-          f" ms (first call), {cfg.n_layers} K2 launches, peak memory "
+          f" ms (first call), {cfg.n_layers} fused K2 launches, peak memory "
           f"{peak} B; logits (|max| {rec['logits_abs_max']}) vs the plain "
           f"scan after {cfg.n_layers} layers: max abs err "
           f"{rec['vs_plain_max_abs_err']}, relative L2 "
@@ -918,26 +1189,27 @@ def ssm_prefill_phase(torch, cfg, weights, k2):
     return rec, tokens
 
 
-def ssm_serve_phase(torch, cfg, weights, k2):
-    """4 requests of 64 + 32 tokens: no decode step launches K2 (decode
-    is closed form); then a prefill of the same prompts (a K2 launch per
-    layer), and how far its logits are from those after the prompt."""
+def ssm_serve_phase(torch, cfg, weights, kf):
+    """4 requests of 64 + 32 tokens: no decode step launches a kernel
+    (decode is closed form); then a prefill of the same prompts (a fused
+    K2 launch per layer), and how far its logits are from those after the
+    prompt."""
     from repro_torch.serve import generate
     from repro_torch.train.step import make_prefill_step
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 2)
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, PROMPT_LEN),
                             generator=gen, device=cuda, dtype=torch.int32)
-    events, counts = [], []
+    events, seen = [], []
 
     def on_step(i, logits):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
-        counts.append(k2.launches)
+        seen.append(kf.launches)
 
     torch.cuda.reset_peak_memory_stats()
-    before = k2.launches
+    before = kf.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate(cfg, weights, prompts, GEN_LEN, max_len=MAX_LEN,
@@ -946,7 +1218,7 @@ def ssm_serve_phase(torch, cfg, weights, k2):
     t_total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT_LEN + GEN_LEN
-    check(counts == [before] * steps, "a decode step launched K2")
+    check(seen == [before] * steps, "a decode step launched the fused K2")
     check(int(out["cache"]["pos"]) == steps, "cache position")
     check(tuple(tokens.shape) == (SERVE_B, GEN_LEN)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
@@ -956,8 +1228,8 @@ def ssm_serve_phase(torch, cfg, weights, k2):
     times = step_times(events)
 
     pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
-    check(k2.launches - before == cfg.n_layers,
-          f"prefill of the prompts launched K2 {k2.launches - before} times")
+    check(kf.launches - before == cfg.n_layers, f"prefill of the prompts "
+          f"launched the fused K2 {kf.launches - before} times")
     err, rel = max_err(out["prompt_logits"], pre), rel_err(
         out["prompt_logits"], pre)
     print_serve(cfg, times, t_total, peak, "0 K2 launches per step")
@@ -971,14 +1243,15 @@ def ssm_serve_phase(torch, cfg, weights, k2):
 
 
 def ssm_layer_checks(torch, cfg, weights, tokens, prompts):
-    """Every Mamba1 layer at full width, both sides fed the same input:
-    the K2 block against the plain-scan block on the prefill's inputs
-    (4 × 512), and 64 decode steps against the K2 block on the prompts'
-    inputs (4 × 64), which holds the conv taps, the state and the bf16
-    rounding of decode against prefill.  Beside them a second residual
-    stream runs on the plain scan alone; how far it is from the K2
-    stream at each depth shows what the layers make of rounding
-    differences end to end."""
+    """Every Mamba1 layer at full width, all sides fed the same input: the
+    block through the fused K2 against the block through the unfused K2
+    (decay and inc built in full, ``fused=False``) and against the block
+    through the plain scan, on the prefill's inputs (4 × 512); and 64
+    decode steps against the fused block on the prompts' inputs (4 × 64),
+    which holds the conv taps, the state and the bf16 rounding of decode
+    against prefill.  Beside them a second residual stream runs on the
+    plain scan alone; how far it is from the kernel stream at each depth
+    shows what the layers make of rounding differences end to end."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss_mod
     from repro_torch.models import layers as L
@@ -986,20 +1259,24 @@ def ssm_layer_checks(torch, cfg, weights, tokens, prompts):
     eps = cfg.norm_eps
     x = xq = weights["embed"][tokens]
     xp = weights["embed"][prompts]
-    worst_plain = worst_dec = max_dec = 0.0
+    worst_plain = worst_k2 = worst_dec = max_dec = 0.0
     divergence = {}
     for i in range(cfg.n_layers):
         lp = _layer(weights["layers"], i)
         u = L.rms_norm(x, lp["ln1"], eps)
         h = SSM.ssm_block(lp["ssm"], u, cfg)
-        with mock.patch.object(ops, "ssm_scan", _plain_scan(ss_mod)):
+        hk = SSM.mamba1_block(lp["ssm"], u, d_state=cfg.ssm_state,
+                              chunk=1024, fused=False)
+        with mock.patch.object(ops, "mamba1_scan", _plain_fused(ss_mod)):
             hp = SSM.ssm_block(lp["ssm"], u, cfg)
             xq = xq + SSM.ssm_block(lp["ssm"], L.rms_norm(xq, lp["ln1"], eps),
                                     cfg)
-        r = rel_err(h, hp)
-        check(r <= REL_LAYER_PLAIN, f"layer {i}: K2 block vs plain scan, "
-              f"relative L2 {r} > {REL_LAYER_PLAIN}")
-        worst_plain = max(worst_plain, r)
+        for what, got in (("fused K2", h), ("unfused K2", hk)):
+            r = rel_err(got, hp)
+            check(r <= REL_LAYER_PLAIN, f"layer {i}: {what} block vs plain "
+                  f"scan, relative L2 {r} > {REL_LAYER_PLAIN}")
+            worst_plain = max(worst_plain, r)
+        worst_k2 = max(worst_k2, rel_err(h, hk))
         x = x + h
         if (i + 1) & i == 0 or i + 1 == cfg.n_layers:   # depths 1, 2, 4, ...
             divergence[i + 1] = rel_err(xq, x)
@@ -1014,29 +1291,27 @@ def ssm_layer_checks(torch, cfg, weights, tokens, prompts):
         hd = torch.cat(outs, 1)
         r = rel_err(hd, hb)
         check(r <= REL_LAYER_DECODE, f"layer {i}: {PROMPT_LEN} decode steps "
-              f"vs K2 block, relative L2 {r} > {REL_LAYER_DECODE}")
+              f"vs fused block, relative L2 {r} > {REL_LAYER_DECODE}")
         worst_dec, max_dec = max(worst_dec, r), max(max_dec, max_err(hd, hb))
         xp = xp + hb
-    print(f"falcon layers: all {cfg.n_layers} held at full width; K2 block "
-          f"vs plain scan relative L2 <= {worst_plain} (limit "
-          f"{REL_LAYER_PLAIN}); {PROMPT_LEN} decode steps vs K2 block "
-          f"relative L2 <= {worst_dec} (limit {REL_LAYER_DECODE}), max abs "
-          f"err {max_dec}")
-    print("falcon streams, K2 vs plain scan end to end, relative L2 of the "
-          "residual stream by depth: " + ", ".join(
+    print(f"falcon layers: all {cfg.n_layers} held at full width; fused and "
+          f"unfused K2 blocks vs plain scan relative L2 <= {worst_plain} "
+          f"(limit {REL_LAYER_PLAIN}), fused vs unfused <= {worst_k2}; "
+          f"{PROMPT_LEN} decode steps vs fused block relative L2 <= "
+          f"{worst_dec} (limit {REL_LAYER_DECODE}), max abs err {max_dec}")
+    print("falcon streams, fused K2 vs plain scan end to end, relative L2 of "
+          "the residual stream by depth: " + ", ".join(
               f"{k}: {v:.3g}" for k, v in divergence.items()))
     return dict(layers=cfg.n_layers, plain_rel_err=worst_plain,
-                decode_rel_err=worst_dec, decode_max_abs_err=max_dec,
-                stream_divergence=divergence)
+                fused_vs_unfused_rel_err=worst_k2, decode_rel_err=worst_dec,
+                decode_max_abs_err=max_dec, stream_divergence=divergence)
 
 
-def ssm_prefill_profile(torch, cfg, weights, tokens):
+def ssm_prefill_profile(torch, cfg, weights, tokens, fused_names):
     """Where a warm prefill's time goes: its time unprofiled, then one
-    profiled run split into K2, the matmuls and the rest; building decay
-    and inc timed alone on layer 0's inputs; peak memory."""
+    profiled run split into the fused K2, the matmuls and the rest; peak
+    memory."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import layers as L
-    from repro_torch.models import ssm as SSM
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
     batch = {"tokens": tokens}
@@ -1056,57 +1331,45 @@ def ssm_prefill_profile(torch, cfg, weights, tokens):
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in device_rows(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    k2 = [r for r in rows if any(k in r[0] for k in K2_NAMES)]
-    k2_ms, k2_n = sum(r[1] for r in k2), sum(r[2] for r in k2)
-    check(k2_n == cfg.n_layers, f"profiled prefill shows {k2_n} K2 launches")
+    mine = [r for r in rows if any(k in r[0] for k in fused_names)]
+    k_ms, k_n = sum(r[1] for r in mine), sum(r[2] for r in mine)
+    check(k_n == cfg.n_layers, f"profiled prefill shows {k_n} fused K2 "
+          f"launches")
     gemm = sum(r[1] for r in rows if any(
         k in r[0] for k in ("gemm", "nvjet", "xmma", "cutlass")))
-
-    lp = _layer(weights["layers"], 0)
-    u = L.rms_norm(weights["embed"][tokens], lp["ln1"], cfg.norm_eps)
-    x, _, dt, Bs, _ = SSM._m1_gates(lp["ssm"], u,
-                                    lp["ssm"]["dt_proj"].shape[0],
-                                    cfg.ssm_state)
-    A = -torch.exp(lp["ssm"]["A_log"].float())
-    build_ms = device_time_ms(lambda: SSM.decay_inc(dt, x, Bs, A), 10)
     print(f"prefill {cfg.name} breakdown: warm {warm_ms:.3f} ms; profiled "
           f"wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-          f"{1 - busy / wall:.4f}); K2 {k2_ms:.3f} ms ({k2_ms / k2_n:.4f} "
-          f"ms/layer), matmuls {gemm:.3f} ms, the rest "
-          f"{busy - k2_ms - gemm:.3f} ms; decay+inc alone "
-          f"{build_ms:.4f} ms/layer; peak memory {peak} B")
+          f"{1 - busy / wall:.4f}); fused K2 {k_ms:.3f} ms "
+          f"({k_ms / k_n:.4f} ms/layer), matmuls {gemm:.3f} ms, the rest "
+          f"{busy - k_ms - gemm:.3f} ms; peak memory {peak} B")
     for name, ms, n in rows[:8]:
         print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
     return dict(warm_ms=warm_ms, wall_ms=wall, busy_ms=busy,
-                idle_share=1 - busy / wall, k2_ms=k2_ms,
-                k2_ms_per_layer=k2_ms / k2_n, gemm_ms=gemm,
-                other_ms=busy - k2_ms - gemm,
-                decay_inc_ms_per_layer=build_ms, peak_bytes=peak,
+                idle_share=1 - busy / wall, fused_k2_ms=k_ms,
+                fused_k2_ms_per_layer=k_ms / k_n, gemm_ms=gemm,
+                other_ms=busy - k_ms - gemm, peak_bytes=peak,
                 top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
                      for r in rows[:8]])
 
 
 # ------------------------------------------------------------- the paths --
-def qwen_path(torch, k1, k2, tmp):
+def qwen_path(torch, K, tmp):
     """qwen3-1.7b through K1; returns (K1 launches, serve record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     cfg = get_config(QWEN)
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
-    k1.launches = k2.launches = 0            # the main path starts
-    prefill, tokens = prefill_phase(torch, cfg, weights, k1)
-    serve, out = serve_phase(torch, cfg, weights, k1)
-    launches, k2_launches = k1.launches, k2.launches   # ...and ends
-    check(k2_launches == 0, f"the {cfg.name} path launched K2")
+    zero_counts(K)                            # the main path starts
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"])
+    serve, out = serve_phase(torch, cfg, weights, K["k1"])
     expected = cfg.n_layers * (1 + 1 + PROMPT_LEN + GEN_LEN)
-    check(launches == expected, f"the {cfg.name} path launched K1 "
-          f"{launches} times, expected {expected}")
+    launches = check_counts(K, dict(k1=expected), f"the {cfg.name} path")
     prefill.update(qwen_prefill_profile(torch, cfg, weights, tokens,
                                         KERNEL_NAMES))
     serve.update(checkpoint=ckpt, prefill=prefill,
                  breakdown=decode_breakdown(torch, cfg, weights, out,
                                             KERNEL_NAMES, "K1"))
-    return launches, serve
+    return launches["k1"], serve
 
 
 def qwen_prefill_profile(torch, cfg, weights, tokens, k1_names):
@@ -1142,32 +1405,39 @@ def qwen_prefill_profile(torch, cfg, weights, tokens, k1_names):
                 k1_ms_per_layer=k1_ms / k1_n)
 
 
-def falcon_path(torch, k1, k2, tmp):
-    """falcon-mamba-7b through K2; returns (K2 launches, serve record)."""
+def falcon_path(torch, K, tmp):
+    """falcon-mamba-7b through the fused K2, then its layers held one by one
+    through the fused K2, the unfused K2 and the plain scan.  Returns
+    (fused K2 launches on the serve path, unfused K2 launches in the layer
+    checks, serve record)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import FUSED_KERNEL_NAMES
     cfg = get_config(FALCON)
     free = shutil.disk_usage(tmp).free
     check(free >= DISK_NEED, f"{tmp} has {free} B free; the {cfg.name} "
           f"checkpoint needs about {DISK_NEED:.0f} B")
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
-    k1.launches = k2.launches = 0            # the main path starts
-    prefill, tokens = ssm_prefill_phase(torch, cfg, weights, k2)
-    serve, out, prompts = ssm_serve_phase(torch, cfg, weights, k2)
-    launches, k1_launches = k2.launches, k1.launches   # ...and ends
-    check(k1_launches == 0, f"the {cfg.name} path launched K1")
+    zero_counts(K)                            # the main path starts
+    prefill, tokens = ssm_prefill_phase(torch, cfg, weights, K["k2_fused"])
+    serve, out, prompts = ssm_serve_phase(torch, cfg, weights,
+                                          K["k2_fused"])
     # a launch per layer in the prefill of 4 x 512 and in the prefill of
     # the 64-token prompts; none in the 96 decode steps
-    expected = cfg.n_layers * 2
-    check(launches == expected, f"the {cfg.name} path launched K2 "
-          f"{launches} times, expected {expected}")
+    launches = check_counts(K, dict(k2_fused=2 * cfg.n_layers),
+                            f"the {cfg.name} path")["k2_fused"]
     serve.update(checkpoint=ckpt, prefill=prefill,
                  breakdown=decode_breakdown(torch, cfg, weights, out,
-                                            K2_NAMES, "K2"),
-                 layers=ssm_layer_checks(torch, cfg, weights, tokens,
-                                         prompts),
-                 prefill_profile=ssm_prefill_profile(torch, cfg, weights,
-                                                     tokens))
-    return launches, serve
+                                            FUSED_KERNEL_NAMES, "K2"))
+    zero_counts(K)                            # the layer checks start
+    serve["layers"] = ssm_layer_checks(torch, cfg, weights, tokens, prompts)
+    # each layer: the fused block twice (the prefill's and the prompts'
+    # inputs), the unfused block once
+    k2_launches = check_counts(
+        K, dict(k2_fused=2 * cfg.n_layers, k2=cfg.n_layers),
+        f"the {cfg.name} layer checks")["k2"]
+    serve["prefill_profile"] = ssm_prefill_profile(torch, cfg, weights,
+                                                   tokens, FUSED_KERNEL_NAMES)
+    return launches, k2_launches, serve
 
 
 # ------------------------------------------------------ the training path --
@@ -1184,12 +1454,17 @@ def checksums(torch, tree):
     return dict(zip(names, torch.stack(sums).tolist()))
 
 
-def train_step0_check(torch, cfg, data):
+def train_step0_check(torch, cfg, data, required, plain=None):
     """Step 0 of the run, computed apart from it on the same weights and
-    batch: the loss and every leaf's gradient norm through K1, then the
-    loss and global gradient norm with the plain attention patched in."""
+    batch: the loss and every leaf's gradient norm through the kernels.
+    Every leaf must have a finite nonzero gradient norm, those in
+    ``required`` included.  With ``plain`` (the name of a function of
+    ``ops`` and its plain version), the same again with it patched in, and
+    the loss and global gradient norm of the two held within TOL_TRAIN.
+    falcon-mamba passes none: its random layers may decorrelate two
+    rounding paths end to end, so its layers and their gradients are held
+    one by one instead (train_layer_check)."""
     from repro_torch.checkpoint.pytree_io import flatten_named
-    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.models import init_lm, lm
     cuda = torch.device("cuda")
@@ -1206,31 +1481,87 @@ def train_step0_check(torch, cfg, data):
         return loss.item(), norms
 
     loss, norms = loss_and_norms()
-    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
-        loss_plain, norms_plain = loss_and_norms()
+    rec = dict(loss=loss)
+    if plain is not None:
+        with mock.patch.object(ops, *plain):
+            loss_plain, norms_plain = loss_and_norms()
     del params
     gnorm = sum(n * n for n in norms) ** 0.5
-    gnorm_plain = sum(n * n for n in norms_plain) ** 0.5
     by_name = {name: n for (name, _), n in zip(named, norms)}
     bad = [k_ for k_, n in by_name.items()
            if not (n > 0 and n < float("inf"))]
     check(not bad, f"step 0: zero or non-finite gradient norms: {bad}")
-    attn = {k_: v_ for k_, v_ in by_name.items() if "attn/" in k_}
-    for part in ("wq", "wk", "wv", "q_norm", "k_norm"):
-        check(f"layers/attn/{part}" in attn, f"no gradient for attn/{part}")
-    for what, a, b in (("loss", loss, loss_plain),
-                       ("global gradient norm", gnorm, gnorm_plain)):
-        check(abs(a - b) <= TOL_TRAIN["atol"] + TOL_TRAIN["rtol"] * abs(b),
-              f"step 0 {what}: K1 {a} vs plain attention {b} beyond "
-              f"{TOL_TRAIN}")
-    print(f"train step 0 (apart from the run, same weights and batch): loss "
-          f"{loss} (plain attention {loss_plain}; ln vocab "
-          f"{math.log(cfg.vocab):.4f}), global grad norm {gnorm} (plain "
-          f"{gnorm_plain}), tol {TOL_TRAIN}; all {len(named)} leaves have "
-          f"finite nonzero gradient norms; attention: " + ", ".join(
-              f"{k_.split('/')[-1]} {v_:.4g}" for k_, v_ in attn.items()))
-    return dict(loss=loss, loss_plain=loss_plain, grad_norm=gnorm,
-                grad_norm_plain=gnorm_plain, leaf_grad_norms=by_name)
+    for name in required:
+        check(name in by_name, f"no gradient for {name}")
+    held = ""
+    if plain is not None:
+        gnorm_plain = sum(n * n for n in norms_plain) ** 0.5
+        for what, a, b in (("loss", loss, loss_plain),
+                           ("global gradient norm", gnorm, gnorm_plain)):
+            check(abs(a - b) <= TOL_TRAIN["atol"] + TOL_TRAIN["rtol"] * abs(b),
+                  f"step 0 {what}: kernels {a} vs plain {b} beyond "
+                  f"{TOL_TRAIN}")
+        rec.update(loss_plain=loss_plain, grad_norm_plain=gnorm_plain)
+        held = (f" (plain {plain[0]}: loss {loss_plain}, global grad norm "
+                f"{gnorm_plain}; held within {TOL_TRAIN})")
+    print(f"train {cfg.name} step 0 (apart from the run, same weights and "
+          f"batch): loss {loss} (ln vocab {math.log(cfg.vocab):.4f}), "
+          f"global grad norm {gnorm}{held}; all {len(named)} leaves have "
+          f"finite nonzero gradient norms; "
+          + ", ".join(f"{k_.split('/')[-1]} {by_name[k_]:.4g}"
+                      for k_ in required))
+    rec.update(grad_norm=gnorm, leaf_grad_norms=by_name)
+    return rec
+
+
+def train_layer_check(torch, cfg, K):
+    """One Mamba1 layer at full width and the training shape (8 x 1024),
+    bf16 compute as in the run: its output, dL/du and every parameter's
+    gradient through the fused K2 and its backward against the same
+    through the plain scan, on the same weights, input and output
+    gradient."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss_mod
+    from repro_torch.models import cast_params, init_lm
+    from repro_torch.models import ssm as SSM
+    cuda = torch.device("cuda")
+    bf16 = torch.bfloat16
+    params = init_lm(dataclasses.replace(cfg, n_layers=1), SEED, device=cuda)
+    lp = cast_params(_layer(params["layers"], 0)["ssm"], bf16)
+    del params
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 6)
+    u = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=gen,
+                    device=cuda).to(bf16)
+    dout = torch.randn(u.shape, generator=gen, device=cuda).to(bf16)
+
+    def run():
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in lp.items()}
+        uu = u.clone().requires_grad_()
+        out = SSM.ssm_block(leaves, uu, cfg)
+        grads = torch.autograd.grad(out, [*leaves.values(), uu], dout)
+        return out.detach(), dict(zip([*leaves, "u"], grads))
+
+    zero_counts(K)
+    out, grads = run()
+    check_counts(K, dict(k2_fused=1, k2_bwd=ss_mod.BWD_LAUNCHES_PER_CALL),
+                 "the layer check")
+    with mock.patch.object(ops, "mamba1_scan", _plain_fused(ss_mod)):
+        out_p, grads_p = run()
+    r_out = rel_err(out, out_p)
+    check(r_out <= REL_LAYER_PLAIN, f"train layer output: relative L2 "
+          f"{r_out} > {REL_LAYER_PLAIN}")
+    rels = {k: rel_err(g, grads_p[k]) for k, g in grads.items()}
+    for k, r in rels.items():
+        check(r <= REL_LAYER_GRAD, f"train layer d{k}: relative L2 {r} > "
+              f"{REL_LAYER_GRAD}")
+    print(f"train {cfg.name} layer check (one layer, B{TRAIN_B} S{TRAIN_S}, "
+          f"bf16), fused K2 and its backward vs the plain scan: output "
+          f"relative L2 {r_out} (limit {REL_LAYER_PLAIN}); gradients (limit "
+          f"{REL_LAYER_GRAD}): " + ", ".join(f"d{k} {r:.3g}"
+                                             for k, r in rels.items()))
+    return dict(out_rel_err=r_out, grad_rel_err=rels)
 
 
 def train_run(torch, cfg, loop, opt, spies, hooks):
@@ -1275,10 +1606,11 @@ def train_run(torch, cfg, loop, opt, spies, hooks):
                      global_batch=TRAIN_B, hooks=hooks, device="cuda")
 
 
-def train_profile(torch, cfg, state, opt, data, k1_names, bwd_names):
+def train_profile(torch, cfg, state, opt, data, parts, split=None):
     """One more step on the final state under the profiler: device busy
-    time, idle share, K1's forward and backward shares, the heaviest
-    kernels."""
+    time, idle share, each kernel's share (``parts``: label -> kernel
+    names; ``split``: label -> one kernel of a part, printed apart), the
+    matmuls, the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_train_step
     step_fn = make_train_step(cfg, opt, loss_chunk=TRAIN_CHUNK)
@@ -1301,75 +1633,83 @@ def train_profile(torch, cfg, state, opt, data, k1_names, bwd_names):
         mine = [r for r in rows if any(n in r[0] for n in names)]
         return sum(r[1] for r in mine), sum(r[2] for r in mine)
 
-    fwd_ms, fwd_n = share(k1_names)
-    bwd_ms, bwd_n = share(bwd_names)
-    split = {part: share((name,)) for part, name in BWD_PARTS.items()}
+    shares = {label: share(names) for label, names in parts.items()}
     gemm_ms, _ = share(("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
-    print(f"train step breakdown (profiled, 1 step): wall {wall:.3f} ms, "
-          f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.4f}); "
-          f"K1 forward {fwd_ms:.3f} ms in {fwd_n} launches "
-          f"({fwd_ms / busy:.4f} of busy), K1 backward {bwd_ms:.3f} ms in "
-          f"{bwd_n} launches ({bwd_ms / busy:.4f}), matmuls {gemm_ms:.3f} "
-          f"ms ({gemm_ms / busy:.4f}), the rest "
-          f"{busy - fwd_ms - bwd_ms - gemm_ms:.3f} ms")
-    print("  K1 backward by kernel: " + "; ".join(
-        f"{part} {ms:.3f} ms in {n} launches"
-        for part, (ms, n) in split.items()))
+    rest = busy - sum(ms for ms, _ in shares.values()) - gemm_ms
+    print(f"train {cfg.name} step breakdown (profiled, 1 step): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.4f}); " + ", ".join(
+              f"{label} {ms:.3f} ms in {n} launches ({ms / busy:.4f} of busy)"
+              for label, (ms, n) in shares.items())
+          + f", matmuls {gemm_ms:.3f} ms ({gemm_ms / busy:.4f}), the rest "
+          f"{rest:.3f} ms")
+    rec = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+               parts={label: dict(ms=ms, launches=n)
+                      for label, (ms, n) in shares.items()},
+               gemm_ms=gemm_ms, other_ms=rest,
+               top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
+                    for r in rows[:10]])
+    if split:
+        got = {label: share((name,)) for label, name in split.items()}
+        print("  by kernel: " + "; ".join(
+            f"{label} {ms:.3f} ms in {n} launches"
+            for label, (ms, n) in got.items()))
+        rec["split"] = {label: ms for label, (ms, _) in got.items()}
     for name, ms, n in rows[:10]:
         print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                k1_fwd_ms=fwd_ms, k1_fwd_launches=fwd_n, k1_bwd_ms=bwd_ms,
-                k1_bwd_launches=bwd_n,
-                **{f"k1_bwd_{part}_ms": ms for part, (ms, _) in split.items()},
-                gemm_ms=gemm_ms,
-                other_ms=busy - fwd_ms - bwd_ms - gemm_ms,
-                top=[dict(kernel=r[0][:120], ms=r[1], calls=r[2])
-                     for r in rows[:10]])
+    return rec
 
 
-def train_path(torch, k1, k1b, k2, tmp):
-    """qwen3-1.7b trained at full width through ``train()``: run 1 dies
-    after step 3's save commits, run 2 resumes from it bit-exactly and
-    finishes steps 4 and 5 with a blocking save.  Returns (K1 forward
-    launches, K1 backward launches, record)."""
+def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
+               split=None, layer_check=False):
+    """``cfg`` trained at full width through ``train()``: run 1 dies after
+    step 3's save commits, run 2 resumes from it bit-exactly and finishes
+    steps 4 and 5 with a blocking save.  ``per_step``: each kernel's
+    launches a step (every other kernel launches none); ``required`` and
+    ``plain``: train_step0_check's.  Returns (launches of
+    each kernel on the path, record)."""
     import statistics
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.kernels.flash_attention import (BWD_KERNEL_NAMES,
-                                                     BWD_LAUNCHES_PER_CALL,
-                                                     KERNEL_NAMES)
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import TrainLoopConfig
-    cfg = get_config(QWEN)
+    # f32 master weights and two f32 moments: 12 B a parameter in a state
+    # file, and while the final save commits two of them are on disk
+    need = 2.2 * 12 * cfg.param_count()
     free = shutil.disk_usage(tmp).free
-    check(free >= TRAIN_DISK_NEED, f"{tmp} has {free} B free; two state "
-          f"checkpoints of {cfg.name} need about {TRAIN_DISK_NEED:.0f} B")
+    check(free >= need, f"{tmp} has {free} B free; two state checkpoints "
+          f"of {cfg.name} ({cfg.n_layers} layers) need about {need:.0f} B")
     data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                       global_batch=TRAIN_B, seed=SEED))
-    step0 = train_step0_check(torch, cfg, data)
+    rec = dict(layers=cfg.n_layers)
+    if layer_check:
+        phase(f"{cfg.name} layer check")
+        rec["layer_check"] = train_layer_check(torch, cfg, K)
+    phase(f"{cfg.name} step 0 apart")
+    rec["step0"] = train_step0_check(torch, cfg, data, required, plain)
     gc.collect()
     torch.cuda.empty_cache()
 
-    ckpt_dir = os.path.join(tmp, "train")
+    ckpt_dir = os.path.join(tmp, f"train-{cfg.name}")
     loop = TrainLoopConfig(total_steps=TRAIN_STEPS,
                            ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir,
                            ckpt_keep=1, log_every=1, seed=SEED)
     opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     spies = dict(snapshot_s=[], write_s=[], file_bytes=[])
-    steps = {}   # step -> (loss, seconds since the previous mark, K1, bwd)
+    steps = {}   # step -> (loss, seconds since the previous mark, counts)
     at_die = {}
 
     def on_step(step, state, metrics):
         now = time.perf_counter()
         steps[step] = (float(metrics["loss"]), now - spies["t_mark"],
-                       k1.launches, k1b.launches)
+                       counts(K))
         spies["t_mark"] = now
         if step == TRAIN_DIE_AT:
             at_die.update(checksums(torch, state))
 
     hooks = dict(on_step=on_step, should_die=lambda s: s == TRAIN_DIE_AT)
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k1b.launches = k2.launches = 0     # the main path starts
+    phase(f"{cfg.name} run 1")
+    zero_counts(K)                                   # the main path starts
     died = False
     try:
         train_run(torch, cfg, loop, opt, spies, hooks)
@@ -1380,12 +1720,13 @@ def train_path(torch, k1, k1b, k2, tmp):
     run1_files = sorted(os.listdir(ckpt_dir))
     check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
           f"run 1 left {run1_files}")
+    phase(f"{cfg.name} run 2")
     out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step))
-    fwd, bwd, k2_launches = k1.launches, k1b.launches, k2.launches  # ends
+    want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in K}
+    launches = check_counts(K, want, f"the {cfg.name} training path")  # ends
     peak = torch.cuda.max_memory_allocated()
     out["manager"].close()
 
-    check(k2_launches == 0, "the training path launched K2")
     check(out["start_step"] == TRAIN_DIE_AT, f"run 2 started at "
           f"{out['start_step']}, expected {TRAIN_DIE_AT}")
     restored = spies["restored"]
@@ -1396,20 +1737,15 @@ def train_path(torch, k1, k1b, k2, tmp):
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(abs(losses[0] - math.log(cfg.vocab)) <= 1.5,
           f"step 0 loss {losses[0]} is not within 1.5 of ln vocab")
-    check(abs(losses[0] - step0["loss"]) <= 1e-3,
-          f"run's step 0 loss {losses[0]} vs the step apart {step0['loss']}")
-    # launches per step: the forward twice a layer (and again in the
-    # checkpointed recompute), the backward's kernels once a layer
-    per_fwd, per_bwd = 2 * cfg.n_layers, BWD_LAUNCHES_PER_CALL * cfg.n_layers
-    prev = (0, 0)
+    check(abs(losses[0] - rec["step0"]["loss"]) <= 1e-3,
+          f"run's step 0 loss {losses[0]} vs the step apart "
+          f"{rec['step0']['loss']}")
+    prev = {name: 0 for name in K}
     for i in range(TRAIN_STEPS):   # a restore launches no kernel
-        got = (steps[i][2] - prev[0], steps[i][3] - prev[1])
-        check(got == (per_fwd, per_bwd), f"step {i} launched K1 {got[0]} "
-              f"times and its backward {got[1]}, expected {per_fwd}, "
-              f"{per_bwd}")
-        prev = steps[i][2:]
-    check(fwd == TRAIN_STEPS * per_fwd and bwd == TRAIN_STEPS * per_bwd,
-          f"the training path launched K1 {fwd} and its backward {bwd} times")
+        got = {name: steps[i][2][name] - prev[name] for name in K}
+        check(got == {name: per_step.get(name, 0) for name in K},
+              f"step {i} launched {got}, expected {per_step}")
+        prev = steps[i][2]
     final = sorted(os.listdir(ckpt_dir))
     check(f"step_{TRAIN_STEPS - 1:010d}.scda" in final
           and f"step_{TRAIN_DIE_AT:010d}.scda" not in final,
@@ -1425,35 +1761,38 @@ def train_path(torch, k1, k1b, k2, tmp):
     mfu = flops_per_token * tokens / step_s / PEAK_BF16_FLOPS
     state_bytes = spies["file_bytes"][0]
     snap_s, write_s = spies["snapshot_s"], spies["write_s"]
-    rec = dict(
+    rec.update(
         losses=losses, step_s=[steps[i][1] for i in range(TRAIN_STEPS)],
         step_median_s=step_s, tokens_per_s=tokens / step_s, train_mfu=mfu,
         mfu_formula="(6 N + 6 L H D S) x tokens / step time / 989e12, no "
-                    "remat counted", params=n_params,
-        launches_per_step=dict(k1_fwd=per_fwd, k1_bwd=per_bwd),
+                    "remat counted (no attention term without heads)",
+        params=n_params, launches_per_step=per_step,
         snapshot_s=snap_s, write_s=write_s, file_bytes=spies["file_bytes"],
         write_mb_s=[b / s / 1e6 for b, s in zip(spies["file_bytes"],
                                                  write_s)],
         restore_s=restored["s"],
         restore_mb_s=restored["file_bytes"] / restored["s"] / 1e6,
-        peak_bytes=peak, step0=step0)
-    print(f"train {cfg.name}: B{TRAIN_B} S{TRAIN_S} loss_chunk {TRAIN_CHUNK}"
-          f", {TRAIN_STEPS} steps in two runs; losses {losses}; step time "
-          f"median {step_s * 1e3:.3f} ms over steps 1-5 (all: "
-          f"{[round(s * 1e3, 3) for s in rec['step_s']]} ms), "
-          f"{tokens / step_s:.1f} tokens/s, train_mfu {mfu:.4f} "
-          f"({rec['mfu_formula']}, N {n_params}); K1 {per_fwd} forward and "
-          f"{per_bwd} backward launches per step; peak memory {peak} B")
-    print(f"train checkpoints: state file {state_bytes} B; snapshot (sync) "
-          f"{snap_s} s; background write {write_s} s "
+        peak_bytes=peak)
+    print(f"train {cfg.name} ({cfg.n_layers} layers): B{TRAIN_B} S{TRAIN_S} "
+          f"loss_chunk {TRAIN_CHUNK}, {TRAIN_STEPS} steps in two runs; "
+          f"losses {losses}; step time median {step_s * 1e3:.3f} ms over "
+          f"steps 1-5 (all: {[round(s * 1e3, 3) for s in rec['step_s']]} "
+          f"ms), {tokens / step_s:.1f} tokens/s, train_mfu {mfu:.4f} "
+          f"({rec['mfu_formula']}, N {n_params}); launches per step "
+          f"{per_step}; peak memory {peak} B")
+    print(f"train {cfg.name} checkpoints: state file {state_bytes} B; "
+          f"snapshot (sync) {snap_s} s; background write {write_s} s "
           f"({[round(x, 1) for x in rec['write_mb_s']]} MB/s); restore "
           f"{restored['s']:.3f} s ({rec['restore_mb_s']:.1f} MB/s); resumed "
           f"at step {out['start_step']}, {len(at_die)} leaves bit-equal")
+    phase(f"{cfg.name} profiled step")
     rec["profile"] = train_profile(torch, cfg, out["state"], opt, data,
-                                   KERNEL_NAMES, BWD_KERNEL_NAMES)
+                                   parts, split)
     del out
+    gc.collect()   # the state, the manager and its pinned host buffers
+    torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return fwd, bwd, rec
+    return launches, rec
 
 
 def kernel_entry(name, source, replaces, names, launches, records, path,
@@ -1500,9 +1839,10 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as ss
     t0 = time.perf_counter()
-    sources = [fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE]
+    sources = [fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE, ss.SOURCE_BWD]
     build.load_all(sources)
     print(f"built {', '.join(sources)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1511,49 +1851,93 @@ def main(argv=None) -> int:
             print(f"  ptxas {source}: {line}")
     sys.stdout.flush()
 
+    phase("kernel checks")
     k1_records = kernel_checks(torch, fa)
-    k2_records = scan_checks(torch, ss, get_config(FALCON))
+    falcon = get_config(FALCON)
+    k2_records = scan_checks(torch, ss, falcon)
+    fused_records = fused_scan_checks(torch, ss, falcon)
+    k2b_records = scan_bwd_checks(torch, ss, ops, falcon)
     bwd_records = bwd_checks(torch, fa)
     if args.kernels_only:
         print("kernel checks passed; --kernels-only: the model paths were "
               "not run")
         return 0
 
-    k1, k1b, k2 = (fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
-                   ss.ssm_scan_cuda)
+    K = dict(k1=fa.flash_attention_cuda, k1_bwd=fa.flash_attention_bwd_cuda,
+             k2=ss.ssm_scan_cuda, k2_fused=ss.ssm_scan_fused_cuda,
+             k2_bwd=ss.ssm_scan_bwd_cuda)
+    qwen, falcon_train = get_config(QWEN), dataclasses.replace(
+        falcon, n_layers=FALCON_TRAIN_LAYERS)
     tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
-    k1b.launches = 0   # the serve paths must not launch the backward
     try:
         with torch.inference_mode():
-            k1_launches, qwen_serve = qwen_path(torch, k1, k2, tmp)
+            phase(f"{QWEN} serve path")
+            k1_launches, qwen_serve = qwen_path(torch, K, tmp)
             gc.collect()
             torch.cuda.empty_cache()   # qwen3's weights and cache are gone
             print(f"device memory allocated before {FALCON}: "
                   f"{torch.cuda.memory_allocated()} B")
-            k2_launches, falcon_serve = falcon_path(torch, k1, k2, tmp)
-            check(k1b.launches == 0, "a serve path launched K1's backward")
+            phase(f"{FALCON} serve path")
+            fused_launches, k2_launches, falcon_serve = falcon_path(
+                torch, K, tmp)
         gc.collect()
         torch.cuda.empty_cache()   # falcon's weights are gone
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
-        train_fwd, train_bwd, train = train_path(torch, k1, k1b, k2, tmp)
+        phase(f"{QWEN} training path")
+        L = qwen.n_layers
+        qwen_train_launches, qwen_train = train_path(
+            torch, qwen, K, dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
+            {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
+            tmp, required=[f"layers/attn/{part}" for part in
+                           ("wq", "wk", "wv", "q_norm", "k_norm")],
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS)
+        print(f"device memory allocated before training {FALCON}: "
+              f"{torch.cuda.memory_allocated()} B")
+        phase(f"{FALCON} training path ({FALCON_TRAIN_LAYERS} layers)")
+        L = falcon_train.n_layers
+        # the fused forward twice a layer (the forward and the remat
+        # recompute), its backward's kernels once
+        falcon_train_launches, falcon_trained = train_path(
+            torch, falcon_train, K,
+            dict(k2_fused=2 * L, k2_bwd=ss.BWD_LAUNCHES_PER_CALL * L),
+            {"K2 fused": ss.FUSED_KERNEL_NAMES,
+             "K2 backward": ss.BWD_KERNEL_NAMES},
+            tmp, required=[f"layers/ssm/{part}" for part in
+                           ("A_log", "x_proj", "dt_proj", "dt_bias", "D",
+                            "conv_w", "in_x", "in_z", "out_proj")],
+            layer_check=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    qwen_serve["train_launches"] = train_fwd
+    phase("done")
+    qwen_serve["train"] = qwen_train
+    falcon_serve["train"] = falcon_trained
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
-                     fa.KERNEL_NAMES, k1_launches + train_fwd, k1_records,
+                     fa.KERNEL_NAMES,
+                     k1_launches + qwen_train_launches["k1"], k1_records,
                      qwen_serve),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
-                     "by autodiff", fa.BWD_KERNEL_NAMES, train_bwd,
-                     bwd_records, train,
+                     "by autodiff", fa.BWD_KERNEL_NAMES,
+                     qwen_train_launches["k1_bwd"], bwd_records, qwen_train,
                      extra=[f"{part}_ms" for part in BWD_PARTS]),
         kernel_entry("ssm_scan", ss.SOURCE,
-                     "src/repro/kernels/ssm_scan.py:45", K2_NAMES,
-                     k2_launches, k2_records, falcon_serve)]
+                     "src/repro/kernels/ssm_scan.py:45", ss.KERNEL_NAMES,
+                     k2_launches, k2_records, falcon_serve["layers"]),
+        kernel_entry("ssm_scan_fused", ss.SOURCE,
+                     "src/repro/kernels/ssm_scan.py:45 (its recurrence, in "
+                     "the fused form of src/repro/models/ssm.py:120)",
+                     ss.FUSED_KERNEL_NAMES,
+                     fused_launches + falcon_train_launches["k2_fused"],
+                     fused_records, falcon_serve),
+        kernel_entry("ssm_scan_bwd", ss.SOURCE_BWD,
+                     "none: the gradient of src/repro/models/ssm.py:120 "
+                     "(_mamba1_core_fused) by autodiff", ss.BWD_KERNEL_NAMES,
+                     falcon_train_launches["k2_bwd"], k2b_records,
+                     falcon_trained, extra=["main_ms", "reduce_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,12 @@ card the kernels are on the model's path.
 Gradients: on the card, attention whose q, k or v requires grad goes
 through :class:`FlashAttentionFunction`, K1's forward with its log-sum-exp
 and K1's backward kernels; a case they do not cover (the decode kernel, a
-query offset held in a tensor) raises.  K2 has no backward yet and raises
-on inputs that require grad.  On the CPU autograd differentiates the plain
-versions.
+query offset held in a tensor) raises.  The fused Mamba1 scan whose
+inputs require grad goes through :class:`Mamba1ScanFunction`, the fused
+K2 forward (writing the states its backward needs) and K2's backward
+kernel.  The unfused K2 (:func:`ssm_scan`) has no backward, on purpose: no
+path trains through it, and it raises on inputs that require grad.  On
+the CPU autograd differentiates the plain versions.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ from repro_torch.kernels.flash_attention import (QOffset,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+from repro_torch.kernels.ssm_scan import (mamba1_scan_plain,
+                                          ssm_scan_bwd_cuda, ssm_scan_cuda,
+                                          ssm_scan_fused_cuda, ssm_scan_plain,
+                                          states_shape)
 from repro_torch.runtime import needs_grad
 
 
@@ -81,3 +87,40 @@ def ssm_scan(decay, inc, C, *, chunk: int = 256):
     if decay.device.type != "cpu":
         raise ValueError(f"ssm scan: no kernel for device {decay.device}")
     return ssm_scan_plain(decay, inc, C, chunk=chunk)
+
+
+class Mamba1ScanFunction(torch.autograd.Function):
+    """The fused K2 scan under autograd: the fused forward kernel, writing
+    the state every ``STATE_EVERY`` steps, forward; K2's backward kernel
+    backward, with dA for A (autograd carries it on to ``A_log``).
+    ``torch.utils.checkpoint`` re-runs the forward, so a remat'd layer
+    launches it twice a step and writes its states twice."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bs, Cs, A):
+        states = torch.empty(states_shape(*x.shape, A.shape[1]),
+                             dtype=torch.float32, device=x.device)
+        y = ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        ctx.save_for_backward(x, dt, Bs, Cs, A, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, Bs, Cs, A, states = ctx.saved_tensors
+        return ssm_scan_bwd_cuda(x, dt, Bs, Cs, A,
+                                 dy.float().contiguous(), states)
+
+
+def mamba1_scan(x, dt, Bs, Cs, A, *, chunk: int = 256):
+    """The fused Mamba1 core from h_0 = 0 → y (B, S, d) f32.  On CUDA the
+    fused K2 kernel: through :class:`Mamba1ScanFunction` (states written,
+    the backward kernel behind it) when an input requires grad, alone
+    otherwise.  On the CPU the plain version, which autograd
+    differentiates (``chunk`` sizes its work only)."""
+    if x.device.type == "cuda":
+        if needs_grad(x, dt, Bs, Cs, A):
+            return Mamba1ScanFunction.apply(x, dt, Bs, Cs, A)
+        return ssm_scan_fused_cuda(x, dt, Bs, Cs, A)
+    if x.device.type != "cpu":
+        raise ValueError(f"mamba1 scan: no kernel for device {x.device}")
+    return mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=chunk)

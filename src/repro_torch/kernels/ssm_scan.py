@@ -1,4 +1,4 @@
-"""Selective scan: the K2 Hopper kernel's wrapper and its plain version.
+"""Selective scan: the K2 Hopper kernels' wrappers and their plain versions.
 
 The kernel (``csrc/ssm_scan.cu``) replaces the JAX package's Pallas TPU
 kernel ``ssm_scan_kernel`` (``repro/kernels/ssm_scan.py``): the diagonal
@@ -12,20 +12,41 @@ f32.  The TPU kernel's tiling (``chunk``, ``d_block``) has no counterpart:
 the CUDA kernel takes any S and any d.  See the source's header for what
 bounds it on an H100 and what its design does about that.
 
-:func:`ssm_scan_plain` is the same recurrence as a loop over S in torch.
-It is what runs for CPU tensors, and the version the kernel is held
-against on the card.  :data:`ssm_scan_cuda` launches the kernel on CUDA
-tensors and raises on anything it does not take; it never falls back.
+The same source has the fused form, the reference's default Mamba1 core
+(``_mamba1_core_fused`` in ``repro/models/ssm.py``): x, dt, B, C and A go
+in, decay = exp(dt·A) and inc = dt·x·B are built in registers, and y comes
+out (:data:`ssm_scan_fused_cuda`).  Its backward (``csrc/ssm_scan_bwd.cu``,
+:data:`ssm_scan_bwd_cuda`) recomputes each :data:`STATE_EVERY`-step segment
+from the states the forward stores for it.
+
+:func:`ssm_scan_plain`, :func:`mamba1_scan_plain` and
+:func:`mamba1_scan_bwd_plain` are the same functions in torch.  They are
+what runs for CPU tensors, and the versions the kernels are held against
+on the card.  The ``*_cuda`` wrappers launch their kernels on CUDA tensors
+and raise on anything they do not take; they never fall back.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.runtime import needs_grad
 
 SOURCE = "ssm_scan.cu"
+SOURCE_BWD = "ssm_scan_bwd.cu"
+#: The kernels' names as the profiler shows them (substrings): the unfused
+#: K2, the fused forward, and the backward's two kernels.
+KERNEL_NAMES = ("ssm_scan_kernel",)
+FUSED_KERNEL_NAMES = ("ssm_scan_fused_kernel",)
+BWD_KERNEL_NAMES = ("ssm_scan_bwd_kernel", "ssm_scan_bwd_reduce_kernel")
+#: Kernels one backward call launches: the main kernel, then the reduction
+#: for dB, for dC and for dA.
+BWD_LAUNCHES_PER_CALL = 4
+#: Steps between the states the fused forward stores for the backward (the
+#: sources' STATE_EVERY and T).
+STATE_EVERY = 16
 MAX_STATE = 32   # a channel's N states sit on the lanes of one warp
 MAX_BATCH = 65535  # the batch is the launch grid's y dimension
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,6 +78,81 @@ def ssm_scan_plain(decay, inc, C, *, chunk: int = 256):
         h = hs[:, -1]
         y[:, part] = torch.einsum("bsdn,bsn->bsd", hs, C[:, part].float())
     return y
+
+
+def decay_inc(dt, x, Bs, A):
+    """The recurrence's inputs in f32: decay = exp(dt·A) and inc = dt·x·B,
+    (..., di, N) from dt, x (..., di), Bs (..., N) and A (di, N)."""
+    dtf = dt.float()
+    decay = (dtf[..., None] * A).exp_()
+    inc = (dtf * x.float())[..., None] * Bs.float()[..., None, :]
+    return decay, inc
+
+
+def mamba1_scan_plain(x, dt, Bs, Cs, A, *, chunk: int = 256):
+    """The fused Mamba1 core from h_0 = 0: x, dt (B, S, d), Bs, Cs (B, S,
+    N), A (d, N) → y (B, S, d) f32, with decay and inc built one ``chunk``
+    of steps at a time (the reference's ``_mamba1_core_fused``, any S).
+    ``chunk`` sizes the work only; autograd differentiates it."""
+    B, S, d = x.shape
+    h = x.new_zeros((B, d, A.shape[1]), dtype=torch.float32)
+    ys = []
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        decay, inc = decay_inc(dt[:, part], x[:, part], Bs[:, part], A)
+        hs = diag_recurrence(decay, inc, h)
+        h = hs[:, -1]
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cs[:, part].float()))
+    return torch.cat(ys, 1)
+
+
+def scan_states_plain(x, dt, Bs, A, *, every: int = STATE_EVERY):
+    """The states the fused forward stores for its backward: h before
+    steps 0, every, 2·every, ... → (B, ceil(S / every), d, N) f32."""
+    B, S, d = x.shape
+    h = x.new_zeros((B, d, A.shape[1]), dtype=torch.float32)
+    out = []
+    for s0 in range(0, S, every):
+        out.append(h)
+        part = slice(s0, s0 + every)
+        h = diag_recurrence(*decay_inc(dt[:, part], x[:, part], Bs[:, part],
+                                       A), h)[:, -1]
+    return torch.stack(out, 1) if out else h.new_zeros((B, 0, d, A.shape[1]))
+
+
+def mamba1_scan_bwd_plain(x, dt, Bs, Cs, A, dy, *, every: int = STATE_EVERY):
+    """The backward of :func:`mamba1_scan_plain` as the kernel walks it:
+    the states every ``every`` steps, then each segment, last first,
+    recomputed from its state and walked backward with g_t = dy_t·C_t +
+    decay_{t+1}·g_{t+1}.  Returns (dx, ddt, dB, dC, dA) in the dtypes of
+    x, dt, Bs, Cs and A."""
+    B, S, d = x.shape
+    xf, tf, bf, cf = (t.float() for t in (x, dt, Bs, Cs))
+    dyf = dy.float()
+    states = scan_states_plain(x, dt, Bs, A, every=every)
+    dx, ddt = (torch.zeros_like(xf) for _ in range(2))
+    dB, dC = (torch.zeros_like(bf) for _ in range(2))
+    dA = torch.zeros_like(A, dtype=torch.float32)
+    carry = torch.zeros_like(states[:, 0]) if S else None
+    for k in reversed(range(states.shape[1])):
+        t0 = k * every
+        part = slice(t0, t0 + every)
+        decay, inc = decay_inc(dt[:, part], x[:, part], Bs[:, part], A)
+        hs = diag_recurrence(decay, inc, states[:, k])
+        prev = torch.cat([states[:, k, None], hs[:, :-1]], 1)
+        for i in reversed(range(hs.shape[1])):
+            t = t0 + i
+            g = dyf[:, t, :, None] * cf[:, t, None, :] + carry
+            dd = g * prev[:, i] * decay[:, i]            # dL/d(dt·A)
+            dA += (dd * tf[:, t, :, None]).sum(0)
+            ddt[:, t] = (dd * A + g * xf[:, t, :, None]
+                         * bf[:, t, None, :]).sum(-1)
+            dx[:, t] = (g * tf[:, t, :, None] * bf[:, t, None, :]).sum(-1)
+            dB[:, t] = (g * (tf[:, t] * xf[:, t])[..., None]).sum(1)
+            dC[:, t] = (dyf[:, t, :, None] * hs[:, i]).sum(1)
+            carry = decay[:, i] * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(Bs.dtype),
+            dC.to(Cs.dtype), dA.to(A.dtype))
 
 
 class SsmScanKernel:
@@ -127,3 +223,213 @@ class SsmScanKernel:
 #: The process's one K2 wrapper; ``ssm_scan_cuda.launches`` is the count a
 #: run reads to show that its path went through the kernel.
 ssm_scan_cuda = SsmScanKernel()
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def states_shape(B: int, S: int, d: int, N: int):
+    """Shape of the states the fused forward stores for its backward."""
+    return (B, -(-S // STATE_EVERY), d, N)
+
+
+def _check_fused_inputs(what, x, dt, Bs, Cs, A):
+    """The fused kernels' contract, checked on the host before a launch:
+    raises on what the kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: x is on {x.device}, the kernel runs on "
+                         f"CUDA tensors only")
+    if any(t.device != x.device for t in (dt, Bs, Cs, A)):
+        raise ValueError(f"{what}: x, dt, B, C, A on different devices")
+    if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype
+                                         for t in (dt, Bs, Cs)):
+        raise TypeError(f"{what}: dtypes {x.dtype}/{dt.dtype}/{Bs.dtype}/"
+                        f"{Cs.dtype}; needs one of "
+                        f"{sorted(map(str, _DTYPE_CODE))} for x, dt, B, C")
+    if A.dtype != torch.float32:
+        raise TypeError(f"{what}: A is {A.dtype}, needs float32")
+    if x.dim() != 3 or A.dim() != 2:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, A {tuple(A.shape)}; "
+                         f"needs (B, S, d) and (d, N)")
+    B, S, d = x.shape
+    N = A.shape[1]
+    if tuple(dt.shape) != (B, S, d) or tuple(A.shape) != (d, N) or any(
+            tuple(t.shape) != (B, S, N) for t in (Bs, Cs)):
+        raise ValueError(f"{what}: shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} B {tuple(Bs.shape)} C "
+                         f"{tuple(Cs.shape)} A {tuple(A.shape)}; needs "
+                         f"(B, S, d) twice, (B, S, N) twice and (d, N)")
+    if not 1 <= N <= MAX_STATE or B > MAX_BATCH:
+        raise ValueError(f"{what}: state size {N} (takes 1 to {MAX_STATE}), "
+                         f"batch {B} (at most {MAX_BATCH})")
+    if not (x.is_contiguous() and dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError(f"{what}: x, dt and A must be contiguous")
+    for name, t in (("B", Bs), ("C", Cs)):
+        if S > 0 and (t.stride(2) != 1 or t.stride(0) != S * t.stride(1)):
+            raise ValueError(f"{what}: {name} has strides {t.stride()}; needs "
+                             f"unit element stride and evenly spaced rows")
+    return B, S, d, N
+
+
+def _check_f32(what, name, t, device, shape) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(
+            t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}; needs a contiguous float32 "
+                         f"{tuple(shape)} on {device}")
+
+
+class SsmScanFusedKernel:
+    """The fused K2 forward's wrapper.  ``launches`` counts launches."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    def _function(self):
+        if self._fn is None:
+            from repro_torch.kernels import build
+            lib = build.load(SOURCE)
+            if lib.repro_ssm_scan_state_every() != STATE_EVERY:
+                raise RuntimeError("ssm scan kernel: the source stores states "
+                                   "at another interval than STATE_EVERY")
+            fn = lib.repro_ssm_scan_fused_fwd
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                           + [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, x, dt, Bs, Cs, A, *, states: Optional[torch.Tensor]
+                 = None):
+        """Same function as :func:`mamba1_scan_plain`: x, dt (B, S, d)
+        contiguous, Bs, Cs (B, S, N) with unit element stride (row slices of
+        a wider tensor go in as they are), all four float32 or all four
+        bfloat16, A (d, N) float32, N ≤ :data:`MAX_STATE` → y (B, S, d)
+        f32.  With ``states`` (a contiguous float32 buffer of
+        :func:`states_shape`) it also writes the state before every
+        :data:`STATE_EVERY`-th step, for the backward.  Inputs that require
+        grad under grad mode raise: autograd goes through
+        ``ops.Mamba1ScanFunction``."""
+        what = "fused ssm scan kernel"
+        B, S, d, N = _check_fused_inputs(what, x, dt, Bs, Cs, A)
+        if needs_grad(x, dt, Bs, Cs, A):
+            raise NotImplementedError(
+                f"{what}: an input requires grad; call ops.mamba1_scan, whose "
+                f"autograd Function runs the backward kernel")
+        if states is not None:
+            _check_f32(what, "states", states, x.device,
+                       states_shape(B, S, d, N))
+        y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+        if y.numel() == 0:
+            return y
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = self._function()(
+                _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+                Bs.data_ptr(), Bs.stride(1), Cs.data_ptr(), Cs.stride(1),
+                A.data_ptr(), y.data_ptr(),
+                None if states is None else states.data_ptr(), B, S, d, N,
+                stream)
+        if err != 0:
+            raise RuntimeError(f"{what} failed to launch (error {err})")
+        self.launches += 1
+        return y
+
+
+#: Threads of a backward block, passes a block may walk, and the blocks the
+#: backward's grid aims at (132 SMs, 4 blocks each): the kernel's own
+#: constants and the wrapper's plan, which :func:`bwd_plan` mirrors.
+BWD_THREADS, BWD_MAX_PASSES, BWD_TARGET_BLOCKS = 256, 16, 528
+
+
+class BwdPlan(NamedTuple):
+    lanes: int      # P: a channel's lanes, the power of two at least N
+    channels: int   # channels a pass: BWD_THREADS / P
+    passes: int     # passes a block walks
+    slabs: int      # blocks along d: each owns passes x channels channels
+
+
+def bwd_plan(B: int, d: int, N: int) -> BwdPlan:
+    """How the backward splits d: enough slabs for about one wave of the
+    card, as few as that allows, so that the partial sums of dB and dC
+    (2 x slabs x B x S x N floats) stay small."""
+    P = _pow2_at_least(N)
+    ch = BWD_THREADS // P
+    chunks = -(-d // ch)
+    slabs = min(chunks, max(1, -(-BWD_TARGET_BLOCKS // max(B, 1))))
+    passes = min(BWD_MAX_PASSES, -(-chunks // slabs))
+    return BwdPlan(P, ch, passes, -(-chunks // passes))
+
+
+class SsmScanBwdKernel:
+    """K2's backward wrapper (the main kernel and its reduction, one call).
+    ``launches`` counts kernel launches: each call on inputs that are not
+    empty launches :data:`BWD_LAUNCHES_PER_CALL`."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+
+    def _function(self):
+        if self._fn is None:
+            from repro_torch.kernels import build
+            lib = build.load(SOURCE_BWD)
+            if lib.repro_ssm_scan_bwd_state_every() != STATE_EVERY:
+                raise RuntimeError("ssm scan backward: the source reads states "
+                                   "at another interval than STATE_EVERY")
+            fn = lib.repro_ssm_scan_bwd
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                           + [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_longlong] + [ctypes.c_void_p] * 10
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, x, dt, Bs, Cs, A, dy, states):
+        """The gradients of :func:`mamba1_scan_plain` for ``dy`` (B, S, d)
+        f32 from the forward's ``states``: (dx, ddt, dB, dC, dA) in the
+        dtypes of x, dt, Bs, Cs and A.  The inputs as the fused forward
+        takes them; dy and states contiguous float32."""
+        what = "ssm scan backward kernel"
+        B, S, d, N = _check_fused_inputs(what, x, dt, Bs, Cs, A)
+        _check_f32(what, "dy", dy, x.device, (B, S, d))
+        _check_f32(what, "states", states, x.device,
+                   states_shape(B, S, d, N))
+        plan = bwd_plan(B, d, N)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx, ddt = (torch.empty((B, S, d), **f32) for _ in range(2))
+        dB, dC = (torch.empty((B, S, N), **f32) for _ in range(2))
+        dA = torch.empty((d, N), **f32)
+        if x.numel() > 0:
+            part_bc = torch.empty((2, plan.slabs, B, S, N), **f32)
+            part_a = torch.empty((B, d, N), **f32)
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                err = self._function()(
+                    _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+                    Bs.data_ptr(), Bs.stride(1), Cs.data_ptr(), Cs.stride(1),
+                    A.data_ptr(), dy.data_ptr(), states.data_ptr(),
+                    dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+                    dC.data_ptr(), dA.data_ptr(), part_bc.data_ptr(),
+                    part_a.data_ptr(), B, S, d, N, plan.passes, plan.slabs,
+                    stream)
+            if err != 0:
+                raise RuntimeError(f"{what} failed to launch (error {err})")
+            self.launches += BWD_LAUNCHES_PER_CALL
+        else:
+            for t in (dB, dC, dA):
+                t.zero_()
+        return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(Bs.dtype),
+                dC.to(Cs.dtype), dA)
+
+
+#: The process's fused K2 forward and K2 backward wrappers; their
+#: ``launches`` are the counts a run reads to show that its path went
+#: through the kernels.
+ssm_scan_fused_cuda = SsmScanFusedKernel()
+ssm_scan_bwd_cuda = SsmScanBwdKernel()

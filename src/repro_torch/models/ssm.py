@@ -1,15 +1,17 @@
 """Mamba1 (selective scan) blocks: the port of the Mamba1 half of
 ``repro/models/ssm.py``.
 
-The prefill block builds the recurrence's decay = exp(dt·A) and inc =
-dt·x·B in f32, (B, S, d_inner, N) each, and hands them to
-:func:`repro_torch.kernels.ops.ssm_scan`: the K2 CUDA kernel on the card,
-its plain torch version on the CPU.  The reference runs a fused jnp scan
-by default and this unfused form behind an environment variable; the port
-has one path, the one with the kernel, and keeps the fused form
-(:func:`_mamba1_core_fused`) as a plain function that the tests hold the
-kernel path against.  Decode is a closed-form update of one token and
-reaches no kernel.
+The prefill and training block has the reference's two forms, chosen by
+its ``fused`` argument as in the reference.  The fused form, the default,
+hands x, dt, B, C and A to :func:`repro_torch.kernels.ops.mamba1_scan`:
+the fused K2 kernel on the card (with its backward kernel under
+autograd), which builds decay = exp(dt·A) and inc = dt·x·B in registers;
+its plain torch version on the CPU.  ``fused=False`` builds decay and inc
+in f32, (B, S, d_inner, N) each, and hands them to
+:func:`repro_torch.kernels.ops.ssm_scan`, the unfused K2 kernel (forward
+only).  The reference reads its default from an environment variable; the
+port has only the argument.  Decode is a closed-form update of one token
+and reaches no kernel.
 
 The reference's sharding constraints are the identity on one device and
 are left out.  Mamba2 (SSD) is not ported: its configurations raise
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import diag_recurrence
+from repro_torch.kernels.ssm_scan import decay_inc
 from repro_torch.models.layers import _init
 
 Params = Dict[str, Any]
@@ -98,40 +100,24 @@ def _m1_gates(p, u, dt_rank, d_state):
     return x, z, dt, Bs, Cs
 
 
-def decay_inc(dt, x, Bs, A):
-    """The recurrence's inputs in f32: decay = exp(dt·A) and inc = dt·x·B,
-    (..., di, N) from dt, x (..., di), Bs (..., N) and A (di, N)."""
-    dtf = dt.float()
-    decay = (dtf[..., None] * A).exp_()
-    inc = (dtf * x.float())[..., None] * Bs.float()[..., None, :]
-    return decay, inc
-
-
-def _mamba1_core_fused(x, dt, Bs, Cs, A, h0, chunk: int):
-    """y_t = C_t·h_t with decay and inc built one chunk at a time (the
-    reference's fused core, in plain torch); any S."""
-    S = x.shape[1]
-    h, ys = h0, []
-    for s0 in range(0, S, chunk):
-        part = slice(s0, s0 + chunk)
-        decay, inc = decay_inc(dt[:, part], x[:, part], Bs[:, part], A)
-        hs = diag_recurrence(decay, inc, h)
-        h = hs[:, -1]
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, Cs[:, part].float()))
-    return torch.cat(ys, 1)
-
-
-def mamba1_block(p: Params, u, *, d_state: int, chunk: int = 256):
-    """Prefill forward; u: (B, S, d_model) → (B, S, d_model).  The scan is
-    :func:`ops.ssm_scan` (``chunk`` sizes the plain version's work)."""
+def mamba1_block(p: Params, u, *, d_state: int, chunk: int = 256,
+                 fused: bool = True):
+    """Prefill and training forward; u: (B, S, d_model) → (B, S, d_model).
+    ``fused`` (the reference's default) scans through
+    :func:`ops.mamba1_scan`; ``fused=False`` builds decay and inc in full
+    and scans them through :func:`ops.ssm_scan`.  ``chunk`` sizes the
+    plain versions' work."""
     dt_rank = p["dt_proj"].shape[0]
     x, z, dt, Bs, Cs = _m1_gates(p, u, dt_rank, d_state)
     A = -torch.exp(p["A_log"].float())                       # (di, N)
-    decay, inc = decay_inc(dt, x, Bs, A)                     # (B,S,di,N)
-    # Cs is a strided slice of dbc; the kernel reads contiguous rows
-    y = ops.ssm_scan(decay, inc, Cs.float().contiguous(),
-                     chunk=min(chunk, u.shape[1]))
-    del decay, inc   # the two largest tensors of the layer
+    chunk = min(chunk, u.shape[1])
+    if fused:
+        y = ops.mamba1_scan(x, dt, Bs, Cs, A, chunk=chunk)
+    else:
+        decay, inc = decay_inc(dt, x, Bs, A)                 # (B,S,di,N)
+        # Cs is a strided slice of dbc; the kernel reads contiguous rows
+        y = ops.ssm_scan(decay, inc, Cs.float().contiguous(), chunk=chunk)
+        del decay, inc   # the two largest tensors of the layer
     y = y.to(u.dtype) + p["D"] * x
     y = y * F.silu(z)
     return y @ p["out_proj"]

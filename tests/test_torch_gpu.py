@@ -1,8 +1,9 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
-the backward) and the K2 kernel against their plain versions, the smoke
-models (qwen3, falcon-mamba) on CUDA against the same models on the CPU,
-qwen3's training path (loss, gradients, kill and resume), and checkpoint
-round trips of CUDA tensors.  Every
+the backward) and the K2 kernels (the unfused scan, the fused scan and its
+backward) against their plain versions, the smoke models (qwen3,
+falcon-mamba) on CUDA against the same models on the CPU, both training
+paths (loss, gradients, kill and resume), and checkpoint round trips of
+CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -18,6 +19,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     BWD_LAUNCHES_PER_CALL, flash_attention_bwd_cuda, flash_attention_bwd_plain,
     flash_attention_cuda, flash_attention_plain, flash_attention_split_plain,
     lse_plain)
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     ssm_scan_cuda, ssm_scan_plain)
 
@@ -237,27 +239,39 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     assert ssm_scan_cuda.launches == before
 
 
-def test_falcon_smoke_on_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("fused", [True, False])
+def test_falcon_smoke_on_cuda_matches_cpu(cuda, fused, monkeypatch):
+    """The forward launches the fused K2 kernel once a layer (``fused``,
+    the default) or the unfused K2 kernel (``fused=False``); decode
+    launches neither."""
     from repro_torch.configs import get_config, smoke
     from repro_torch.models import forward, init_cache, init_lm, serve_step
+    from repro_torch.models import ssm as SSM
+    if not fused:
+        monkeypatch.setattr(SSM, "ssm_block", lambda p, u, cfg, chunk=1024:
+                            SSM.mamba1_block(p, u, d_state=cfg.ssm_state,
+                                             chunk=chunk, fused=False))
+    kernel = ss.ssm_scan_fused_cuda if fused else ssm_scan_cuda
+    other = ssm_scan_cuda if fused else ss.ssm_scan_fused_cuda
     cfg = smoke(get_config("falcon-mamba-7b"))
     cpu = init_lm(cfg, 0, device="cpu")
     gpu = _to(cpu, cuda)
     tok = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab, (2, 8)).astype(np.int32))
     want = forward(cfg, cpu, tok)
-    before = ssm_scan_cuda.launches
+    before, other_before = kernel.launches, other.launches
     got = forward(cfg, gpu, tok.to(cuda))
-    assert ssm_scan_cuda.launches - before == cfg.n_layers
+    assert kernel.launches - before == cfg.n_layers
+    assert other.launches == other_before
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     c_cpu = init_cache(cfg, 2, 16, device="cpu")
     c_gpu = init_cache(cfg, 2, 16, device=cuda)
-    before = ssm_scan_cuda.launches
+    before = kernel.launches
     for i in range(8):
         lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
         lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
-    assert ssm_scan_cuda.launches == before   # decode reaches no kernel
+    assert kernel.launches == before   # decode reaches no kernel
     torch.testing.assert_close(c_gpu["ssm"]["h"].cpu(), c_cpu["ssm"]["h"],
                                rtol=1e-4, atol=1e-4)
 
@@ -397,7 +411,9 @@ def test_autograd_goes_through_the_kernels(cuda, dtype):
 def test_no_kernel_drops_a_gradient(cuda):
     """Where no backward kernel exists the call raises: the decode kernel,
     a query offset held in a tensor, a direct launch of K1's forward with
-    inputs that require grad, and K2."""
+    inputs that require grad, and the unfused K2.  The fused K2 under grad
+    goes through its autograd Function (its output has a grad_fn); a
+    direct launch of it with inputs that require grad raises."""
     rng = np.random.default_rng(14)
     q = _rand(rng, (1, 1, 4, 64), torch.float32, cuda).requires_grad_()
     k = _rand(rng, (1, 30, 2, 64), torch.float32, cuda)
@@ -416,6 +432,14 @@ def test_no_kernel_drops_a_gradient(cuda):
         ssm_scan_cuda(x, x, torch.zeros(1, 4, 2, device=cuda))
     with pytest.raises(NotImplementedError, match="requires grad"):
         ops.ssm_scan(x, x, torch.zeros(1, 4, 2, device=cuda))
+    xs = torch.rand(1, 4, 3, device=cuda, requires_grad=True)
+    bc = torch.rand(1, 4, 2, device=cuda)
+    A = -torch.rand(3, 2, device=cuda)
+    assert ops.mamba1_scan(xs, xs, bc, bc, A).grad_fn is not None
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        ss.ssm_scan_fused_cuda(xs, xs, bc, bc, A)
+    with torch.no_grad():
+        assert ops.mamba1_scan(xs, xs, bc, bc, A).grad_fn is None
 
 
 # ------------------------------------------------------- the training path --
@@ -472,13 +496,15 @@ def _get(tree, name):
     return tree
 
 
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
 def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
-                                                               tmp_path):
+                                                               tmp_path,
+                                                               arch):
     """tests/test_system.py::TestTrainLoop's restart, on the card."""
     from repro_torch.configs import get_config, smoke
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import TrainLoopConfig, train
-    cfg = smoke(get_config("qwen3-1.7b"))
+    cfg = smoke(get_config(arch))
 
     def run(path, hooks=None):
         loop = TrainLoopConfig(total_steps=12, ckpt_every=4,
@@ -495,6 +521,24 @@ def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
     assert abs(out["losses"][-1] - ref["losses"][-1]) < 0.05
     for o in (out, ref):
         o["manager"].close()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+def test_launcher_trains_on_the_card(cuda, tmp_path, capsys, arch):
+    """python -m repro_torch.launch.train --arch <arch>: the card is the
+    default device; falcon-mamba's steps go through the fused K2 and its
+    backward."""
+    from repro_torch.launch import train as launch
+    f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
+    launch.main(["--arch", arch, "--steps", "3", "--seq-len", "16",
+                 "--global-batch", "2", "--ckpt-every", "2", "--ckpt-dir",
+                 str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "done: start_step=-1" in out and "checkpoints=[2]" in out
+    trained = (ss.ssm_scan_fused_cuda.launches > f0,
+               ss.ssm_scan_bwd_cuda.launches > b0)
+    assert trained == ((True, True) if arch == "falcon-mamba-7b"
+                       else (False, False))
 
 
 def test_pinned_snapshot_is_not_reached_by_in_place_updates(cuda,
@@ -520,3 +564,187 @@ def test_pinned_snapshot_is_not_reached_by_in_place_updates(cuda,
         again, _ = mgr.restore(2, device=cuda)
     for k in tree:
         assert torch.equal(got[k], want[k]) and torch.equal(again[k], tree[k])
+
+
+# ------------------------------------------- the fused K2 and its backward --
+#: The fused forward against mamba1_scan_plain: the same rounded products,
+#: an accurate f32 exp on both sides, the state rounded identically; only
+#: y's sum over n differs (SCAN_TOL).  The backward against autograd of the
+#: plain version on f32 copies of the inputs: f32 gradients within
+#: SCAN_BWD_REL_MAX of their largest element (sums over channels and steps
+#: in another order), bf16 ones by relative L2 (rounded once), dA (f32)
+#: as in f32.
+SCAN_BWD_REL_MAX = 1e-4
+SCAN_BWD_REL_BF16 = 1e-2
+
+FUSED_CASES = [  # B, S, d, N, B and C as strided row slices
+    (1, 1, 1, 1, False),
+    (2, 37, 5, 3, False),     # ragged S, N not a power of two
+    (3, 70, 33, 8, True),     # d that no block divides, strided
+    (1, 130, 7, 1, False),    # one lane per channel
+    (2, 20, 3, 32, True),     # a channel fills a warp
+    (2, 9, 100, 16, False),   # the model's N
+    (1, 64, 300, 16, True),   # S a multiple of 16, several slabs
+    (2, 41, 24, 16, True),
+    (1, 200, 700, 16, True),  # several passes a slab
+]
+
+
+def _fused_inputs(rng, dtype, cuda, B, S, d, N, strided):
+    x = _rand(rng, (B, S, d), dtype, cuda)
+    dt = torch.nn.functional.softplus(
+        _rand(rng, (B, S, d), torch.float32, cuda) - 1).to(dtype)
+    if strided:
+        dbc = _rand(rng, (B, S, 5 + 2 * N), dtype, cuda)
+        Bs, Cs = dbc[..., 5:5 + N], dbc[..., 5 + N:]
+    else:
+        Bs, Cs = (_rand(rng, (B, S, N), dtype, cuda) for _ in range(2))
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device=cuda,
+                                          dtype=torch.float32))
+                   + 0.3 * _rand(rng, (d, N), torch.float32, cuda))
+    return x, dt, Bs, Cs, A.contiguous()
+
+
+def _hold_scan_grad(got, want, what):
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - want).norm().item()
+        assert err <= SCAN_BWD_REL_BF16 * want.norm().item(), \
+            f"{what}: L2 error {err}, norm {want.norm().item()}"
+        return
+    assert got.dtype == want.dtype, what
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= SCAN_BWD_REL_MAX * scale, f"{what}: {err}, largest {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,d,N,strided", FUSED_CASES)
+def test_fused_scan_matches_plain(cuda, dtype, B, S, d, N, strided):
+    rng = np.random.default_rng(S * 31 + d + N)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, dtype, cuda, B, S, d, N, strided)
+    states = torch.full(ss.states_shape(B, S, d, N), float("nan"),
+                        device=cuda)
+    before = ss.ssm_scan_fused_cuda.launches
+    got = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan_fused_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, S, d)
+    torch.testing.assert_close(got, ss.mamba1_scan_plain(x, dt, Bs, Cs, A),
+                               **SCAN_TOL)
+    torch.testing.assert_close(states, ss.scan_states_plain(x, dt, Bs, A),
+                               **SCAN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,d,N,strided", FUSED_CASES)
+def test_scan_bwd_matches_plain_autograd(cuda, dtype, B, S, d, N, strided):
+    rng = np.random.default_rng(S * 37 + d + N)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, dtype, cuda, B, S, d, N, strided)
+    dy = _rand(rng, (B, S, d), torch.float32, cuda)
+    states = torch.empty(ss.states_shape(B, S, d, N), device=cuda)
+    ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+    before = ss.ssm_scan_bwd_cuda.launches
+    got = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan_bwd_cuda.launches == \
+        before + ss.BWD_LAUNCHES_PER_CALL
+    leaves = [t.float().requires_grad_() for t in (x, dt, Bs, Cs, A)]
+    want = torch.autograd.grad(ss.mamba1_scan_plain(*leaves), leaves, dy)
+    for name, g, w, t in zip(("x", "dt", "B", "C", "A"), got, want,
+                             (x, dt, Bs, Cs, A)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _hold_scan_grad(g, w, f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_is_deterministic(cuda, dtype):
+    """No float atomics: two backward calls give the same bits."""
+    rng = np.random.default_rng(17)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, dtype, cuda, 4, 300, 2048, 16,
+                                     True)
+    dy = _rand(rng, (4, 300, 2048), torch.float32, cuda)
+    states = torch.empty(ss.states_shape(4, 300, 2048, 16), device=cuda)
+    ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+    a = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+    b = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_fused_scan_writes_states_only_under_grad(cuda, monkeypatch):
+    """ops.mamba1_scan: without grad the fused kernel gets no states buffer
+    (serving writes y alone); with grad its Function passes one, and the
+    backward wrapper is called once."""
+    rng = np.random.default_rng(18)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, torch.float32, cuda, 2, 40, 24,
+                                     16, True)
+    seen = []
+    real = ss.SsmScanFusedKernel.__call__
+
+    def spy(self, *args, states=None):
+        seen.append(states)
+        return real(self, *args, states=states)
+
+    monkeypatch.setattr(ss.SsmScanFusedKernel, "__call__", spy)
+    with torch.no_grad():
+        y0 = ops.mamba1_scan(x, dt, Bs, Cs, A)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, Bs, Cs, A)]
+    b0 = ss.ssm_scan_bwd_cuda.launches
+    y1 = ops.mamba1_scan(*leaves)
+    y1.sum().backward()
+    torch.cuda.synchronize()
+    assert seen[0] is None and seen[1] is not None
+    assert tuple(seen[1].shape) == ss.states_shape(2, 40, 24, 16)
+    assert ss.ssm_scan_bwd_cuda.launches == b0 + ss.BWD_LAUNCHES_PER_CALL
+    assert torch.equal(y0, y1.detach())
+    assert all(t.grad is not None for t in leaves)
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(19)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, torch.float32, cuda, 1, 8, 4, 2,
+                                     False)
+    before = ss.ssm_scan_fused_cuda.launches
+    with pytest.raises(TypeError):
+        ss.ssm_scan_fused_cuda(x.half(), dt.half(), Bs.half(), Cs.half(), A)
+    with pytest.raises(ValueError, match="state size"):
+        ss.ssm_scan_fused_cuda(x, dt, *(torch.zeros(1, 8, 33, device=cuda),) * 2,
+                               torch.zeros(4, 33, device=cuda))
+    with pytest.raises(ValueError, match="states"):
+        ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A,
+                               states=torch.empty(1, 3, 4, 2, device=cuda))
+    assert ss.ssm_scan_fused_cuda.launches == before
+
+
+def test_falcon_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
+    """lm_loss and every leaf's gradient of the falcon-mamba smoke model
+    through the fused K2 forward (twice a layer: the forward and the remat
+    recompute) and its backward (once a layer) against the same on the
+    CPU; neither K1 nor the unfused K2 runs."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_lm, lm_loss
+    cfg = smoke(get_config("falcon-mamba-7b"))
+    tok, lab = _smoke_batch(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        counts = [k.launches for k in (ss.ssm_scan_fused_cuda,
+                                       ss.ssm_scan_bwd_cuda, ssm_scan_cuda,
+                                       flash_attention_cuda)]
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16)
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            got = [k.launches - c for k, c in zip(
+                (ss.ssm_scan_fused_cuda, ss.ssm_scan_bwd_cuda, ssm_scan_cuda,
+                 flash_attention_cuda), counts)]
+            assert got == [2 * cfg.n_layers,
+                           ss.BWD_LAUNCHES_PER_CALL * cfg.n_layers, 0, 0]
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)

@@ -21,7 +21,8 @@ from repro_torch.configs import smoke as tsmoke  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 
-ARCH = "qwen3-1.7b"
+#: The dense and the Mamba1 (ssm) family: the loop runs for both.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,27 +41,31 @@ def _loop(path, steps, **kw):
                 log_every=100, **kw)
 
 
-def _train(path, steps, opt=None, hooks=None, **kw):
-    cfg = tsmoke(tget(ARCH))
+def _train(path, steps, opt=None, hooks=None, arch=ARCHS[0], **kw):
+    cfg = tsmoke(tget(arch))
     opt = opt or tadamw.AdamWConfig(total_steps=steps)
     return tloop.train(cfg, tloop.TrainLoopConfig(**_loop(path, steps, **kw)),
                        opt, seq_len=32, global_batch=4, hooks=hooks,
                        device="cpu")
 
 
-def test_loss_decreases(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_decreases(tmp_path, arch):
     out = _train(tmp_path / "c", 12,
-                 tadamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=12))
+                 tadamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=12),
+                 arch=arch)
     assert out["losses"][-1] < out["losses"][0]
 
 
-def test_restart_resumes_and_matches(tmp_path):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_restart_resumes_and_matches(tmp_path, arch):
     """Die at step 6, restart, finish: the state continues (not reset)."""
     with pytest.raises(SystemExit):
-        _train(tmp_path / "c", 12, hooks={"should_die": lambda s: s == 6})
-    out = _train(tmp_path / "c", 12)
+        _train(tmp_path / "c", 12, hooks={"should_die": lambda s: s == 6},
+               arch=arch)
+    out = _train(tmp_path / "c", 12, arch=arch)
     assert out["start_step"] == 4
-    ref = _train(tmp_path / "ref", 12)
+    ref = _train(tmp_path / "ref", 12, arch=arch)
     assert abs(out["losses"][-1] - ref["losses"][-1]) < 0.05
 
 
@@ -80,25 +85,27 @@ def test_compressed_checkpoints_resume(tmp_path):
 
 
 # ------------------------------------------------- cross-package resume --
-def _seed_step0(directory):
+def _seed_step0(directory, arch):
     """The JAX package's initial training state as checkpoint 0, so both
     packages' runs start from the same weights."""
-    cfg = smoke(get_config(ARCH))
+    cfg = smoke(get_config(arch))
     params = jlm.init_lm(cfg, jax.random.PRNGKey(0))
     with JManager(str(directory), shards=0, delta=False) as mgr:
         mgr.save(0, {"params": params, "opt": jadamw.init(params)},
                  blocking=True)
 
 
-def _jax_train(path, steps, hooks=None):
-    return jloop.train(smoke(get_config(ARCH)),
+def _jax_train(path, steps, hooks=None, arch=ARCHS[0]):
+    return jloop.train(smoke(get_config(arch)),
                        jloop.TrainLoopConfig(**_loop(path, steps)),
                        jadamw.AdamWConfig(total_steps=steps), seq_len=32,
                        global_batch=4, hooks=hooks)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("first", ["jax", "torch"])
-def test_a_run_resumes_in_the_other_package(tmp_path, first, monkeypatch):
+def test_a_run_resumes_in_the_other_package(tmp_path, first, arch,
+                                            monkeypatch):
     """A run started (from a shared step-0 state) and killed at step 6 in
     one package resumes from its step-4 checkpoint in the other; the
     resumed losses are within 1e-4 of an uninterrupted run in the
@@ -107,32 +114,34 @@ def test_a_run_resumes_in_the_other_package(tmp_path, first, monkeypatch):
     monkeypatch.setenv("REPRO_SCDA_DELTA", "0")
     run, ref = tmp_path / "run", tmp_path / "ref"
     for d in (run, ref):
-        _seed_step0(d)
+        _seed_step0(d, arch)
     starts = {"jax": _jax_train, "torch": _train}
     resumes = {"jax": _jax_train, "torch": _train}
     second = "torch" if first == "jax" else "jax"
     with pytest.raises(SystemExit):
-        starts[first](run, 10, hooks={"should_die": lambda s: s == 6})
-    got = resumes[second](run, 10)
-    want = resumes[second](ref, 10)
+        starts[first](run, 10, hooks={"should_die": lambda s: s == 6},
+                      arch=arch)
+    got = resumes[second](run, 10, arch=arch)
+    want = resumes[second](ref, 10, arch=arch)
     assert got["start_step"] == 4 and want["start_step"] == 0
     np.testing.assert_allclose(got["losses"], want["losses"][4:], rtol=0,
                                atol=1e-4)
 
 
 # -------------------------------------------------------------- launcher --
-def test_launcher_trains_on_the_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_trains_on_the_cpu(tmp_path, capsys, arch):
     from repro_torch.launch import train as launch
-    launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
+    launch.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
                  "3", "--seq-len", "16", "--global-batch", "2",
                  "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "done: start_step=-1" in out and "checkpoints=[2]" in out
-    assert os.listdir(tmp_path / f"{ARCH}-smoke")
+    assert os.listdir(tmp_path / f"{arch}-smoke")
 
 
 def test_launcher_refuses_a_mesh(tmp_path):
     from repro_torch.launch import train as launch
     with pytest.raises(NotImplementedError, match="one device"):
-        launch.main(["--arch", ARCH, "--device", "cpu", "--data-par", "2",
+        launch.main(["--arch", ARCHS[0], "--device", "cpu", "--data-par", "2",
                      "--ckpt-dir", str(tmp_path)])

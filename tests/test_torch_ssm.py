@@ -39,7 +39,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
-    ssm_scan_cuda, ssm_scan_plain)
+    mamba1_scan_plain, ssm_scan_cuda, ssm_scan_plain)
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
@@ -206,27 +206,29 @@ def test_causal_conv1d_and_conv_decode_match_jax():
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_mamba1_block_matches_jax(block, fused):
-    """The port's one path (the scan through the dispatcher) against both
-    of the reference's: the fused core and the unfused chunked scan."""
+    """Each of the port's two forms (the fused scan, the unfused one on
+    decay and inc built in full) against the reference's of the same
+    ``fused``."""
     jp, tp = block
     u = np.random.default_rng(8).standard_normal((B, 16, D_MODEL)) \
         .astype(np.float32)
     want = JS.mamba1_block(jp, jnp.asarray(u), d_state=D_STATE, chunk=8,
                            fused=fused)
-    got = TS.mamba1_block(tp, torch.from_numpy(u), d_state=D_STATE, chunk=8)
+    got = TS.mamba1_block(tp, torch.from_numpy(u), d_state=D_STATE, chunk=8,
+                          fused=fused)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_fused_core_matches_the_kernel_path(block):
-    """The port's plain fused core equals the scan the dispatcher runs on
-    decay and inc built in full, for a chunk that does not divide S."""
+    """The port's plain fused core equals the unfused scan the dispatcher
+    runs on decay and inc built in full, for a chunk that does not divide
+    S."""
     _, tp = block
     u = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (B, 13, D_MODEL)).astype(np.float32))
     x, z, dt, Bs, Cs = TS._m1_gates(tp, u, tp["dt_proj"].shape[0], D_STATE)
     A = -torch.exp(tp["A_log"].float())
-    h0 = torch.zeros((B, x.shape[-1], D_STATE))
-    fused = TS._mamba1_core_fused(x, dt, Bs, Cs, A, h0, chunk=5)
+    fused = mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=5)
     decay = torch.exp(dt[..., None] * A)
     inc = (dt * x)[..., None] * Bs[..., None, :]
     np.testing.assert_allclose(fused.numpy(),

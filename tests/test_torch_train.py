@@ -1,6 +1,7 @@
 """The port's training path against the JAX package's, on the CPU: the
 attention gradient, the loss and every parameter's gradient of the qwen3
-smoke config, one train step (the loop is in test_torch_loop.py)."""
+and falcon-mamba smoke configs, one train step (the loop is in
+test_torch_loop.py; the Mamba1 scan's gradient in test_torch_ssm_train.py)."""
 import numpy as np
 import pytest
 
@@ -15,6 +16,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 
+from repro_torch.checkpoint.pytree_io import flatten_named  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs import smoke as tsmoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -23,7 +25,9 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
-ARCH = "qwen3-1.7b"
+#: The dense and the Mamba1 (ssm) family: every model-level test runs on
+#: both smoke configs.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
 B, S, CHUNK = 2, 32, 16
 
 
@@ -37,13 +41,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = smoke(get_config(ARCH))
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    cfg = smoke(get_config(request.param))
     jp = jlm.init_lm(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     seq = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
-    return cfg, tsmoke(tget(ARCH)), jp, seq[:, :-1], seq[:, 1:]
+    return cfg, tsmoke(tget(request.param)), jp, seq[:, :-1], seq[:, 1:]
 
 
 def _tp(jp):
@@ -171,20 +175,48 @@ def test_remat_does_not_change_the_loss_or_gradients(model):
 
 
 def test_train_step_matches_jax(model):
-    """One make_train_step step: params, optimizer state and metrics."""
+    """One make_train_step step: params, optimizer state and metrics, all
+    at 1e-5.  qwen3's parameters are held element by element against the
+    reference's step.  falcon-mamba's are held in two parts, because one of
+    its smoke gradients sits near AdamW's eps, where the first update lr g /
+    (|g| + eps) turns a 5e-9 difference of g into 3e-5 of the parameter:
+    the step is, bit for bit, the port's AdamW on the port's gradient, and
+    the port's AdamW on the reference's gradient gives the reference
+    AdamW's parameters at 1e-5.  The gradient itself is held through mu."""
     cfg, tcfg, jp, tok, lab = model
     opt = jadamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    topt = tadamw.AdamWConfig(**opt.__dict__)
     js = jadamw.init(jp)
     jp2, js2, jm = jstep.make_train_step(cfg, opt, loss_chunk=CHUNK)(
         jp, js, {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)})
     tp = _tp(jp)
     ts = tadamw.init(tp)
-    step = tstep.make_train_step(tcfg, tadamw.AdamWConfig(**opt.__dict__),
-                                 loss_chunk=CHUNK)
+    step = tstep.make_train_step(tcfg, topt, loss_chunk=CHUNK)
     tp2, ts2, tm = step(tp, ts, {"tokens": torch.from_numpy(tok),
                                  "labels": torch.from_numpy(lab).long()})
+    held = [(ts2.mu, js2.mu), (ts2.nu, js2.nu)]
+    if tcfg.family != "ssm":
+        held.append((tp2, jp2))
+    else:
+        tp = _tp(jp)
+        named, rebuild = flatten_named(tp)
+        leaves = [p.requires_grad_() for _, p in named]
+        loss = tlm.lm_loss(tcfg, tp, torch.from_numpy(tok),
+                           torch.from_numpy(lab), loss_chunk=CHUNK)
+        grads = rebuild(list(torch.autograd.grad(loss, leaves)))
+        with torch.no_grad():
+            got, _, _ = tadamw.update(topt, grads, tadamw.init(tp), tp)
+        for (name, a), (_, b) in zip(_named(got), _named(tp2)):
+            assert torch.equal(a, b), name
+        jgrads = jax.grad(lambda p: jlm.lm_loss(
+            cfg, p, jnp.asarray(tok), jnp.asarray(lab),
+            loss_chunk=CHUNK))(jp)
+        want, _, _ = jadamw.update(opt, jgrads, jadamw.init(jp), jp)
+        tp = _tp(jp)
+        got, _, _ = tadamw.update(topt, _tp(jgrads), tadamw.init(tp), tp)
+        held.append((got, want))
     tol = dict(rtol=1e-5, atol=1e-5)
-    for tree, want in ((tp2, jp2), (ts2.mu, js2.mu), (ts2.nu, js2.nu)):
+    for tree, want in held:
         w = dict(_named(jax.tree_util.tree_map(np.asarray, want)))
         for name, t in _named(tree):
             np.testing.assert_allclose(t.detach().numpy(), w[name],

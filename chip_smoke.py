@@ -497,26 +497,37 @@ def scan_checks(torch, ss, cfg):
 
 
 def fused_cases(torch):
-    """(B, S, d, N, dtype, B and C as strided row slices) for the fused
-    forward and the backward: ragged S (S not a multiple of the 16-step
-    state interval), N of 1, 3, 16 and 32, d that no block divides, bf16
-    and f32, strided B and C."""
+    """(B, S, d, N, dtype, lead) for the fused forward and the backward:
+    ragged S (shorter than a stage, or no multiple of 16 or of a stage), N
+    of 1, 2, 3, 8, 16 and 32 (every instantiation of both kernels), d that
+    no block divides, bf16 and f32 (a bf16 case's backward is also held in
+    f32, on the same values cast); B and C
+    contiguous (lead None) or row slices of one (B, S, lead + 2N) tensor
+    from element ``lead``: 5 misses TMA's 16-byte alignment (the threads'
+    load path), 16 meets it where the rest of the case does."""
     f32, bf16 = torch.float32, torch.bfloat16
-    return [(1, 1, 1, 1, f32, False),      # one step, one state
-            (2, 37, 5, 3, f32, False),     # ragged S, N not a power of two
-            (3, 70, 33, 8, f32, True),     # d no block divides, strided
-            (1, 130, 7, 1, f32, False),    # one lane per channel
-            (2, 20, 3, 32, f32, True),     # a channel fills a warp
-            (2, 9, 100, 16, f32, False),   # the model's N
-            (1, 64, 300, 16, f32, True),   # S a multiple of 16, many blocks
-            (2, 41, 24, 16, bf16, True),   # bf16 inputs, read as f32
-            (1, 33, 17, 3, bf16, False)]
+    return [(1, 1, 1, 1, f32, None),      # one step, one state
+            (2, 37, 5, 3, f32, None),     # ragged S, N not a power of two
+            (3, 70, 33, 8, f32, 5),       # d no block divides, strided
+            (1, 130, 7, 1, f32, None),    # one lane per channel
+            (2, 20, 3, 32, f32, 5),       # 32 states
+            (2, 9, 100, 16, f32, None),   # the model's N; TMA
+            (1, 64, 300, 16, f32, 5),     # S a multiple of 16, many blocks
+            (2, 41, 24, 16, bf16, 5),     # bf16 inputs, read as f32
+            (1, 33, 17, 3, bf16, None),
+            (2, 33, 24, 2, f32, 16),      # 2 states: too short a row for TMA
+            (2, 45, 64, 16, bf16, 16),    # TMA: S past a stage
+            (3, 70, 40, 8, f32, 16),      # TMA, d no block divides
+            (1, 20, 96, 32, bf16, 16),    # TMA, 32 states, S within a stage
+            (16, 5, 4096, 16, bf16, None),   # TMA, passes in the backward
+            (16, 5, 4096, 16, f32, 5)]       # the threads' path, passes
 
 
-def fused_inputs(torch, gen, B, S, d, N, dtype, strided):
+def fused_inputs(torch, gen, B, S, d, N, dtype, lead):
     """x, dt, B, C, A as the model makes them (dt a softplus, A = -exp of
     log(1..N) per channel), x, dt, B, C in ``dtype``; B and C as row
-    slices of one (B, S, 5 + 2N) tensor when ``strided``."""
+    slices of one (B, S, lead + 2N) tensor from element ``lead`` (the
+    model's x_proj output has lead dt_rank), or contiguous (lead None)."""
     cuda = torch.device("cuda")
 
     def rand(*shape):
@@ -524,9 +535,9 @@ def fused_inputs(torch, gen, B, S, d, N, dtype, strided):
                            dtype=torch.float32)
     x = rand(B, S, d).to(dtype)
     dt = torch.nn.functional.softplus(rand(B, S, d) - 1.0).to(dtype)
-    if strided:
-        dbc = rand(B, S, 5 + 2 * N).to(dtype)
-        Bs, Cs = dbc[..., 5:5 + N], dbc[..., 5 + N:]
+    if lead is not None:
+        dbc = rand(B, S, lead + 2 * N).to(dtype)
+        Bs, Cs = dbc[..., lead:lead + N], dbc[..., lead + N:]
     else:
         Bs, Cs = rand(B, S, N).to(dtype), rand(B, S, N).to(dtype)
     A = -torch.exp(torch.log(torch.arange(
@@ -535,37 +546,62 @@ def fused_inputs(torch, gen, B, S, d, N, dtype, strided):
     return x, dt, Bs, Cs, A
 
 
+def dt_rank(cfg) -> int:
+    """The Mamba1 block's dt rank: x_proj's output row holds dt_rank
+    elements, then B and C (``repro_torch.models.ssm``)."""
+    return max(1, cfg.d_model // 16)
+
+
+def plan_text(plan) -> str:
+    return (f"L {plan.lanes} ({plan.lane_states} states a lane), "
+            f"{'TMA' if plan.tma else 'threads'} load path, "
+            f"{plan.channels} channels a block in {plan.passes} pass(es), "
+            f"grid {plan.grid}, {plan.smem_bytes} B shared")
+
+
 def fused_scan_checks(torch, ss, cfg):
-    """The fused K2 forward against mamba1_scan_plain on small cases (with
-    its states against scan_states_plain), then the main path's shapes
-    with times: falcon-mamba's prefill 4 x 512 and its training 8 x 1024
-    (with the states autograd keeps), d_inner, N, bf16."""
+    """The fused K2 forward against mamba1_scan_plain on small cases, on
+    both load paths (with its states against scan_states_plain), then the
+    main path's shapes with times: falcon-mamba's prefill 4 x 512 and its
+    training 8 x 1024 (with the states autograd keeps), d_inner, N, bf16,
+    B and C slices of x_proj's output as the model has them (the TMA
+    path)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    worst = 0.0
-    for B, S, d, N, dtype, strided in fused_cases(torch):
-        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype,
-                                        strided)
+    worst, paths = 0.0, {}
+    for B, S, d, N, dtype, lead in fused_cases(torch):
+        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype, lead)
+        want = ss.mamba1_scan_plain(x, dt, Bs, Cs, A)
+        want_states = ss.scan_states_plain(x, dt, Bs, A)
         states = torch.full(ss.states_shape(B, S, d, N), float("nan"),
                             device="cuda")
         got = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        plan = ss.ssm_scan_fused_cuda.last_plan
         bare = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A)
         torch.cuda.synchronize()
-        what = f"K2 fused B{B} S{S} d{d} N{N} {dtype} strided {strided}"
+        what = (f"K2 fused B{B} S{S} d{d} N{N} {dtype} lead {lead} "
+                f"P{plan.lane_states} tma {plan.tma}")
         check(torch.equal(got, bare), f"{what}: y depends on the states")
-        worst = max(worst, assert_close(
-            got, ss.mamba1_scan_plain(x, dt, Bs, Cs, A), TOL_SCAN, what))
-        worst = max(worst, assert_close(
-            states, ss.scan_states_plain(x, dt, Bs, A), TOL_SCAN,
-            f"{what} states"))
-    print(f"K2 fused small cases: {len(fused_cases(torch))} pass (y and "
-          f"states), max abs err {worst} (tol {TOL_SCAN})")
+        worst = max(worst, assert_close(got, want, TOL_SCAN, what))
+        worst = max(worst, assert_close(states, want_states, TOL_SCAN,
+                                        f"{what} states"))
+        key = (plan.lanes, plan.lane_states, plan.tma)
+        paths[key] = paths.get(key, 0) + 1
+    check({P for _, P, _ in paths} == {1 << k for k in range(6)}
+          and {tma for _, _, tma in paths} == {False, True},
+          f"K2 fused small cases miss a state size or a load path: "
+          f"{sorted(paths)}")
+    print(f"K2 fused small cases: {sum(paths.values())} pass (y and states) "
+          f"over (L, states a lane, TMA) {sorted(paths.items())}, max abs "
+          f"err {worst} (tol {TOL_SCAN})")
 
     records = []
     d, N = cfg.d_inner, cfg.ssm_state
     for label, B, S in (("prefill", PREFILL_B, PREFILL_S),
                         ("train", TRAIN_B, TRAIN_S)):
         x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N,
-                                        torch.bfloat16, True)
+                                        torch.bfloat16, dt_rank(cfg))
+        plan = ss.plan_fused(x, dt, Bs, Cs, A)
+        check(plan.tma, f"K2 fused {label} shape: not the TMA load path")
         with_states = label == "train"
         states = torch.empty(ss.states_shape(B, S, d, N), device="cuda") \
             if with_states else None
@@ -582,13 +618,14 @@ def fused_scan_checks(torch, ss, cfg):
         rec = dict(shape=f"{label} B{B} S{S} d{d} N{N} bf16"
                    + (" with states" if with_states else ""),
                    max_abs_err=err, small_cases_max_abs_err=worst,
+                   lanes=plan.lanes, tma=plan.tma,
                    **timings(lambda: ss.ssm_scan_fused_cuda(
                        x, dt, Bs, Cs, A, states=states),
                        lambda: ss.mamba1_scan_plain(x, dt, Bs, Cs, A),
                        None, 20),
                    **bound(nbytes, 7 * elems, PEAK_F32_FLOPS, exps=elems))
-        print(f"K2 fused {rec['shape']}: err {err} device ms "
-              f"{rec['ms']:.5f} plain {rec['plain_ms']:.5f} bound "
+        print(f"K2 fused {rec['shape']}: {plan_text(plan)}; err {err} device "
+              f"ms {rec['ms']:.5f} plain {rec['plain_ms']:.5f} bound "
               f"{rec['bound_ms']:.5f} ({rec['bound_by']}: {elems} exp, "
               f"{nbytes} B); per call ms {rec['call_ms']:.5f} plain "
               f"{rec['plain_call_ms']:.5f}; no library call computes it")
@@ -621,44 +658,71 @@ def hold_scan_grad(got, want, bf16: bool, what: str) -> float:
 
 def scan_bwd_checks(torch, ss, ops, cfg):
     """K2's backward against autograd of mamba1_scan_plain (f32 copies of
-    the inputs) on the fused cases and at falcon-mamba's training shape
-    (bf16), two calls bit-equal, autograd through ops.mamba1_scan; then
-    its time at the training shape beside its plain version's and the
-    bound."""
+    the inputs) on the fused cases, at every lanes a channel its plan
+    takes and on both load paths, two calls bit-equal, bf16 dx and ddt
+    equal to the f32 instantiation's rounded once (and that f32 result
+    held at the f32 tolerance), autograd through ops.mamba1_scan; then
+    falcon-mamba's training shape (bf16, B and C slices of x_proj's output:
+    the TMA path) with its time beside its plain version's and the bound,
+    split into the main kernel and the reductions."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     names = ("x", "dt", "B", "C", "A")
 
-    def check_case(B, S, d, N, dtype, strided):
-        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype,
-                                        strided)
+    def check_case(B, S, d, N, dtype, lead, hold_f32=True):
+        x, dt, Bs, Cs, A = fused_inputs(torch, gen, B, S, d, N, dtype, lead)
         dy = torch.randn((B, S, d), generator=gen, device="cuda")
         states = torch.empty(ss.states_shape(B, S, d, N), device="cuda")
         ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
-        got = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
-        again = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
-        torch.cuda.synchronize()
-        what = f"K2 bwd B{B} S{S} d{d} N{N} {dtype} strided {strided}"
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"{what}: two calls differ")
         leaves = [t.detach().float().requires_grad_()
                   for t in (x, dt, Bs, Cs, A)]
         want = torch.autograd.grad(ss.mamba1_scan_plain(*leaves), leaves, dy)
+        got = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+        plan = ss.ssm_scan_bwd_cuda.last_plan
+        again = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+        torch.cuda.synchronize()
+        what = (f"K2 bwd B{B} S{S} d{d} N{N} {dtype} lead {lead} "
+                f"L{plan.lanes} tma {plan.tma}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two calls differ")
+        f32_errs = []
+        if dtype == torch.bfloat16:
+            # dx, ddt: the f32 sums rounded once; the f32 instantiation
+            # (the same lanes) held at the f32 tolerance on these values
+            # (on the small cases)
+            f32 = ss.ssm_scan_bwd_cuda(*(t.float() for t in (x, dt, Bs, Cs)),
+                                       A, dy, states)
+            check(ss.ssm_scan_bwd_cuda.last_plan.lanes == plan.lanes,
+                  f"{what}: the f32 instantiation took other lanes")
+            check(all(torch.equal(g, w.to(dtype))
+                      for g, w in zip(got[:2], f32[:2])),
+                  f"{what}: bf16 dx, ddt differ from the f32 "
+                  f"instantiation's rounded once")
+            if hold_f32:
+                f32_errs = [hold_scan_grad(g, w, False, f"{what} in f32 d{n}")
+                            for n, g, w in zip(names, f32, want)]
         errs = [hold_scan_grad(g, w, dtype == torch.bfloat16, f"{what} d{n}")
                 for n, g, w in zip(names, got, want)]
-        abs_errs = [max_err(g, w) for g, w in zip(got, want)]
-        return errs, (x, dt, Bs, Cs, A, dy, states, abs_errs)
+        return (plan, errs, f32_errs, [max_err(g, w)
+                                       for g, w in zip(got, want)],
+                (x, dt, Bs, Cs, A, dy, states))
 
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {}
     for case in fused_cases(torch):
-        errs, _ = check_case(*case)
+        plan, errs, f32_errs, _, _ = check_case(*case)
         worst[case[4]] = max(worst[case[4]], *errs)
-    for B, S, d, N, _, strided in fused_cases(torch)[-2:]:   # bf16's in f32
-        errs, _ = check_case(B, S, d, N, torch.float32, strided)
-        worst[torch.float32] = max(worst[torch.float32], *errs)
+        worst[torch.float32] = max(worst[torch.float32], 0.0, *f32_errs)
+        key = (plan.lanes, plan.lane_states, plan.tma)
+        paths[key] = paths.get(key, 0) + 1
+    check({(L, NL) for L, NL, _ in paths}
+          == {(L, P // L) for P, L in ss.BWD_LANES.items()}
+          and {tma for _, _, tma in paths} == {False, True},
+          f"K2 bwd small cases miss an instantiation or a load path: "
+          f"{sorted(paths)}")
 
     # autograd through the dispatcher: one forward and one backward call
     x, dt, Bs, Cs, A = fused_inputs(torch, gen, 2, 50, 40, 16,
-                                    torch.float32, True)
+                                    torch.float32, 5)
     dy = torch.randn((2, 50, 40), generator=gen, device="cuda")
     leaves = [t.detach().clone().requires_grad_() for t in (x, dt, Bs, Cs, A)]
     f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
@@ -674,16 +738,18 @@ def scan_bwd_checks(torch, ss, ops, cfg):
     want = torch.autograd.grad(ss.mamba1_scan_plain(*plain), plain, dy)
     for n, g, w in zip(names, grads, want):
         hold_scan_grad(g, w, False, f"K2 bwd through autograd d{n}")
-    print(f"K2 bwd: {len(fused_cases(torch)) + 2} cases pass, two calls "
-          f"bit-equal; f32 max err over largest element "
+    print(f"K2 bwd: {sum(paths.values())} cases pass over (L, states a lane, "
+          f"TMA) {sorted(paths.items())}, two calls bit-equal, bf16 dx and "
+          f"ddt the f32 sums rounded once; f32 max err over largest element "
           f"{worst[torch.float32]} (limit {SCAN_BWD_REL_MAX}); bf16 relative "
           f"L2 <= {worst[torch.bfloat16]} (limit {SCAN_BWD_REL_BF16}); "
           f"autograd through ops.mamba1_scan calls each wrapper once")
 
     # the training shape: falcon-mamba's 8 x 1024, d_inner, N, bf16
     B, S, d, N = TRAIN_B, TRAIN_S, cfg.d_inner, cfg.ssm_state
-    errs, (x, dt, Bs, Cs, A, dy, states, abs_errs) = check_case(
-        B, S, d, N, torch.bfloat16, True)
+    plan, errs, _, abs_errs, (x, dt, Bs, Cs, A, dy, states) = check_case(
+        B, S, d, N, torch.bfloat16, dt_rank(cfg), hold_f32=False)
+    check(plan.tma, "K2 bwd train shape: not the TMA load path")
     elems = B * S * d * N
     nbytes = (2 * 2 * B * S * d + 2 * 2 * B * S * N + 4 * d * N   # inputs
               + 4 * B * S * d + 4 * states.numel()                # dy, states
@@ -692,6 +758,7 @@ def scan_bwd_checks(torch, ss, ops, cfg):
     # products and three sums into dA, ddt, dx, dB, dC and the carry
     rec = dict(shape=f"train B{B} S{S} d{d} N{N} bf16",
                kernel="ssm_scan_bwd_kernel + ssm_scan_bwd_reduce_kernel",
+               lanes=plan.lanes, tma=plan.tma, passes=plan.passes,
                max_abs_err=max(abs_errs), err_dx_ddt_dB_dC_dA=errs,
                max_abs_err_dx_ddt_dB_dC_dA=abs_errs,
                small_cases_f32_err=worst[torch.float32],
@@ -702,16 +769,20 @@ def scan_bwd_checks(torch, ss, ops, cfg):
                                                           dy), None, 20),
                **bound(nbytes, 20 * elems, PEAK_F32_FLOPS, exps=elems))
     split = device_split_ms(lambda: ss.ssm_scan_bwd_cuda(
-        x, dt, Bs, Cs, A, dy, states), 10, ss.BWD_KERNEL_NAMES)
+        x, dt, Bs, Cs, A, dy, states), 10, (*ss.BWD_KERNEL_NAMES, ""))
     rec.update(main_ms=split[ss.BWD_KERNEL_NAMES[0]],
                reduce_ms=split[ss.BWD_KERNEL_NAMES[1]])
-    print(f"K2 bwd {rec['shape']}: dx, ddt, dB, dC relative L2, dA max err "
-          f"over largest {errs} (max abs err {abs_errs}); device ms {rec['ms']:.5f} (main "
-          f"{rec['main_ms']:.5f}, reduce {rec['reduce_ms']:.5f}) plain "
+    # the rest of the call: dB's and dC's casts to the inputs' dtype
+    rec["rest_ms"] = split[""] - rec["main_ms"] - rec["reduce_ms"]
+    print(f"K2 bwd {rec['shape']}: {plan_text(plan)}; dx, ddt, dB, dC "
+          f"relative L2, dA max err over largest {errs} (max abs err "
+          f"{abs_errs}); device ms {rec['ms']:.5f} (in another run of 10 "
+          f"calls: main {rec['main_ms']:.5f}, reductions "
+          f"{rec['reduce_ms']:.5f}, rest {rec['rest_ms']:.5f}) plain "
           f"{rec['plain_ms']:.5f} bound {rec['bound_ms']:.5f} "
           f"({rec['bound_by']}: {elems} exp, {nbytes} B); per call ms "
-          f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no library "
-          f"call computes it")
+          f"{rec['call_ms']:.5f} plain {rec['plain_call_ms']:.5f}; no "
+          f"library call computes it")
     return [rec]
 
 
@@ -1419,6 +1490,10 @@ def falcon_path(torch, K, tmp):
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
     zero_counts(K)                            # the main path starts
     prefill, tokens = ssm_prefill_phase(torch, cfg, weights, K["k2_fused"])
+    plan = K["k2_fused"].last_plan
+    check(plan.tma, f"the {cfg.name} prefill's fused K2 took the threads' "
+          f"load path")
+    print(f"{cfg.name} prefill's fused K2: {plan_text(plan)}")
     serve, out, prompts = ssm_serve_phase(torch, cfg, weights,
                                           K["k2_fused"])
     # a launch per layer in the prefill of 4 x 512 and in the prefill of
@@ -1846,9 +1921,17 @@ def main(argv=None) -> int:
     build.load_all(sources)
     print(f"built {', '.join(sources)} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
+    spills = []
     for source in sources:
         for line in ptxas_summary(build.build_report(source)[1]):
             print(f"  ptxas {source}: {line}")
+            if source in (ss.SOURCE, ss.SOURCE_BWD) and (
+                    "ssm_scan_fused_kernel" in line
+                    or "ssm_scan_bwd_kernel" in line) and (
+                    "0 bytes spill stores, 0 bytes spill loads" not in line):
+                spills.append(line.split(":")[0])
+    print(f"ptxas spills in the fused K2 forward and K2 backward kernels: "
+          f"{spills or 'none'}")
     sys.stdout.flush()
 
     phase("kernel checks")
@@ -1907,6 +1990,11 @@ def main(argv=None) -> int:
                            ("A_log", "x_proj", "dt_proj", "dt_bias", "D",
                             "conv_w", "in_x", "in_z", "out_proj")],
             layer_check=True)
+        for name in ("k2_fused", "k2_bwd"):
+            plan = K[name].last_plan
+            check(plan.tma, f"{FALCON} training's {name} took the threads' "
+                  f"load path")
+            print(f"{FALCON} training's {name}: {plan_text(plan)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1932,12 +2020,13 @@ def main(argv=None) -> int:
                      "the fused form of src/repro/models/ssm.py:120)",
                      ss.FUSED_KERNEL_NAMES,
                      fused_launches + falcon_train_launches["k2_fused"],
-                     fused_records, falcon_serve),
+                     fused_records, falcon_serve, extra=["lanes", "tma"]),
         kernel_entry("ssm_scan_bwd", ss.SOURCE_BWD,
                      "none: the gradient of src/repro/models/ssm.py:120 "
                      "(_mamba1_core_fused) by autodiff", ss.BWD_KERNEL_NAMES,
                      falcon_train_launches["k2_bwd"], k2b_records,
-                     falcon_trained, extra=["main_ms", "reduce_ms"])]
+                     falcon_trained,
+                     extra=["main_ms", "reduce_ms", "lanes", "tma"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

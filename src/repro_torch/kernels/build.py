@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
 it compiles in seconds.  The shared library goes to
 ``build/repro_torch_kernels/`` at the root of the checkout (found from this
-file's path, not the working directory), named by a hash of the source and
-the flags, so an edited source is never served a stale library.  Nothing
+file's path, not the working directory), named by a hash of the source, the
+headers of ``csrc/`` it includes and the flags, so an edited source or
+header is never served a stale library.  Nothing
 is built when a module is imported: the first launch builds.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +44,18 @@ def nvcc() -> str:
     return found
 
 
+def included_headers(text: str) -> List[str]:
+    """The ``#include "name"`` headers of a source that sit in ``csrc/``."""
+    return sorted(name for name in re.findall(
+        r'^\s*#include\s+"([^"]+)"', text, re.M) if (CSRC / name).is_file())
+
+
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    text = src.read_bytes()
+    headers = b"".join((CSRC / h).read_bytes()
+                       for h in included_headers(text.decode()))
+    digest = hashlib.sha256(text + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

@@ -41,33 +41,61 @@
 //
 // The fused form (repro_ssm_scan_fused_fwd, `ssm_scan_fused_kernel`) is the
 // reference's default Mamba1 core, `_mamba1_core_fused` in
-// src/repro/models/ssm.py: x and dt (B, S, d), B and C (B, S, N) and
-// A (d, N) go in, and each thread builds its own decay = exp(dt A) and
-// inc = (dt x) B in registers, with the operation order of the port's
-// `decay_inc` (the product dt A rounded, then an accurate expf; dt x
-// rounded, then times B), so the two (B, S, d, N) f32 tensors never reach
-// device memory.  B and C are read with a row stride, so the strided
-// slices of the model's x_proj output go in without a copy.  What bounds
-// it then: the B S d N exponentials on the SFUs (16 a clock an SM), more
-// than its bytes (x, dt read once, y written once).  The recurrence, the
-// shuffle sum and the loads ahead are the same code as the unfused
-// kernel's: one body, templated over how a step's inputs are loaded.
+// src/repro/models/ssm.py: x and dt (B, S, d), B and C (B, S, N) with row
+// strides (the strided slices of the model's x_proj output go in without a
+// copy) and A (d, N) go in, and decay = exp(dt A) and inc = (dt x) B are
+// built in registers with the operation order of the port's `decay_inc`
+// (the product dt A rounded, then an accurate expf; dt x rounded, then
+// times B), so the two (B, S, d, N) f32 tensors never reach device memory.
 // With a `states` buffer it also writes h every STATE_EVERY steps (the
-// state before steps 0, T, 2T, ...; (B, ceil(S / T), d, N) f32), from
-// which the backward (ssm_scan_bwd.cu) recomputes a segment; without one
+// state before steps 0, T, 2T, ...; (B, ceil(S / T), d, N) f32), from which
+// the backward (ssm_scan_bwd.cu) recomputes a segment; without one
 // (serving) it writes nothing more than y.
+//
+// What bounds the fused form: the B S d N exponentials on the SFUs (16 a
+// clock an SM), more than its bytes (x, dt read once, y written once); the
+// accurate expf's range reduction and the recurrence put some 14 f32
+// operations a state and step on the FMA pipes beside it.  Its design:
+//  * A channel a thread: it holds the channel's P = next_pow2(N) states in
+//    registers for the whole sequence (those past N stay 0), so dt x is
+//    computed once a channel and step, y_t is summed in the thread and
+//    every state and step costs one exponential.  (Two or four lanes a
+//    channel, N / L states each, ran slower at both of falcon-mamba's
+//    shapes on the H100: PERF.md.)
+//  * The inputs are staged in shared memory, TC steps at a time, through a
+//    ring of STAGES stages: the x and dt rows of the block's channels and
+//    the B and C rows (the same for every channel of a batch row, read as
+//    16-byte broadcasts).  One thread refills a stage by TMA (a tensor map
+//    a tile, completion on the stage's mbarrier) as soon as the block is
+//    done with it, so the next STAGES - 1 chunks are in flight while one is
+//    computed.  TMA needs 16-byte aligned rows; where the wrapper finds
+//    that missing it asks for the second load path, the block's threads
+//    copying the same tiles (never a fall back after a failure).  Either
+//    way elements past S, d or N arrive as zeros: dt = 0 gives decay 1 and
+//    inc 0, so those states and steps leave h as it is.
+//  * y is stored a row of channels a step, the states as a thread's N
+//    contiguous floats every STATE_EVERY steps (float4 stores where N is a
+//    power of two from 4 up).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "ssm_tma.cuh"
 
 namespace {
 
+using namespace ssm_tma;
+
 constexpr int NT = 128;          // threads per block: NT / P channels
 constexpr int U = 8;             // time steps loaded ahead of the recurrence
-constexpr int STATE_EVERY = 16;  // steps between stored states (a multiple of U)
+constexpr int STATE_EVERY = 16;  // steps between stored states
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// The fused kernel's blocks: FT threads (a channel each), TC steps a
+// stage, STAGES stages in the ring.
+constexpr int FT = 128;
+constexpr int TC = 32;  // a multiple of STATE_EVERY
+constexpr int STAGES = 3;
 
 // The unfused kernel's inputs: decay, inc (B, S, d, N) and C (B, S, N).
 template <typename T>
@@ -102,61 +130,18 @@ struct PlainLoader {
   }
 };
 
-// The fused kernel's inputs: x, dt (B, S, d), B, C (B, S, N) with row
-// strides, A (d, N) f32.
-template <typename T>
-struct FusedLoader {
-  const T* x;
-  const T* dt;
-  const T* Bm;
-  long long bstride;
-  const T* Cm;
-  long long cstride;
-  const float* A;
-  const T *xp, *tp, *bp, *cp;
-  long long d;
-  float a;
-  struct Raw { T x, dt, b, c; };
-
-  __device__ void start(long long b, int ch, int n, int S, int d_, int N) {
-    d = d_;
-    xp = x + b * S * d + ch;
-    tp = dt + b * S * d + ch;
-    bp = Bm + b * S * bstride + n;
-    cp = Cm + b * S * cstride + n;
-    a = A[(long long)ch * N + n];
-  }
-  __device__ Raw load(int t, bool ok) const {
-    Raw r;
-    r.x = ok ? xp[t * d] : T(0.f);
-    r.dt = ok ? tp[t * d] : T(0.f);
-    r.b = ok ? bp[t * bstride] : T(0.f);
-    r.c = ok ? cp[t * cstride] : T(0.f);
-    return r;
-  }
-  __device__ void expand(const Raw& r, float& dc, float& ic, float& c) const {
-    const float dt = to_f(r.dt);
-    dc = expf(__fmul_rn(dt, a));
-    ic = __fmul_rn(__fmul_rn(dt, to_f(r.x)), to_f(r.b));
-    c = to_f(r.c);
-  }
-};
-
 // One thread per state element (b, ch, n) for the whole sequence: the
-// recurrence, y_t by a shuffle sum over the channel's P lanes, and (with
-// `states`) h before every STATE_EVERY-th step.  P is a template argument
-// so that the shuffle sums unroll and the U steps' sums overlap.
+// recurrence and y_t by a shuffle sum over the channel's P lanes.  P is a
+// template argument so that the shuffle sums unroll and the U steps' sums
+// overlap.
 template <int P, class Loader>
-__device__ __forceinline__ void scan_body(Loader ld, float* __restrict__ y,
-                                          float* __restrict__ states, int S, int d, int N) {
+__device__ __forceinline__ void scan_body(Loader ld, float* __restrict__ y, int S, int d, int N) {
   const int n = threadIdx.x % P;  // P divides 32, so a channel never spans two warps
   const int ch = blockIdx.x * (NT / P) + threadIdx.x / P;
   const long long b = blockIdx.y;
   const bool live = ch < d && n < N;  // dead lanes still join the shuffles
   ld.start(b, live ? ch : 0, live ? n : 0, S, d, N);
   float* yp = y + b * S * d + (live ? ch : 0);
-  const long long K = (S + STATE_EVERY - 1) / STATE_EVERY;
-  float* sp = (states != nullptr && live) ? states + ((b * K) * d + ch) * N + n : nullptr;
 
   typename Loader::Raw cur[U], nxt[U];  // steps t0 .. t0 + U - 1, and the next U in flight
 #pragma unroll
@@ -166,8 +151,6 @@ __device__ __forceinline__ void scan_body(Loader ld, float* __restrict__ y,
   for (int t0 = 0; t0 < S; t0 += U) {
 #pragma unroll
     for (int u = 0; u < U; ++u) nxt[u] = ld.load(t0 + U + u, live && t0 + U + u < S);
-    if (sp != nullptr && t0 % STATE_EVERY == 0)
-      sp[(long long)(t0 / STATE_EVERY) * d * N] = h;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float dc, ic, c;
@@ -192,24 +175,158 @@ ssm_scan_kernel(const T* __restrict__ decay, const T* __restrict__ inc,
   ld.decay = decay;
   ld.inc = inc;
   ld.C = C;
-  scan_body<P>(ld, y, nullptr, S, d, N);
+  scan_body<P>(ld, y, S, d, N);
+}
+
+// ------------------------------------------------------------ fused form --
+struct FusedArgs {
+  const void *x, *dt, *Bm, *Cm;
+  long long bstride, cstride;
+  const float* A;
+  float* y;
+  float* states;
+  int S, d, N, tma;
+};
+struct FusedMaps {
+  CUtensorMap x, dt, B, C;  // unused on the threads' load path
+};
+
+// A stage of the ring: x and dt [TC][FT], B and C [TC][P] (P columns,
+// those past N zero), each tile 128-byte aligned; the ring's mbarriers
+// after it.
+template <typename T, int P>
+struct FusedStage {
+  static constexpr int XB = align128(TC * FT * (int)sizeof(T));
+  static constexpr int BB = align128(TC * P * (int)sizeof(T));
+  static constexpr int BYTES = 2 * XB + 2 * BB;
+  static constexpr uint32_t TX = 2u * TC * FT * sizeof(T) + 2u * TC * P * sizeof(T);
+};
+
+__host__ __device__ constexpr int fused_smem(int es, int P) {
+  return STAGES * (2 * align128(TC * FT * es) + 2 * align128(TC * P * es)) + 128;
+}
+
+// Fills the ring's stage for chunk k: by TMA from one thread, or by the
+// block's threads (zeros past S, d and N, as TMA gives them).
+template <typename T, int P>
+__device__ __forceinline__ void fill_fused(const FusedMaps* maps, const FusedArgs& a,
+                                           unsigned char* smem, uint64_t* full, int c0, int b,
+                                           int k) {
+  using Stage = FusedStage<T, P>;
+  unsigned char* st = smem + (k % STAGES) * Stage::BYTES;
+  T* xs = reinterpret_cast<T*>(st);
+  T* ts = reinterpret_cast<T*>(st + Stage::XB);
+  T* bs = reinterpret_cast<T*>(st + 2 * Stage::XB);
+  T* cs = reinterpret_cast<T*>(st + 2 * Stage::XB + Stage::BB);
+  const int t0 = k * TC, tid = threadIdx.x;
+  if (a.tma) {
+    if (tid == 0) {
+      uint64_t* bar = &full[k % STAGES];
+      bar_arrive_expect(bar, Stage::TX);
+      tma_load_3d(xs, &maps->x, bar, c0, t0, b);
+      tma_load_3d(ts, &maps->dt, bar, c0, t0, b);
+      tma_load_3d(bs, &maps->B, bar, 0, t0, b);
+      tma_load_3d(cs, &maps->C, bar, 0, t0, b);
+    }
+    return;
+  }
+  const int S = a.S, d = a.d, N = a.N;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dt = static_cast<const T*>(a.dt);
+  for (int e = tid; e < TC * FT; e += FT) {
+    const int t = t0 + e / FT, cc = c0 + e % FT;
+    const bool ok = t < S && cc < d;
+    const long long i = ((long long)b * S + t) * d + cc;
+    xs[e] = ok ? x[i] : T(0.f);
+    ts[e] = ok ? dt[i] : T(0.f);
+  }
+  const T* Bm = static_cast<const T*>(a.Bm);
+  const T* Cm = static_cast<const T*>(a.Cm);
+  for (int e = tid; e < TC * P; e += FT) {
+    const int t = t0 + e / P, n = e % P;
+    const bool ok = t < S && n < N;
+    const long long r = (long long)b * S + t;
+    bs[e] = ok ? Bm[r * a.bstride + n] : T(0.f);
+    cs[e] = ok ? Cm[r * a.cstride + n] : T(0.f);
+  }
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(NT)
-ssm_scan_fused_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                      const T* __restrict__ Bm, long long bstride, const T* __restrict__ Cm,
-                      long long cstride, const float* __restrict__ A, float* __restrict__ y,
-                      float* __restrict__ states, int S, int d, int N) {
-  FusedLoader<T> ld;
-  ld.x = x;
-  ld.dt = dt;
-  ld.Bm = Bm;
-  ld.bstride = bstride;
-  ld.Cm = Cm;
-  ld.cstride = cstride;
-  ld.A = A;
-  scan_body<P>(ld, y, states, S, d, N);
+__global__ void __launch_bounds__(FT)
+ssm_scan_fused_kernel(const __grid_constant__ FusedMaps maps, const FusedArgs a) {
+  using Stage = FusedStage<T, P>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Stage::BYTES);
+  const int tid = threadIdx.x;
+  const int S = a.S, d = a.d, N = a.N;
+  const int c0 = blockIdx.x * FT, b = blockIdx.y, c = c0 + tid;
+  const bool live = c < d;
+  const int chunks = (S + TC - 1) / TC;
+
+  if (a.tma && tid == 0) {
+    for (int s = 0; s < STAGES; ++s) bar_init(&full[s], 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  // the maps stay in the kernel's parameter space, where TMA reads them
+  for (int k = 0; k < STAGES && k < chunks; ++k)
+    fill_fused<T, P>(&maps, a, smem, full, c0, b, k);
+
+  float av[P], h[P];
+#pragma unroll
+  for (int n = 0; n < P; ++n) {
+    av[n] = live && n < N ? a.A[(long long)c * N + n] : 0.f;  // 0: decay 1, h stays 0
+    h[n] = 0.f;
+  }
+  const long long K = (S + STATE_EVERY - 1) / STATE_EVERY;
+  float* sp = a.states != nullptr && live ? a.states + ((long long)b * K * d + c) * N : nullptr;
+  const bool vec = N == P && P % 4 == 0 && (reinterpret_cast<uintptr_t>(a.states) & 15) == 0;
+  float* yp = a.y + (long long)b * S * d + c;
+  if (!a.tma) __syncthreads();
+
+  for (int k = 0; k < chunks; ++k) {
+    if (a.tma) bar_wait(&full[k % STAGES], (k / STAGES) & 1);
+    const unsigned char* st = smem + (k % STAGES) * Stage::BYTES;
+    const T* xs = reinterpret_cast<const T*>(st) + tid;
+    const T* ts = reinterpret_cast<const T*>(st + Stage::XB) + tid;
+    const T* bs = reinterpret_cast<const T*>(st + 2 * Stage::XB);
+    const T* cs = reinterpret_cast<const T*>(st + 2 * Stage::XB + Stage::BB);
+    for (int g = 0; g < TC / STATE_EVERY; ++g) {
+      const int tg = k * TC + g * STATE_EVERY;
+      if (tg >= S) break;  // the same for the whole block
+      if (sp != nullptr) {
+        float* out = sp + (long long)(tg / STATE_EVERY) * d * N;
+        if (vec) {
+#pragma unroll
+          for (int n = 0; n < P; n += 4)
+            *reinterpret_cast<float4*>(out + n) = make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
+        } else {
+#pragma unroll
+          for (int n = 0; n < P; ++n)
+            if (n < N) out[n] = h[n];
+        }
+      }
+#pragma unroll 4
+      for (int i = 0; i < STATE_EVERY; ++i) {
+        const int r = g * STATE_EVERY + i;
+        Row<T, P> bv, cv;
+        bv.load(bs + r * P);
+        cv.load(cs + r * P);
+        const float tv = to_f(ts[r * FT]);
+        const float dtx = __fmul_rn(tv, to_f(xs[r * FT]));
+        float y = 0.f;
+#pragma unroll
+        for (int n = 0; n < P; ++n) {
+          const float dc = expf(__fmul_rn(tv, av[n]));
+          h[n] = __fadd_rn(__fmul_rn(dc, h[n]), __fmul_rn(dtx, bv[n]));
+          y = fmaf(h[n], cv[n], y);
+        }
+        if (live && tg + i < S) yp[(long long)(tg + i) * d] = y;
+      }
+    }
+    __syncthreads();  // the stage is read: refill it
+    if (k + STAGES < chunks) fill_fused<T, P>(&maps, a, smem, full, c0, b, k + STAGES);
+  }
 }
 
 int pow2_at_least(int N) {
@@ -218,7 +335,7 @@ int pow2_at_least(int N) {
   return P;
 }
 
-// The instantiation of `kernel` for the lanes P of a channel (1 to 32).
+// The instantiation of `kernel` for P, the power of two at least N (1 to 32).
 #define PICK_P(kernel, T, P)                                                          \
   ((P) == 1    ? kernel<T, 1>                                                         \
    : (P) == 2  ? kernel<T, 2>                                                         \
@@ -241,16 +358,24 @@ int launch(const void* decay, const void* inc, const void* C, float* y, int B, i
 }
 
 template <typename T>
-int launch_fused(const void* x, const void* dt, const void* Bm, long long bstride,
-                 const void* Cm, long long cstride, const float* A, float* y, float* states,
-                 int B, int S, int d, int N, cudaStream_t stream) {
-  const int P = pow2_at_least(N);
-  const int per_block = NT / P;
-  dim3 grid((d + per_block - 1) / per_block, B);
+int launch_fused(FusedArgs a, int B, int smem, cudaStream_t stream) {
+  const int dtype = sizeof(T) == 2 ? 1 : 0;
+  const int P = pow2_at_least(a.N);
   const auto kernel = PICK_P(ssm_scan_fused_kernel, T, P);
-  kernel<<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const T*>(Bm), bstride,
-      static_cast<const T*>(Cm), cstride, A, y, states, S, d, N);
+  if (smem != fused_smem(sizeof(T), P)) return -3;
+  FusedMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (a.tma) {
+    int e;
+    if ((e = tensor_map_rows(&maps.x, dtype, a.x, a.d, a.d, a.S, B, FT, TC)) != 0) return e;
+    if ((e = tensor_map_rows(&maps.dt, dtype, a.dt, a.d, a.d, a.S, B, FT, TC)) != 0) return e;
+    if ((e = tensor_map_rows(&maps.B, dtype, a.Bm, a.N, a.bstride, a.S, B, P, TC)) != 0) return e;
+    if ((e = tensor_map_rows(&maps.C, dtype, a.Cm, a.N, a.cstride, a.S, B, P, TC)) != 0) return e;
+  }
+  int err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  dim3 grid((a.d + FT - 1) / FT, B);
+  kernel<<<grid, FT, smem, stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
@@ -275,21 +400,21 @@ extern "C" int repro_ssm_scan_fwd(int dtype, const void* decay, const void* inc,
 // rows `bstride` / `cstride` elements apart; A a contiguous (d, N) float32;
 // y a contiguous (B, S, d) float32 buffer; `states` null, or a contiguous
 // (B, ceil(S / STATE_EVERY), d, N) float32 buffer to receive the state
-// before every STATE_EVERY-th step.  Returns as repro_ssm_scan_fwd does.
+// before every STATE_EVERY-th step.  The plan is the wrapper's: `tma` (1:
+// TMA loads, which need 16-byte aligned x, dt, B and C and 16-byte row
+// strides; 0: the threads' loads) and `smem` (the dynamic shared memory
+// bytes, checked against the kernel's own count).  Returns 0, a cudaError_t, or -1 / -2 /
+// -3 / -4 for an unsupported dtype / state size / plan / tensor map.
 extern "C" int repro_ssm_scan_fused_fwd(int dtype, const void* x, const void* dt, const void* Bm,
                                         long long bstride, const void* Cm, long long cstride,
                                         const void* A, void* y, void* states, int B, int S,
-                                        int d, int N, void* stream) {
+                                        int d, int N, int tma, int smem, void* stream) {
   if (N < 1 || N > 32) return -2;
+  FusedArgs a{x,  dt, Bm, Cm, bstride, cstride, static_cast<const float*>(A),
+              static_cast<float*>(y), static_cast<float*>(states), S, d, N, tma};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(A);
-  float* out = static_cast<float*>(y);
-  float* st = static_cast<float*>(states);
-  if (dtype == 0)
-    return launch_fused<float>(x, dt, Bm, bstride, Cm, cstride, a, out, st, B, S, d, N, s);
-  if (dtype == 1)
-    return launch_fused<__nv_bfloat16>(x, dt, Bm, bstride, Cm, cstride, a, out, st, B, S, d, N,
-                                       s);
+  if (dtype == 0) return launch_fused<float>(a, B, smem, s);
+  if (dtype == 1) return launch_fused<__nv_bfloat16>(a, B, smem, s);
   return -1;
 }
 

@@ -19,6 +19,16 @@ out (:data:`ssm_scan_fused_cuda`).  Its backward (``csrc/ssm_scan_bwd.cu``,
 :data:`ssm_scan_bwd_cuda`) recomputes each :data:`STATE_EVERY`-step segment
 from the states the forward stores for it.
 
+The fused forward gives a channel one thread, which holds its states in
+registers; the backward gives it L lanes by state size
+(:data:`BWD_LANES`), each holding N / L states.  Both stage their inputs
+in shared memory through a ring refilled by TMA, or by the block's threads
+where the rows are not 16-byte aligned.  :func:`fused_plan` and
+:func:`bwd_plan` (on tensors: :func:`plan_fused`, :func:`plan_bwd`) say how
+a launch splits its work: L, channels and passes a block, grid, shared
+memory, the backward's partial sums and the load path; the wrappers launch
+from them.
+
 :func:`ssm_scan_plain`, :func:`mamba1_scan_plain` and
 :func:`mamba1_scan_bwd_plain` are the same functions in torch.  They are
 what runs for CPU tensors, and the versions the kernels are held against
@@ -28,7 +38,7 @@ and raise on anything they do not take; they never fall back.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -234,6 +244,94 @@ def states_shape(B: int, S: int, d: int, N: int):
     return (B, -(-S // STATE_EVERY), d, N)
 
 
+#: The fused forward's blocks (the source's FT, TC and STAGES): threads (a
+#: channel each), steps a stage, stages in the ring.
+FWD_THREADS, FWD_STEPS, FWD_STAGES = 128, 32, 3
+#: The backward's blocks (the source's NTB and STAGES; a stage holds a
+#: segment of STATE_EVERY steps): threads and stages.
+BWD_THREADS, BWD_STAGES = 128, 3
+#: The backward's lanes a channel by P, the power of two at least N (the
+#: source's ``lanes_for``): a lane holds P / L states, at most 8; forms with
+#: fewer states on more lanes spilled under ptxas.
+BWD_LANES = {1: 1, 2: 1, 4: 1, 8: 2, 16: 4, 32: 4}
+#: The backward's blocks walk as many channel groups (passes) as leave the
+#: grid this many blocks, so that the partial sums of dB and dC stay small.
+BWD_TARGET_BLOCKS = 512
+BWD_MAX_CHANNELS = 256   # a tile's width: TMA's largest box
+#: Dynamic shared memory a block may have on an H100.
+SMEM_LIMIT = 232_448
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+class ScanPlan(NamedTuple):
+    """How a fused-forward or backward launch splits its work: what the
+    wrapper passes to the kernel, and what ``chip_smoke.py`` prints."""
+    lanes: int          # L: a channel's lanes
+    lane_states: int    # NL = P / L states a lane (P: the power of two >= N)
+    channels: int       # channels a block: passes x threads / L
+    passes: int         # channel groups a block walks (1 in the forward)
+    grid: Tuple[int, int]   # (blocks along d, B)
+    stages: int         # stages of the ring of staged inputs
+    steps: int          # steps a stage holds
+    smem_bytes: int     # dynamic shared memory a block
+    partials: Tuple[Tuple[int, ...], ...]   # backward: part_bc, part_a
+    tma: bool           # staged by TMA (else by the block's threads)
+
+
+def tma_aligned(itemsize: int, d: int, row_strides, pointers) -> bool:
+    """Whether TMA can load the rows: every base 16-byte aligned, x, dt
+    and dy rows (``d`` elements) and B and C rows (``row_strides``) a
+    multiple of 16 bytes apart."""
+    return (all(p % 16 == 0 for p in pointers) and d * itemsize % 16 == 0
+            and all(r * itemsize % 16 == 0 for r in row_strides))
+
+
+def fused_plan(B: int, S: int, d: int, N: int, itemsize: int,
+               aligned: bool) -> ScanPlan:
+    """The fused forward's plan: one lane a channel holding its P states,
+    FWD_THREADS channels a block, TMA loads where ``aligned`` and a B row
+    of P elements is a multiple of 16 bytes."""
+    P = _pow2_at_least(N)
+    ch = FWD_THREADS
+    smem = FWD_STAGES * (2 * _a128(FWD_STEPS * ch * itemsize)
+                         + 2 * _a128(FWD_STEPS * P * itemsize)) + 128
+    return ScanPlan(1, P, ch, 1, (-(-d // ch), B), FWD_STAGES, FWD_STEPS,
+                    smem, (), aligned and P * itemsize % 16 == 0)
+
+
+def _bwd_smem(itemsize: int, L: int, P: int, N: int, passes: int) -> int:
+    chb = BWD_THREADS // L * passes
+    T = STATE_EVERY
+    stage = (2 * _a128(T * chb * itemsize) + _a128(T * chb * 4)
+             + 2 * _a128(T * P * itemsize) + _a128(chb * N * 4))
+    red = _a128(2 * T * (BWD_THREADS // 32) * 2 * P * 4)
+    carry = _a128(2 * passes * (P // L) * BWD_THREADS * 4)
+    return BWD_STAGES * stage + red + carry + 128
+
+
+def bwd_plan(B: int, S: int, d: int, N: int, itemsize: int,
+             aligned: bool) -> ScanPlan:
+    """The backward's plan: :data:`BWD_LANES` lanes a channel, as many
+    passes of BWD_THREADS / L channels a block as leave
+    :data:`BWD_TARGET_BLOCKS` blocks, and TMA loads as the forward's."""
+    P = _pow2_at_least(N)
+    L = BWD_LANES[P]
+    ch = BWD_THREADS // L
+    passes = 1
+    while (ch * passes * 2 <= BWD_MAX_CHANNELS
+           and B * -(-d // (ch * passes * 2)) >= BWD_TARGET_BLOCKS
+           and _bwd_smem(itemsize, L, P, N, passes * 2) <= SMEM_LIMIT):
+        passes *= 2
+    slabs = -(-d // (ch * passes))
+    return ScanPlan(L, P // L, ch * passes, passes, (slabs, B), BWD_STAGES,
+                    STATE_EVERY, _bwd_smem(itemsize, L, P, N, passes),
+                    ((2, slabs, B, S, N), (B, d, N)),
+                    aligned and P * itemsize % 16 == 0)
+
+
 def _check_fused_inputs(what, x, dt, Bs, Cs, A):
     """The fused kernels' contract, checked on the host before a launch:
     raises on what the kernels do not take."""
@@ -280,11 +378,29 @@ def _check_f32(what, name, t, device, shape) -> None:
                          f"{tuple(shape)} on {device}")
 
 
+def plan_fused(x, dt, Bs, Cs, A) -> ScanPlan:
+    """:func:`fused_plan` for these inputs (the fused wrapper's plan)."""
+    B, S, d = x.shape
+    return fused_plan(B, S, d, A.shape[1], x.element_size(), tma_aligned(
+        x.element_size(), d, (Bs.stride(1), Cs.stride(1)),
+        [t.data_ptr() for t in (x, dt, Bs, Cs)]))
+
+
+def plan_bwd(x, dt, Bs, Cs, A, dy, states) -> ScanPlan:
+    """:func:`bwd_plan` for these inputs (the backward wrapper's plan)."""
+    B, S, d = x.shape
+    return bwd_plan(B, S, d, A.shape[1], x.element_size(), tma_aligned(
+        x.element_size(), d, (Bs.stride(1), Cs.stride(1)),
+        [t.data_ptr() for t in (x, dt, Bs, Cs, dy, states)]))
+
+
 class SsmScanFusedKernel:
-    """The fused K2 forward's wrapper.  ``launches`` counts launches."""
+    """The fused K2 forward's wrapper.  ``launches`` counts launches;
+    ``last_plan`` is the plan of the last launch."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.last_plan: Optional[ScanPlan] = None
         self._fn = None
 
     def _function(self):
@@ -298,13 +414,13 @@ class SsmScanFusedKernel:
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                            + [ctypes.c_longlong, ctypes.c_void_p,
                               ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def __call__(self, x, dt, Bs, Cs, A, *, states: Optional[torch.Tensor]
-                 = None):
+    def __call__(self, x, dt, Bs, Cs, A, *,
+                 states: Optional[torch.Tensor] = None):
         """Same function as :func:`mamba1_scan_plain`: x, dt (B, S, d)
         contiguous, Bs, Cs (B, S, N) with unit element stride (row slices of
         a wider tensor go in as they are), all four float32 or all four
@@ -323,6 +439,7 @@ class SsmScanFusedKernel:
         if states is not None:
             _check_f32(what, "states", states, x.device,
                        states_shape(B, S, d, N))
+        plan = plan_fused(x, dt, Bs, Cs, A)
         y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
         if y.numel() == 0:
             return y
@@ -333,45 +450,23 @@ class SsmScanFusedKernel:
                 Bs.data_ptr(), Bs.stride(1), Cs.data_ptr(), Cs.stride(1),
                 A.data_ptr(), y.data_ptr(),
                 None if states is None else states.data_ptr(), B, S, d, N,
-                stream)
+                int(plan.tma), plan.smem_bytes, stream)
         if err != 0:
             raise RuntimeError(f"{what} failed to launch (error {err})")
         self.launches += 1
+        self.last_plan = plan
         return y
-
-
-#: Threads of a backward block, passes a block may walk, and the blocks the
-#: backward's grid aims at (132 SMs, 4 blocks each): the kernel's own
-#: constants and the wrapper's plan, which :func:`bwd_plan` mirrors.
-BWD_THREADS, BWD_MAX_PASSES, BWD_TARGET_BLOCKS = 256, 16, 528
-
-
-class BwdPlan(NamedTuple):
-    lanes: int      # P: a channel's lanes, the power of two at least N
-    channels: int   # channels a pass: BWD_THREADS / P
-    passes: int     # passes a block walks
-    slabs: int      # blocks along d: each owns passes x channels channels
-
-
-def bwd_plan(B: int, d: int, N: int) -> BwdPlan:
-    """How the backward splits d: enough slabs for about one wave of the
-    card, as few as that allows, so that the partial sums of dB and dC
-    (2 x slabs x B x S x N floats) stay small."""
-    P = _pow2_at_least(N)
-    ch = BWD_THREADS // P
-    chunks = -(-d // ch)
-    slabs = min(chunks, max(1, -(-BWD_TARGET_BLOCKS // max(B, 1))))
-    passes = min(BWD_MAX_PASSES, -(-chunks // slabs))
-    return BwdPlan(P, ch, passes, -(-chunks // passes))
 
 
 class SsmScanBwdKernel:
     """K2's backward wrapper (the main kernel and its reduction, one call).
     ``launches`` counts kernel launches: each call on inputs that are not
-    empty launches :data:`BWD_LAUNCHES_PER_CALL`."""
+    empty launches :data:`BWD_LAUNCHES_PER_CALL`; ``last_plan`` is the
+    plan of the last call."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.last_plan: Optional[ScanPlan] = None
         self._fn = None
 
     def _function(self):
@@ -385,7 +480,7 @@ class SsmScanBwdKernel:
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                            + [ctypes.c_longlong, ctypes.c_void_p,
                               ctypes.c_longlong] + [ctypes.c_void_p] * 10
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -393,21 +488,23 @@ class SsmScanBwdKernel:
     def __call__(self, x, dt, Bs, Cs, A, dy, states):
         """The gradients of :func:`mamba1_scan_plain` for ``dy`` (B, S, d)
         f32 from the forward's ``states``: (dx, ddt, dB, dC, dA) in the
-        dtypes of x, dt, Bs, Cs and A.  The inputs as the fused forward
-        takes them; dy and states contiguous float32."""
+        dtypes of x, dt, Bs, Cs and A (dx and ddt written so by the kernel,
+        each rounded once).  The inputs as the fused forward takes them; dy
+        and states contiguous float32."""
         what = "ssm scan backward kernel"
         B, S, d, N = _check_fused_inputs(what, x, dt, Bs, Cs, A)
         _check_f32(what, "dy", dy, x.device, (B, S, d))
         _check_f32(what, "states", states, x.device,
                    states_shape(B, S, d, N))
-        plan = bwd_plan(B, d, N)
+        plan = plan_bwd(x, dt, Bs, Cs, A, dy, states)
         f32 = dict(dtype=torch.float32, device=x.device)
-        dx, ddt = (torch.empty((B, S, d), **f32) for _ in range(2))
+        dx = torch.empty((B, S, d), dtype=x.dtype, device=x.device)
+        ddt = torch.empty((B, S, d), dtype=dt.dtype, device=x.device)
         dB, dC = (torch.empty((B, S, N), **f32) for _ in range(2))
         dA = torch.empty((d, N), **f32)
         if x.numel() > 0:
-            part_bc = torch.empty((2, plan.slabs, B, S, N), **f32)
-            part_a = torch.empty((B, d, N), **f32)
+            part_bc, part_a = (torch.empty(shape, **f32)
+                               for shape in plan.partials)
             with torch.cuda.device(x.device):
                 stream = torch.cuda.current_stream(x.device).cuda_stream
                 err = self._function()(
@@ -416,16 +513,16 @@ class SsmScanBwdKernel:
                     A.data_ptr(), dy.data_ptr(), states.data_ptr(),
                     dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
                     dC.data_ptr(), dA.data_ptr(), part_bc.data_ptr(),
-                    part_a.data_ptr(), B, S, d, N, plan.passes, plan.slabs,
-                    stream)
+                    part_a.data_ptr(), B, S, d, N, plan.passes, plan.grid[0],
+                    int(plan.tma), plan.smem_bytes, stream)
             if err != 0:
                 raise RuntimeError(f"{what} failed to launch (error {err})")
             self.launches += BWD_LAUNCHES_PER_CALL
+            self.last_plan = plan
         else:
             for t in (dB, dC, dA):
                 t.zero_()
-        return (dx.to(x.dtype), ddt.to(dt.dtype), dB.to(Bs.dtype),
-                dC.to(Cs.dtype), dA)
+        return dx, ddt, dB.to(Bs.dtype), dC.to(Cs.dtype), dA
 
 
 #: The process's fused K2 forward and K2 backward wrappers; their

@@ -577,17 +577,32 @@ def test_pinned_snapshot_is_not_reached_by_in_place_updates(cuda,
 SCAN_BWD_REL_MAX = 1e-4
 SCAN_BWD_REL_BF16 = 1e-2
 
-FUSED_CASES = [  # B, S, d, N, B and C as strided row slices
+FUSED_CASES = [  # B, S, d, N, B and C: contiguous (False), rows of 5 + 2N
+    # from offset 5 (True: never TMA-aligned), rows of 16 + 2N from offset
+    # 16 ("aligned": TMA-aligned where d and N allow)
     (1, 1, 1, 1, False),
     (2, 37, 5, 3, False),     # ragged S, N not a power of two
     (3, 70, 33, 8, True),     # d that no block divides, strided
     (1, 130, 7, 1, False),    # one lane per channel
-    (2, 20, 3, 32, True),     # a channel fills a warp
-    (2, 9, 100, 16, False),   # the model's N
-    (1, 64, 300, 16, True),   # S a multiple of 16, several slabs
+    (2, 20, 3, 32, True),     # 32 states
+    (2, 9, 100, 16, False),   # the model's N, S within a stage
+    (2, 33, 24, 2, "aligned"),     # 2 states (a B row too short for TMA)
+    (1, 64, 300, 16, True),   # S a multiple of 16, several blocks
     (2, 41, 24, 16, True),
-    (1, 200, 700, 16, True),  # several passes a slab
+    (1, 200, 700, 16, True),  # S no multiple of a stage
+    (2, 45, 64, 16, "aligned"),    # S past a stage, no multiple of 16
+    (3, 70, 40, 8, "aligned"),     # d that no block divides
+    (1, 20, 96, 32, "aligned"),    # 32 states, S within a stage
+    (16, 5, 4096, 16, False),      # the backward walks passes: TMA
+    (16, 5, 4096, 16, True),       # ... and on the threads' load path
 ]
+
+
+def _lanes(N, bwd):
+    """The lanes a channel the plan gives at state size N: one in the
+    forward, by the power of two at least N in the backward (each of the
+    backward's instantiations is reached by an N of FUSED_CASES)."""
+    return ss.BWD_LANES[1 << max(0, N - 1).bit_length()] if bwd else 1
 
 
 def _fused_inputs(rng, dtype, cuda, B, S, d, N, strided):
@@ -595,14 +610,25 @@ def _fused_inputs(rng, dtype, cuda, B, S, d, N, strided):
     dt = torch.nn.functional.softplus(
         _rand(rng, (B, S, d), torch.float32, cuda) - 1).to(dtype)
     if strided:
-        dbc = _rand(rng, (B, S, 5 + 2 * N), dtype, cuda)
-        Bs, Cs = dbc[..., 5:5 + N], dbc[..., 5 + N:]
+        lead = 16 if strided == "aligned" else 5
+        dbc = _rand(rng, (B, S, lead + 2 * N), dtype, cuda)
+        Bs, Cs = dbc[..., lead:lead + N], dbc[..., lead + N:]
     else:
         Bs, Cs = (_rand(rng, (B, S, N), dtype, cuda) for _ in range(2))
     A = -torch.exp(torch.log(torch.arange(1, N + 1, device=cuda,
                                           dtype=torch.float32))
                    + 0.3 * _rand(rng, (d, N), torch.float32, cuda))
     return x, dt, Bs, Cs, A.contiguous()
+
+
+def _tma_path(dtype, d, N, strided):
+    """The load path the case's layout allows: TMA needs 16-byte aligned
+    rows and a B row of P elements a multiple of 16 bytes."""
+    es = 4 if dtype == torch.float32 else 2
+    P = 1 << max(0, N - 1).bit_length()
+    lead, row = {False: (0, N), True: (5, 5 + 2 * N),
+                 "aligned": (16, 16 + 2 * N)}[strided]
+    return all(v * es % 16 == 0 for v in (d, lead, row, P))
 
 
 def _hold_scan_grad(got, want, what):
@@ -628,6 +654,9 @@ def test_fused_scan_matches_plain(cuda, dtype, B, S, d, N, strided):
     got = ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
     torch.cuda.synchronize()
     assert ss.ssm_scan_fused_cuda.launches == before + 1
+    plan = ss.ssm_scan_fused_cuda.last_plan
+    assert plan.lanes == _lanes(N, bwd=False)
+    assert plan.tma == _tma_path(dtype, d, N, strided)
     assert got.dtype == torch.float32 and got.shape == (B, S, d)
     torch.testing.assert_close(got, ss.mamba1_scan_plain(x, dt, Bs, Cs, A),
                                **SCAN_TOL)
@@ -648,6 +677,9 @@ def test_scan_bwd_matches_plain_autograd(cuda, dtype, B, S, d, N, strided):
     torch.cuda.synchronize()
     assert ss.ssm_scan_bwd_cuda.launches == \
         before + ss.BWD_LAUNCHES_PER_CALL
+    plan = ss.ssm_scan_bwd_cuda.last_plan
+    assert plan.lanes == _lanes(N, bwd=True)
+    assert plan.tma == _tma_path(dtype, d, N, strided)
     leaves = [t.float().requires_grad_() for t in (x, dt, Bs, Cs, A)]
     want = torch.autograd.grad(ss.mamba1_scan_plain(*leaves), leaves, dy)
     for name, g, w, t in zip(("x", "dt", "B", "C", "A"), got, want,
@@ -656,16 +688,41 @@ def test_scan_bwd_matches_plain_autograd(cuda, dtype, B, S, d, N, strided):
         _hold_scan_grad(g, w, f"d{name}")
 
 
+@pytest.mark.parametrize("B,S,d,N,strided", FUSED_CASES)
+def test_scan_bwd_bf16_rounds_the_f32_sums_once(cuda, B, S, d, N, strided):
+    """bf16 dx and ddt are the f32 instantiation's, on the same values,
+    rounded to bf16 once (what ``.to(torch.bfloat16)`` does), both under
+    the same lanes a channel."""
+    rng = np.random.default_rng(S * 41 + d + N)
+    x, dt, Bs, Cs, A = _fused_inputs(rng, torch.bfloat16, cuda, B, S, d, N,
+                                     strided)
+    dy = _rand(rng, (B, S, d), torch.float32, cuda)
+    states = torch.empty(ss.states_shape(B, S, d, N), device=cuda)
+    ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+    got = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+    lanes = ss.ssm_scan_bwd_cuda.last_plan.lanes
+    f32 = ss.ssm_scan_bwd_cuda(*(t.float() for t in (x, dt, Bs, Cs)), A, dy,
+                               states)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan_bwd_cuda.last_plan.lanes == lanes
+    for name, g, w in zip(("dx", "ddt"), got[:2], f32[:2]):
+        assert g.dtype == torch.bfloat16 and w.dtype == torch.float32
+        assert torch.equal(g, w.to(torch.bfloat16)), name
+
+
+@pytest.mark.parametrize("strided", [True, "aligned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_scan_bwd_is_deterministic(cuda, dtype):
-    """No float atomics: two backward calls give the same bits."""
+def test_scan_bwd_is_deterministic(cuda, dtype, strided):
+    """No float atomics: two backward calls give the same bits, on either
+    load path."""
     rng = np.random.default_rng(17)
     x, dt, Bs, Cs, A = _fused_inputs(rng, dtype, cuda, 4, 300, 2048, 16,
-                                     True)
+                                     strided)
     dy = _rand(rng, (4, 300, 2048), torch.float32, cuda)
     states = torch.empty(ss.states_shape(4, 300, 2048, 16), device=cuda)
     ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
     a = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
+    assert ss.ssm_scan_bwd_cuda.last_plan.tma == (strided == "aligned")
     b = ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states)
     torch.cuda.synchronize()
     assert all(torch.equal(p, q) for p, q in zip(a, b))

@@ -187,16 +187,23 @@ def test_states_are_the_recurrence_every_t_steps(S):
 
 
 def test_bwd_plan_covers_d_with_small_partials():
-    for B, d, N in ((8, 8192, 16), (4, 8192, 16), (2, 5, 3), (1, 128, 1),
-                    (8, 100_000, 32), (65535, 8192, 16)):
-        plan = ss.bwd_plan(B, d, N)
-        assert plan.lanes >= N and plan.lanes & (plan.lanes - 1) == 0
-        assert plan.channels * plan.lanes == ss.BWD_THREADS
-        covered = plan.slabs * plan.passes * plan.channels
-        assert covered >= d > covered - plan.passes * plan.channels
-        assert 1 <= plan.passes <= ss.BWD_MAX_PASSES
-    # falcon-mamba's training shape: one wave of 512 blocks, 64 slabs
-    assert ss.bwd_plan(8, 8192, 16) == ss.BwdPlan(16, 16, 8, 64)
+    for B, S, d, N in ((8, 1024, 8192, 16), (4, 512, 8192, 16), (2, 7, 5, 3),
+                       (1, 3, 128, 1), (8, 4, 100_000, 32),
+                       (65535, 1, 8192, 16)):
+        plan = ss.bwd_plan(B, S, d, N, 2, True)
+        P = 1 << max(0, N - 1).bit_length()
+        assert plan.lanes == ss.BWD_LANES[P]
+        assert plan.lanes * plan.lane_states == P <= 8 * plan.lanes
+        assert plan.channels == ss.BWD_THREADS // plan.lanes * plan.passes
+        assert plan.channels <= ss.BWD_MAX_CHANNELS
+        covered = plan.grid[0] * plan.channels
+        assert covered >= d > covered - plan.channels
+        assert plan.partials == ((2, plan.grid[0], B, S, N), (B, d, N))
+    # falcon-mamba's training shape: 4 lanes a channel, 4 passes of 32
+    # channels a block, 64 blocks along d (partials of 67 MB)
+    plan = ss.bwd_plan(8, 1024, 8192, 16, 2, True)
+    assert (plan.lanes, plan.channels, plan.passes, plan.grid) == \
+        (4, 128, 4, (64, 8))
 
 
 # ----------------------------------------- wrappers and the dispatcher --

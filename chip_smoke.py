@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one process per source, all at once), holds each kernel
 against its plain PyTorch version on the card, then runs the port's
-serving path for two models at full width, random bf16 weights from a
+serving path for three models at full width, random bf16 weights from a
 seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
@@ -21,7 +21,14 @@ prompt, then 32 greedy tokens).
   16, vocab 65 024; 14.0 GB of weights) through the fused K2 selective
   scan, which every prefill layer launches and no decode step does; then
   each of its layers held at full width through the fused K2, the
-  unfused K2 (decay and inc built in full) and the plain scan.
+  unfused K2 (decay and inc built in full) and the plain scan;
+- zamba2-2.7b (54 Mamba2 layers, d_model 2560, d_inner 5120, 80 SSM heads
+  of 64, state 64, vocab 32 000; one shared attention block of 32 / 32
+  heads of head dim 80 applied after every 6 layers, 9 times, each with
+  its own KV cache) through K1 at head dim 80: its prefill kernel in every
+  application of a prefill, its decode kernel in every application of a
+  decode step; then each application held at full width against the
+  plain attention, and each Mamba2 layer's decode against its prefill.
 
 Then both families train at full width (8 x 1024 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
@@ -58,10 +65,13 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 QWEN = "qwen3-1.7b"
 FALCON = "falcon-mamba-7b"
+ZAMBA = "zamba2-2.7b"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 512
 SERVE_B, MAX_LEN, PROMPT_LEN, GEN_LEN = 4, 1024, 64, 32
 DECODE_OFFSETS = (63, 95, 511, 1023)
+#: K1's heads on the served paths: (q heads, kv heads, head dim).
+K1_HEADS = {"qwen3-1.7b": (16, 8, 128), "zamba2-2.7b": (32, 32, 80)}
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -96,6 +106,11 @@ TOL_SCAN = dict(rtol=1e-5, atol=1e-5)
 #: such differences until the logits decorrelate (the run prints how far),
 #: so the logits of two rounding paths are reported, not held.
 REL_LAYER_PLAIN = 1e-3
+#: zamba2, one shared-attention application at full width: the block's bf16
+#: output through K1 against the same block through the plain attention on
+#: the same input (the kernel rounds p to bf16 per 64-key tile, the plain
+#: version per 512-key chunk; then the bf16 output projection).
+REL_APP = 1e-2
 #: The fused K2 forward against mamba1_scan_plain: both build decay with
 #: an accurate f32 exp of the same rounded product and inc with the same
 #: two rounded products, and round the state identically; only the order of
@@ -254,9 +269,11 @@ def assert_close(a, b, tol, what: str) -> float:
 # ---------------------------------------------------------------- phase 2 --
 def kernel_checks(torch, fa):
     """K1 against its plain version: small f32 cases (prefill and decode,
-    the decode kernel's split boundaries among them), then the main path's
-    bf16 shapes with times: the prefill kernel at 4 × 512, the decode
-    kernel at four offsets.  Returns the per-shape measurement records."""
+    the decode kernel's split boundaries among them, head dim 80), then
+    the main paths' bf16 shapes with times, for qwen3's heads (16 / 8 of
+    head dim 128) and zamba2's (32 / 32 of head dim 80): the prefill
+    kernel at 4 × 512, the decode kernel at four offsets.  Returns the
+    per-shape measurement records, qwen3's first."""
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED)
 
@@ -284,6 +301,13 @@ def kernel_checks(torch, fa):
         (2, 32, 2, 1, 150, 128, True, None, off(127)),
         (2, 4, 2, 1, 150, 128, True, 50, off(128)),
         (1, 16, 8, 1, MAX_LEN, 128, True, None, off(MAX_LEN - 1)),
+        # head dim 80 (zamba2): prefill with group 1 and 4, a window, and
+        # decode across split boundaries
+        (2, 8, 8, 70, 70, 80, True, None, 0),
+        (1, 8, 2, 100, 100, 80, True, 16, 0),
+        (2, 4, 4, 5, 40, 80, True, None, off(30)),
+        (2, 32, 32, 1, 150, 80, True, None, off(95)),
+        (2, 4, 4, 1, MAX_LEN, 80, True, None, off(MAX_LEN - 1)),
     ]
     worst = 0.0
     for B, H, Hkv, Sq, Skv, D, causal, window, q_off in small:
@@ -298,9 +322,24 @@ def kernel_checks(torch, fa):
             got, want, TOL_F32,
             f"K1 f32 B{B} H{H}/{Hkv} Sq{Sq} Skv{Skv} D{D} {kw}"))
     print(f"K1 f32 cases: {len(small)} pass, max abs err {worst}")
+    records = []
+    for model, (H, Hkv, D) in K1_HEADS.items():
+        records += k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D)
+    for r in records:
+        print(f"K1 {r['kernel']} {r['shape']} ({r['model']}): err "
+              f"{r['max_abs_err']} device ms "
+              f"{r['ms']:.5f} plain {r['plain_ms']:.5f} sdpa "
+              f"{r['library_ms']:.5f} bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}); per call ms {r['call_ms']:.5f} plain "
+              f"{r['plain_call_ms']:.5f} sdpa {r['library_call_ms']:.5f}")
+    return records
 
+
+def k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D):
+    """K1 at a served model's heads: the prefill kernel at 4 × 512 and the
+    decode kernel at DECODE_OFFSETS of a MAX_LEN cache, in bf16, each held
+    against its plain version and SDPA and timed beside them."""
     bf16 = torch.bfloat16
-    H, Hkv, D = 16, 8, 128
     records = []
 
     # prefill B=4, S=512: causal self-attention in the model's layout
@@ -368,12 +407,7 @@ def kernel_checks(torch, fa):
             max_abs_err=err, **timings(kern, plain, library, 200),
             **bound(nbytes, flops, PEAK_BF16_FLOPS)))
     for r in records:
-        print(f"K1 {r['kernel']} {r['shape']}: err {r['max_abs_err']} "
-              f"device ms "
-              f"{r['ms']:.5f} plain {r['plain_ms']:.5f} sdpa "
-              f"{r['library_ms']:.5f} bound {r['bound_ms']:.5f} "
-              f"({r['bound_by']}); per call ms {r['call_ms']:.5f} plain "
-              f"{r['plain_call_ms']:.5f} sdpa {r['library_call_ms']:.5f}")
+        r["model"] = model
     return records
 
 
@@ -409,6 +443,24 @@ def ptxas_summary(log: str):
         elif "Used" in line and "registers" in line and name:
             yield f"{name}: {line.split('Used', 1)[1].strip()}; {spill}"
             name, spill = None, ""
+
+
+def print_prefill_occupancy(log: str) -> None:
+    """The bf16 prefill kernel's blocks an SM at each head dim, from its
+    ptxas registers (65,536 a SM, allotted 8 a thread at a time, 128
+    threads a block) and its shared memory (4 tiles of 64 rows of D + 8
+    bf16; 233,472 B a SM, 1 KB of it reserved a block)."""
+    import re
+    for line in ptxas_summary(log):
+        m = re.match(r"flash_prefill_kernel<(\d+), (\d)>: (\d+) registers",
+                     line)
+        if m:
+            D, regs = int(m.group(1)), int(m.group(3))
+            by_regs = 65536 // (-(-regs // 8) * 8 * 128)
+            by_smem = 233472 // (4 * 64 * (D + 8) * 2 + 1024)
+            print(f"  K1 prefill D {D} lse {m.group(2)}: {regs} registers: "
+                  f"{by_regs} blocks an SM by registers, {by_smem} by shared "
+                  f"memory (the launch bounds ask 3)")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1009,9 +1061,32 @@ def checkpoint_phase(torch, cfg, tmp):
 
 
 # ------------------------------------------------------------ phases 4, 5 --
-def prefill_phase(torch, cfg, weights, k1):
-    """One prefill of 4 × 512 (first call): a K1 launch per layer, logits
-    against the plain attention path."""
+def attention_apps(cfg) -> int:
+    """Applications of attention in one forward or decode step: a K1
+    launch each (a hybrid model applies its one shared block once a group
+    of ``shared_attn_every`` layers)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def hold_logits(got, want, hold: bool, what: str) -> float:
+    """Two paths' logits: held within TOL_LOGITS, or (``hold`` false)
+    reported with whether they are within it.  Returns the max abs err."""
+    import torch
+    if hold:
+        return assert_close(got, want, TOL_LOGITS, what)
+    err = max_err(got, want)
+    within = torch.allclose(got.float(), want.float(), **TOL_LOGITS)
+    print(f"{what}: max abs err {err}, relative L2 {rel_err(got, want)} "
+          f"(reported, not held; within {TOL_LOGITS}: {within})")
+    return err
+
+
+def prefill_phase(torch, cfg, weights, k1, hold: bool = True):
+    """One prefill of 4 × 512 (first call): a K1 launch per attention
+    application, logits against the plain attention path (held within
+    TOL_LOGITS, or reported where ``hold`` is false)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.train.step import make_prefill_step
@@ -1020,26 +1095,31 @@ def prefill_phase(torch, cfg, weights, k1):
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen, device=cuda, dtype=torch.int32)
     prefill = make_prefill_step(cfg)
+    apps = attention_apps(cfg)
     before = k1.launches
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill(weights, {"tokens": tokens})
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    check(k1.launches - before == cfg.n_layers,
+    peak = torch.cuda.max_memory_allocated()
+    check(k1.launches - before == apps,
           f"prefill launched K1 {k1.launches - before} times, expected "
-          f"{cfg.n_layers}")
+          f"{apps}")
     check(tuple(logits.shape) == (PREFILL_B, cfg.vocab)
           and bool(torch.isfinite(logits).all()), "prefill logits")
     with mock.patch.object(ops, "flash_attention",
                            _plain_attention(fa_mod)):
         plain = prefill(weights, {"tokens": tokens})
-    err = assert_close(logits, plain, TOL_LOGITS,
-                       "prefill logits, kernel vs plain attention")
-    print(f"prefill: B{PREFILL_B} S{PREFILL_S} in {dt * 1e3:.3f} ms "
-          f"(first call), {cfg.n_layers} K1 launches, logits vs plain "
-          f"attention max abs err {err}")
-    return dict(first_call_ms=dt * 1e3, vs_plain_max_abs_err=err), tokens
+    err = hold_logits(logits, plain, hold,
+                      f"{cfg.name} prefill logits, kernel vs plain attention")
+    print(f"prefill {cfg.name}: B{PREFILL_B} S{PREFILL_S} in "
+          f"{dt * 1e3:.3f} ms (first call), {apps} K1 launches, peak memory "
+          f"{peak} B, logits vs plain attention max abs err {err}")
+    return dict(first_call_ms=dt * 1e3, peak_bytes=peak,
+                vs_plain_max_abs_err=err,
+                vs_plain_rel_err=rel_err(logits, plain)), tokens
 
 
 def _plain_attention(fa_mod):
@@ -1051,15 +1131,18 @@ def _plain_attention(fa_mod):
     return plain
 
 
-def serve_phase(torch, cfg, weights, k1):
+def serve_phase(torch, cfg, weights, k1, hold: bool = True):
+    """4 requests of 64 + 32 tokens: a K1 decode launch per attention
+    application and step; the logits after the prompt against a prefill
+    of it, and those of the prompt's last step and 4 decode steps against
+    the plain attention path, held within TOL_LOGITS (or reported where
+    ``hold`` is false)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.serve import generate
     from repro_torch.train.step import make_prefill_step, make_serve_step
     cuda = torch.device("cuda")
-    gen = torch.Generator(device=cuda).manual_seed(SEED + 2)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_B, PROMPT_LEN),
-                            generator=gen, device=cuda, dtype=torch.int32)
+    prompts = serve_prompts(torch, cfg)
     events, kept, counts = [], {}, []
 
     def on_step(i, logits):
@@ -1080,10 +1163,10 @@ def serve_phase(torch, cfg, weights, k1):
     t_total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT_LEN + GEN_LEN
+    apps = attention_apps(cfg)
     per_step = [b - a for a, b in zip([before] + counts[:-1], counts)]
-    check(per_step == [cfg.n_layers] * steps,
-          f"K1 launches per step {sorted(set(per_step))}, expected "
-          f"{cfg.n_layers}")
+    check(per_step == [apps] * steps,
+          f"K1 launches per step {sorted(set(per_step))}, expected {apps}")
     check(int(out["cache"]["pos"]) == steps, "cache position")
     check(tuple(tokens.shape) == (SERVE_B, GEN_LEN)
           and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
@@ -1092,8 +1175,9 @@ def serve_phase(torch, cfg, weights, k1):
 
     # the logits after the prompt equal a prefill of the same 64 tokens
     pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
-    err_pre = assert_close(out["prompt_logits"], pre, TOL_LOGITS,
-                           "serve logits after the prompt vs prefill")
+    err_pre = hold_logits(out["prompt_logits"], pre, hold,
+                          f"{cfg.name} serve logits after the prompt vs "
+                          f"prefill")
 
     # the plain attention path, fed the same tokens, gives the same logits
     step_fn = make_serve_step(cfg)
@@ -1106,17 +1190,25 @@ def serve_phase(torch, cfg, weights, k1):
         for i in range(PROMPT_LEN + 4):
             logits, cache = step_fn(weights, cache, seq[:, i:i + 1])
             if i in kept:
-                err_plain = max(err_plain, assert_close(
-                    kept[i], logits, TOL_LOGITS,
-                    f"step {i} logits, kernel vs plain attention"))
-    print_serve(cfg, times, t_total, peak, f"{cfg.n_layers} K1 launches per "
-                f"step")
+                err_plain = max(err_plain, hold_logits(
+                    kept[i], logits, hold, f"{cfg.name} step {i} logits, "
+                    f"kernel vs plain attention"))
+    print_serve(cfg, times, t_total, peak, f"{apps} K1 launches per step")
     print(f"serve: logits after prompt vs prefill max abs err {err_pre}; "
           f"kernel vs plain attention over the prompt's last step and 4 "
           f"decode steps max abs err {err_plain}")
     for b in range(SERVE_B):
         print(f"  req{b}: {tokens[b, :12].tolist()}...")
-    return dict(times, peak_bytes=peak), out
+    return dict(times, peak_bytes=peak, prompt_vs_prefill_max_abs_err=err_pre,
+                vs_plain_max_abs_err=err_plain), out
+
+
+def serve_prompts(torch, cfg):
+    """The served requests' prompts, (SERVE_B, PROMPT_LEN) token ids from
+    the seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    return torch.randint(0, cfg.vocab, (SERVE_B, PROMPT_LEN), generator=gen,
+                         device="cuda", dtype=torch.int32)
 
 
 def step_times(events):
@@ -1267,10 +1359,7 @@ def ssm_serve_phase(torch, cfg, weights, kf):
     prompt."""
     from repro_torch.serve import generate
     from repro_torch.train.step import make_prefill_step
-    cuda = torch.device("cuda")
-    gen = torch.Generator(device=cuda).manual_seed(SEED + 2)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_B, PROMPT_LEN),
-                            generator=gen, device=cuda, dtype=torch.int32)
+    prompts = serve_prompts(torch, cfg)
     events, seen = [], []
 
     def on_step(i, logits):
@@ -1433,19 +1522,20 @@ def qwen_path(torch, K, tmp):
     zero_counts(K)                            # the main path starts
     prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"])
     serve, out = serve_phase(torch, cfg, weights, K["k1"])
-    expected = cfg.n_layers * (1 + 1 + PROMPT_LEN + GEN_LEN)
+    expected = attention_apps(cfg) * (1 + 1 + PROMPT_LEN + GEN_LEN)
     launches = check_counts(K, dict(k1=expected), f"the {cfg.name} path")
-    prefill.update(qwen_prefill_profile(torch, cfg, weights, tokens,
-                                        KERNEL_NAMES))
+    prefill.update(k1_prefill_profile(torch, cfg, weights, tokens,
+                                      KERNEL_NAMES))
     serve.update(checkpoint=ckpt, prefill=prefill,
                  breakdown=decode_breakdown(torch, cfg, weights, out,
                                             KERNEL_NAMES, "K1"))
     return launches["k1"], serve
 
 
-def qwen_prefill_profile(torch, cfg, weights, tokens, k1_names):
+def k1_prefill_profile(torch, cfg, weights, tokens, k1_names):
     """A warm prefill of 4 × 512 beside the first call: its time
-    unprofiled, then one profiled run split into K1 and the rest."""
+    unprofiled, then one profiled run split into K1, the matmuls and the
+    rest."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
@@ -1466,14 +1556,22 @@ def qwen_prefill_profile(torch, cfg, weights, tokens, k1_names):
     busy = sum(r[1] for r in rows)
     k1 = [r for r in rows if any(k in r[0] for k in k1_names)]
     k1_ms, k1_n = sum(r[1] for r in k1), sum(r[2] for r in k1)
-    check(k1_n == cfg.n_layers, f"profiled prefill shows {k1_n} K1 launches")
+    check(k1_n == attention_apps(cfg),
+          f"profiled prefill shows {k1_n} K1 launches")
+    gemm = sum(r[1] for r in rows if any(
+        k in r[0] for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")))
     print(f"prefill {cfg.name}: warm {warm_ms:.3f} ms; profiled wall "
           f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall:.4f}), K1 {k1_ms:.4f} ms ({k1_ms / k1_n:.5f} "
-          f"ms/layer)")
+          f"ms a launch), matmuls {gemm:.3f} ms, the rest "
+          f"{busy - k1_ms - gemm:.3f} ms")
+    rows.sort(key=lambda r: -r[1])
+    for name, ms, n in rows[:8]:
+        print(f"  {ms:.4f} ms  x{n}  {name[:90]}")
     return dict(warm_ms=warm_ms, profiled_wall_ms=wall, busy_ms=busy,
                 idle_share=1 - busy / wall, k1_ms=k1_ms,
-                k1_ms_per_layer=k1_ms / k1_n)
+                k1_ms_per_layer=k1_ms / k1_n, gemm_ms=gemm,
+                other_ms=busy - k1_ms - gemm)
 
 
 def falcon_path(torch, K, tmp):
@@ -1513,6 +1611,150 @@ def falcon_path(torch, K, tmp):
     serve["prefill_profile"] = ssm_prefill_profile(torch, cfg, weights,
                                                    tokens, FUSED_KERNEL_NAMES)
     return launches, k2_launches, serve
+
+
+# ------------------------------------------------------ the zamba2 path --
+def hybrid_app_checks(torch, cfg, weights, tokens):
+    """Each shared-attention application of the hybrid model at full
+    width, kernel and plain attention fed the same input: the residual
+    stream walks the groups on the prefill's tokens (4 × 512); at each
+    application the K1 prefill kernel's output on the block's q, k, v is
+    held against the plain version's (TOL_BF16) and the block's output
+    through K1 against the block's through the plain attention
+    (REL_APP).  On the prompts' stream (4 × 64) every Mamba2 layer and
+    every application decoded token by token (the application through
+    K1's decode kernel) is held against its prefill (REL_LAYER_DECODE).
+    Beside them a second residual stream runs on the plain attention
+    alone; how far it is from the kernel stream after each application
+    shows what the layers make of rounding differences end to end."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    eps, E = cfg.norm_eps, cfg.shared_attn_every
+    sa = weights["shared_attn"]
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, rope_base=cfg.rope_base, eps=eps)
+    plain = _plain_attention(fa_mod)
+    prompts = serve_prompts(torch, cfg)
+    x = xq = weights["embed"][tokens]
+    xp = weights["embed"][prompts]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    worst_core = worst_app = worst_dec = max_dec = worst_ssm = 0.0
+    divergence = {}
+
+    def decoded(step, u, state):
+        """``step`` over u's PROMPT_LEN tokens one at a time."""
+        outs = []
+        for t in range(PROMPT_LEN):
+            o, state = step(u[:, t:t + 1], state, t)
+            outs.append(o)
+        return torch.cat(outs, 1)
+
+    def ssm_step(lp):
+        return lambda u, st, t: SSM.ssm_decode(lp["ssm"], u, st, cfg)
+
+    for g in range(attention_apps(cfg)):
+        for i in range(g * E, (g + 1) * E):
+            lp = _layer(weights["layers"], i)
+            x, xq = (s_ + SSM.ssm_block(
+                lp["ssm"], L.rms_norm(s_, lp["ln1"], eps), cfg)
+                for s_ in (x, xq))
+            up = L.rms_norm(xp, lp["ln1"], eps)
+            hb = SSM.ssm_block(lp["ssm"], up, cfg)
+            hd = decoded(ssm_step(lp), up, SSM.init_ssm_state(
+                cfg, SERVE_B, up.dtype, device=up.device))
+            r = rel_err(hd, hb)
+            check(r <= REL_LAYER_DECODE, f"layer {i}: {PROMPT_LEN} decode "
+                  f"steps vs its prefill, relative L2 {r} > "
+                  f"{REL_LAYER_DECODE}")
+            worst_ssm = max(worst_ssm, r)
+            xp = xp + hb
+        u = L.rms_norm(x, sa["ln"], eps)
+        q, k, v = L._project_qkv(sa["attn"], u, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim_, positions, cfg.rope_base, eps)
+        worst_core = max(worst_core, assert_close(
+            fa_mod.flash_attention_cuda(q, k, v),
+            fa_mod.flash_attention_plain(q, k, v), TOL_BF16,
+            f"application {g}: K1 vs plain on its q, k, v"))
+        h = L.attention_block(sa["attn"], u, **kw)
+        with mock.patch.object(ops, "flash_attention", plain):
+            hp = L.attention_block(sa["attn"], u, **kw)
+            xq = xq + L.attention_block(sa["attn"],
+                                        L.rms_norm(xq, sa["ln"], eps), **kw)
+        r = rel_err(h, hp)
+        check(r <= REL_APP, f"application {g}: block through K1 vs plain "
+              f"attention, relative L2 {r} > {REL_APP}")
+        worst_app = max(worst_app, r)
+        x = x + h
+        divergence[g + 1] = rel_err(xq, x)
+
+        up = L.rms_norm(xp, sa["ln"], eps)
+        hb = L.attention_block(sa["attn"], up, **kw)
+        kc = torch.zeros((SERVE_B, MAX_LEN, cfg.n_kv_heads, cfg.head_dim_),
+                         dtype=up.dtype, device=up.device)
+
+        def attn_step(u, cache, t):
+            pos = torch.tensor(t, dtype=torch.int32, device=u.device)
+            o, _, _ = L.attention_decode(sa["attn"], u, *cache, pos, **kw)
+            return o, cache
+
+        hd = decoded(attn_step, up, (kc, torch.zeros_like(kc)))
+        r = rel_err(hd, hb)
+        check(r <= REL_LAYER_DECODE, f"application {g}: {PROMPT_LEN} decode "
+              f"steps vs its prefill, relative L2 {r} > {REL_LAYER_DECODE}")
+        worst_dec, max_dec = max(worst_dec, r), max(max_dec, max_err(hd, hb))
+        xp = xp + hb
+    print(f"{cfg.name} shared-attention applications: all "
+          f"{attention_apps(cfg)} held at full width; K1 vs plain on each "
+          f"application's q, k, v max abs err {worst_core} (tol {TOL_BF16}); "
+          f"block through K1 vs plain attention relative L2 <= {worst_app} "
+          f"(limit {REL_APP}); {PROMPT_LEN} decode steps vs prefill relative "
+          f"L2 <= {worst_dec} (limit {REL_LAYER_DECODE}), max abs err "
+          f"{max_dec}; all {cfg.n_layers} Mamba2 layers, {PROMPT_LEN} decode "
+          f"steps vs prefill relative L2 <= {worst_ssm} (limit "
+          f"{REL_LAYER_DECODE})")
+    print(f"{cfg.name} streams, K1 vs plain attention end to end, relative "
+          f"L2 of the residual stream after each application: " + ", ".join(
+              f"{k}: {v:.3g}" for k, v in divergence.items()))
+    return dict(applications=attention_apps(cfg), core_max_abs_err=worst_core,
+                app_rel_err=worst_app, decode_rel_err=worst_dec,
+                decode_max_abs_err=max_dec, ssm_decode_rel_err=worst_ssm,
+                stream_divergence=divergence)
+
+
+def zamba_path(torch, K, tmp):
+    """zamba2-2.7b through K1 at head dim 80, then each of its
+    shared-attention applications and Mamba2 layers held one by one.
+    Returns (K1 launches on the serve path, serve record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    cfg = get_config(ZAMBA)
+    apps = attention_apps(cfg)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    zero_counts(K)                            # the main path starts
+    # 54 random Mamba2 layers amplify rounding differences until two
+    # paths' logits decorrelate (the application checks print how far), so
+    # the whole-model logits are reported and the applications and layers
+    # held one by one, as falcon-mamba's layers are
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"], hold=False)
+    serve, out = serve_phase(torch, cfg, weights, K["k1"], hold=False)
+    launches = check_counts(
+        K, dict(k1=apps * (1 + 1 + PROMPT_LEN + GEN_LEN)),
+        f"the {cfg.name} path")
+    prefill.update(k1_prefill_profile(torch, cfg, weights, tokens,
+                                      KERNEL_NAMES))
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
+    zero_counts(K)                            # the application checks start
+    serve["applications"] = hybrid_app_checks(torch, cfg, weights, tokens)
+    # each application: the kernel alone, the block on the prefill's and on
+    # the prompts' inputs, and the prompts' decode steps
+    check_counts(K, dict(k1=apps * (3 + PROMPT_LEN)),
+                 f"the {cfg.name} application checks")
+    return launches["k1"], serve
 
 
 # ------------------------------------------------------ the training path --
@@ -1932,6 +2174,7 @@ def main(argv=None) -> int:
                 spills.append(line.split(":")[0])
     print(f"ptxas spills in the fused K2 forward and K2 backward kernels: "
           f"{spills or 'none'}")
+    print_prefill_occupancy(build.build_report(fa.SOURCE)[1])
     sys.stdout.flush()
 
     phase("kernel checks")
@@ -1963,8 +2206,14 @@ def main(argv=None) -> int:
             phase(f"{FALCON} serve path")
             fused_launches, k2_launches, falcon_serve = falcon_path(
                 torch, K, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # falcon's weights are gone
+            print(f"device memory allocated before {ZAMBA}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            phase(f"{ZAMBA} serve path")
+            zamba_launches, zamba_serve = zamba_path(torch, K, tmp)
         gc.collect()
-        torch.cuda.empty_cache()   # falcon's weights are gone
+        torch.cuda.empty_cache()   # zamba2's weights are gone
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
         phase(f"{QWEN} training path")
@@ -2005,8 +2254,8 @@ def main(argv=None) -> int:
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
                      fa.KERNEL_NAMES,
-                     k1_launches + qwen_train_launches["k1"], k1_records,
-                     qwen_serve),
+                     k1_launches + zamba_launches + qwen_train_launches["k1"],
+                     k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve}),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,

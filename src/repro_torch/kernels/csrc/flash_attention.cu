@@ -49,6 +49,13 @@
 //  * flash_prefill_f32_kernel (Sq > 1, f32): the plain FMA path, with S,
 //    P and the accumulator in shared memory; it serves the f32 checks.
 //
+// Head dims 16, 32, 64, 80 and 128 (80: zamba2's shared attention).  The
+// kernels need D to be a multiple of 16 and nothing more: fragments and
+// loops run over D / 16 MMA k-steps, D / 8 accumulator blocks and 16-byte
+// pieces, and f32 loops stride D by 32 lanes with a ragged last pass.  A
+// padded row of D = 80 is 11 pieces of 16 bytes, odd as at D = 128, so the
+// 8 rows an ldmatrix reads still start in 8 different bank groups.
+//
 // For training, both prefill kernels can also write each row's
 // log-sum-exp, the statistic the backward (flash_attention_bwd.cu)
 // recomputes P from: lse[b, h, i] = log2(sum_j exp2(s_ij * log2(e))) with
@@ -807,6 +814,7 @@ extern "C" int repro_flash_prefill(int dtype, int D, const void* q, const void* 
     case 16: return launch_prefill<16>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     case 32: return launch_prefill<32>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     case 64: return launch_prefill<64>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
+    case 80: return launch_prefill<80>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     case 128: return launch_prefill<128>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     default: return -2;
   }
@@ -829,6 +837,7 @@ extern "C" int repro_flash_decode(int dtype, int D, const void* q, const void* k
       case 16: REPRO_DECODE(float, 16);
       case 32: REPRO_DECODE(float, 32);
       case 64: REPRO_DECODE(float, 64);
+      case 80: REPRO_DECODE(float, 80);
       case 128: REPRO_DECODE(float, 128);
       default: return -2;
     }
@@ -838,6 +847,7 @@ extern "C" int repro_flash_decode(int dtype, int D, const void* q, const void* k
       case 16: REPRO_DECODE(bf16, 16);
       case 32: REPRO_DECODE(bf16, 32);
       case 64: REPRO_DECODE(bf16, 64);
+      case 80: REPRO_DECODE(bf16, 80);
       case 128: REPRO_DECODE(bf16, 128);
       default: return -2;
     }

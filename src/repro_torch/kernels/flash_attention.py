@@ -40,13 +40,18 @@ import torch
 from repro_torch.runtime import needs_grad
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the forward kernels are instantiated for (80: zamba2).
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 64   # a prefill block's 64 rows hold at least one position
 DECODE_SPLIT = 64   # keys per decode split (SPLIT in the source)
 #: The kernels' names, as a profiler shows them.
 KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
                 "flash_decode_kernel")
 BWD_SOURCE = "flash_attention_bwd.cu"
+#: Head dims the backward kernels are instantiated for: the bf16 kernels'
+#: 128-byte swizzled tiles take rows of 32, 64 or a multiple of 128 bytes,
+#: which a 160-byte row of head dim 80 is not.
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 #: The backward's kernels, as a profiler shows them: the preprocess, then
 #: dK/dV and dQ (wgmma and TMA for bf16, FMA kernels for f32).
 BWD_KERNEL_NAMES = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
@@ -513,6 +518,8 @@ class FlashAttentionBwdKernel:
         come from :func:`bwd_plan`; the f32 kernels size their own."""
         what = "flash attention backward kernel"
         B, Sq, H, D, Skv, Hkv = _check_qkv(q, k, v, what)
+        if D not in BWD_HEAD_DIMS:
+            raise ValueError(f"{what}: head dim {D} (takes {BWD_HEAD_DIMS})")
         _check_window(window, what)
         if isinstance(q_offset, torch.Tensor):
             raise TypeError(f"{what}: q_offset must be a host int")

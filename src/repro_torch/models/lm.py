@@ -1,6 +1,6 @@
 """The language model: init, prefill forward, cached decode and the
-training loss — the port of the dense and ssm (Mamba1) branches of
-``repro/models/lm.py``.
+training loss — the port of the dense, ssm (Mamba1 and Mamba2) and hybrid
+branches of ``repro/models/lm.py``.
 
 Parameters are the reference's nested dict with layers *stacked* on a
 leading axis (``params["layers"]["attn"]["wq"]`` is ``(n_layers, d_model,
@@ -18,8 +18,12 @@ layer body, which ``torch.utils.checkpoint`` re-runs in the backward pass.
 A cast is deterministic, so both paths give the same numbers for the same
 weights.
 
-Families other than ``dense`` and Mamba1 ``ssm`` raise
-:class:`NotImplementedError`.
+The hybrid family (zamba2) runs in groups: ``shared_attn_every`` Mamba2
+layers, then one application of the single shared attention block
+(``params["shared_attn"]``), whose weights every group reuses and whose
+KV cache each application keeps apart (``cache["k"][g]``).
+
+The moe, encdec and vlm families raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -41,12 +45,20 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" or (cfg.family == "ssm"
-                                 and cfg.ssm_type == "mamba1"):
+    if cfg.family in ("dense", "ssm", "hybrid"):
         return
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family ({cfg.ssm_type}) is not "
-        f"ported yet (dense and mamba1 ssm only)")
+        f"{cfg.name}: the {cfg.family!r} family is not ported yet (dense, "
+        f"ssm and hybrid only)")
+
+
+def _groups(cfg: ModelConfig) -> int:
+    """The hybrid family's groups: shared_attn_every SSM layers and one
+    shared-attention application each."""
+    if cfg.n_layers % cfg.shared_attn_every:
+        raise ValueError("hybrid needs n_layers divisible by "
+                         "shared_attn_every")
+    return cfg.n_layers // cfg.shared_attn_every
 
 
 # --------------------------------------------------------------------------
@@ -75,11 +87,19 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab), dtype=dtype)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         p["layers"] = {
             "ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
             "ssm": SSM.init_ssm(gen, cfg, **kw),
         }
+        if cfg.family == "hybrid":
+            _groups(cfg)
+            p["shared_attn"] = {
+                "ln": L.init_rms_norm(cfg.d_model, device=dev, dtype=dtype),
+                "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim_,
+                                         cfg.qk_norm, dtype=dtype),
+            }
         return p
     p["layers"] = {
         "ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
@@ -142,7 +162,7 @@ def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
     if dtype is not None:
         lp = cast_params(lp, dtype)
     eps = cfg.norm_eps
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
                                  cfg)
     h = L.rms_norm(x, lp["ln1"], eps)
@@ -152,32 +172,57 @@ def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
     return x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
 
 
+def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
+                  kv_chunk: int, dtype: Optional[torch.dtype] = None):
+    """One hybrid group's residual updates of ``x``: its SSM layers, then
+    the shared attention block ``sa`` (already in the compute dtype)."""
+    for lp in group:
+        x = _layer(cfg, lp, x, None, kv_chunk, dtype)
+    h = L.rms_norm(x, sa["ln"], cfg.norm_eps)
+    return x + L.attention_block(sa["attn"], h, kv_chunk=kv_chunk,
+                                 **_attn_kwargs(cfg))
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,
                    kv_chunk: int = 512, remat: bool = False) \
         -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) → final hidden states (B, S, d). Returns (hidden,
-    moe_aux); the aux loss of the dense and ssm families is 0.
+    moe_aux); the aux loss of the dense, ssm and hybrid families is 0.
 
     ``remat=False`` (serving) takes weights already cast to the compute
     dtype.  ``remat=True`` (training) takes master weights of any float
     dtype: the embedding rows are cast after the gather, each layer's
     weights inside its layer body, and each body runs under
     ``torch.utils.checkpoint``, so the backward pass recomputes a layer's
-    internals instead of keeping them (the reference's remat'd scan).
+    internals instead of keeping them (the reference's remat'd scan).  A
+    hybrid model's body is a whole group, as the reference remats its
+    group scan; its shared attention weights are cast once, outside.
     """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     if not remat:
         _check_dtype(params, dtype)
     x = params["embed"][tokens].to(dtype)
-    windows = _windows_per_layer(cfg, x.shape[1])
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        window = None if windows is None else windows[i]
-        if remat:
-            x = checkpoint(_layer, cfg, lp, x, window, kv_chunk, dtype,
-                           use_reentrant=False)
-        else:
-            x = _layer(cfg, lp, x, window, kv_chunk)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "hybrid":
+        E = cfg.shared_attn_every
+        sa = cast_params(params["shared_attn"], dtype)
+        for g in range(_groups(cfg)):
+            group = layers[g * E:(g + 1) * E]
+            if remat:
+                x = checkpoint(_hybrid_group, cfg, group, sa, x, kv_chunk,
+                               dtype, use_reentrant=False)
+            else:
+                x = _hybrid_group(cfg, group, sa, x, kv_chunk)
+    else:
+        windows = _windows_per_layer(cfg, x.shape[1])
+        for i, lp in enumerate(layers):
+            window = None if windows is None else windows[i]
+            if remat:
+                x = checkpoint(_layer, cfg, lp, x, window, kv_chunk, dtype,
+                               use_reentrant=False)
+            else:
+                x = _layer(cfg, lp, x, window, kv_chunk)
     x = L.rms_norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -229,7 +274,7 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
         part = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_loss, hidden[:, part], w,
                                    labels[:, part], use_reentrant=False)
-    return total / (B * S)   # the dense and ssm families have no aux loss
+    return total / (B * S)   # no family of the port has an aux loss
 
 
 # --------------------------------------------------------------------------
@@ -239,31 +284,37 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Params:
     """Zero decode cache on ``device``: the position, and per layer a KV
-    cache of ``max_len`` (dense) or the SSM state, h (L, B, d_inner, N) in
-    f32 and the conv window (L, B, K-1, d_inner) in the compute dtype
-    (ssm; its size does not depend on ``max_len``)."""
+    cache of ``max_len`` (dense) or the SSM state, h in f32 ((L, B,
+    d_inner, N) for Mamba1, (L, B, H, N, P) for Mamba2) and the conv window
+    (L, B, K-1, d_inner) in the compute dtype (ssm; its size does not
+    depend on ``max_len``).  A hybrid model has both: the SSM state of its
+    layers and a KV cache of ``max_len`` for each of its G shared-attention
+    applications, (G, B, max_len, Hkv, D)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
-    pos = torch.zeros((), dtype=torch.int32, device=dev)
-    if cfg.family == "ssm":
-        return {"pos": pos, "ssm": SSM.init_ssm_state(
-            cfg, batch, dtype, stack=cfg.n_layers, device=dev)}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"pos": pos,
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    cache: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.family in ("ssm", "hybrid"):
+        cache["ssm"] = SSM.init_ssm_state(cfg, batch, dtype,
+                                          stack=cfg.n_layers, device=dev)
+        if cfg.family == "ssm":
+            return cache
+    n = _groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
 
 
 def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     """One decode step: tokens (B, 1) → (logits (B, vocab) f32, cache).
 
     The cache is updated IN PLACE (the reference returns a new one): each
-    dense layer writes its new key/value at ``cache["pos"]`` with a
-    device-side index; each ssm layer copies its new h and conv window
-    over its slice of the stacked ``cache["ssm"]``.  ``cache["pos"]`` is
-    replaced by ``pos + 1`` on the device.  Nothing in the step reads a
-    device value on the host.
+    dense layer, and each hybrid group's shared-attention application,
+    writes its new key/value at ``cache["pos"]`` with a device-side index;
+    each ssm layer copies its new h and conv window over its slice of the
+    stacked ``cache["ssm"]``.  ``cache["pos"]`` is replaced by ``pos + 1``
+    on the device.  Nothing in the step reads a device value on the host.
     """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
@@ -272,7 +323,10 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     pos = cache["pos"]
     x = params["embed"][tokens].to(dtype)
     if cfg.family == "ssm":
-        x = _ssm_decode_layers(cfg, params, cache["ssm"], x)
+        x = _ssm_decode_layers(cfg, _unstack(params["layers"], cfg.n_layers),
+                               cache["ssm"], x, 0)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode_groups(cfg, params, cache, x)
     else:
         x = _dense_decode_layers(cfg, params, cache, x)
     x = L.rms_norm(x, params["final_norm"], eps)
@@ -281,14 +335,38 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     return logits, cache
 
 
-def _ssm_decode_layers(cfg: ModelConfig, params: Params, state: Params, x):
+def _ssm_decode_layers(cfg: ModelConfig, layers: List[Params],
+                       state: Params, x, first: int):
+    """One token through ``layers``, the model's layers ``first``,
+    ``first + 1``, …; each reads its slice of the stacked ``state`` and
+    overwrites it in place."""
     h_all, conv_all = state["h"], state["conv"]
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    for i, lp in enumerate(layers, first):
         h, st = SSM.ssm_decode(
             lp["ssm"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
             {"h": h_all[i], "conv": conv_all[i]}, cfg)
         h_all[i].copy_(st["h"])
         conv_all[i].copy_(st["conv"])
+        x = x + h
+    return x
+
+
+def _hybrid_decode_groups(cfg: ModelConfig, params: Params, cache: Params,
+                          x):
+    """Each group's SSM layers, then application g of the shared attention
+    against its own KV cache ``cache["k"][g]``, ``cache["v"][g]``."""
+    E = cfg.shared_attn_every
+    pos = cache["pos"]
+    pos_index = pos.reshape(1).long()
+    layers = _unstack(params["layers"], cfg.n_layers)
+    sa = params["shared_attn"]
+    for g in range(_groups(cfg)):
+        x = _ssm_decode_layers(cfg, layers[g * E:(g + 1) * E], cache["ssm"],
+                               x, g * E)
+        h = L.rms_norm(x, sa["ln"], cfg.norm_eps)
+        h, _, _ = L.attention_decode(
+            sa["attn"], h, cache["k"][g], cache["v"][g], pos,
+            pos_index=pos_index, **_attn_kwargs(cfg))
         x = x + h
     return x
 

@@ -1,6 +1,6 @@
 """Batched serving: restore weights from an scda checkpoint, decode tokens.
 
-The port of ``examples/serve_decode.py`` on the dense and Mamba1 ssm
+The port of ``examples/serve_decode.py`` on the dense, ssm and hybrid
 families: the weights are saved with :func:`repro_torch.checkpoint.save`,
 restored with ``restore(like=)`` onto the serving device (cast once to the
 compute dtype), and a batch of requests is fed token by token through
@@ -8,8 +8,9 @@ compute dtype), and a batch of requests is fed token by token through
 the argmax stay on the device: the loop reads nothing back until it ends.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen3-1.7b]
-      (``--arch falcon-mamba-7b`` serves the Mamba1 model; ``--device cpu
-      --smoke`` runs the reduced config on the host)
+      (``--arch falcon-mamba-7b`` serves the Mamba1 model, ``--arch
+      zamba2-2.7b`` the hybrid of Mamba2 layers and shared attention;
+      ``--device cpu --smoke`` runs the reduced config on the host)
 """
 from __future__ import annotations
 

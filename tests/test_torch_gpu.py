@@ -1,7 +1,7 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
 the backward) and the K2 kernels (the unfused scan, the fused scan and its
 backward) against their plain versions, the smoke models (qwen3,
-falcon-mamba) on CUDA against the same models on the CPU, both training
+falcon-mamba, zamba2) on CUDA against the same models on the CPU, both training
 paths (loss, gradients, kill and resume), and checkpoint round trips of
 CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
@@ -64,6 +64,10 @@ def _rand(rng, shape, dtype, device):
     (2, 16, 8, 300, 300, 128, True, None, 0),   # qwen3's heads, 5 tiles
     (1, 4, 2, 1, 100, 64, False, None, 20),     # non-causal decode
     (2, 4, 1, 1, 1, 32, True, None, 0),         # decode, a one-key cache
+    (2, 8, 8, 100, 100, 80, True, None, 0),     # head dim 80, group 1
+    (1, 8, 2, 70, 70, 80, True, None, 0),       # head dim 80, group 4
+    (1, 4, 4, 130, 130, 80, True, 16, 0),       # head dim 80, window
+    (2, 32, 32, 1, 300, 80, True, None, 157),   # zamba2's decode heads
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
                               window, q_offset):
@@ -87,12 +91,14 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
 @pytest.mark.parametrize("window", [None, 50])
 @pytest.mark.parametrize("group", [1, 2, 16])
 @pytest.mark.parametrize("pos", [0, 63, 64, 127, 128])
-def test_decode_kernel_at_split_boundaries(cuda, dtype, pos, group, window):
+@pytest.mark.parametrize("D", [64, 80])
+def test_decode_kernel_at_split_boundaries(cuda, dtype, pos, group, window,
+                                           D):
     """Decode against a 150-key cache (not a multiple of the 64-key split)
     on both sides of split boundaries; a window of 50 crosses one.  Held
     against both plain versions: the model's and the decode kernel's."""
     rng = np.random.default_rng(pos * 3 + group)
-    B, Hkv, D = 2, 2, 64
+    B, Hkv = 2, 2
     q = _rand(rng, (B, 1, Hkv * group, D), dtype, cuda)
     k = _rand(rng, (B, 150, Hkv, D), dtype, cuda)
     v = _rand(rng, (B, 150, Hkv, D), dtype, cuda)
@@ -120,12 +126,14 @@ def test_decode_is_deterministic(cuda, dtype):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
-def test_prefill_at_the_main_path_shape(cuda):
-    """qwen3's prefill: 4 x 512, 16 / 8 heads, head dim 128, bf16."""
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80)])
+def test_prefill_at_the_main_path_shape(cuda, H, Hkv, D):
+    """The prefills of the served models, 4 x 512 in bf16: qwen3's 16 / 8
+    heads of head dim 128 and zamba2's 32 / 32 of head dim 80."""
     rng = np.random.default_rng(9)
-    q = _rand(rng, (4, 512, 16, 128), torch.bfloat16, cuda)
-    k = _rand(rng, (4, 512, 8, 128), torch.bfloat16, cuda)
-    v = _rand(rng, (4, 512, 8, 128), torch.bfloat16, cuda)
+    q = _rand(rng, (4, 512, H, D), torch.bfloat16, cuda)
+    k = _rand(rng, (4, 512, Hkv, D), torch.bfloat16, cuda)
+    v = _rand(rng, (4, 512, Hkv, D), torch.bfloat16, cuda)
     got = flash_attention_cuda(q, k, v)
     want = flash_attention_plain(q, k, v)
     torch.testing.assert_close(got.float(), want.float(),
@@ -165,8 +173,8 @@ def test_kernel_reads_strided_views(cuda, Sq):
 
 @pytest.mark.parametrize("Sq", [1, 4])
 def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
-    """Neither kernel takes fp16, head dim 256 or a group over 64: the
-    wrapper raises before a launch, and nothing falls back."""
+    """Neither forward kernel takes fp16, head dim 256 or a group over 64:
+    the wrapper raises before a launch, and nothing falls back."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda)  # noqa
     before = flash_attention_cuda.launches
     with pytest.raises(TypeError):
@@ -179,6 +187,26 @@ def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
     with pytest.raises(ValueError, match="aligned"):
         flash_attention_cuda(z(1, Sq, 2, 64), *[z(1, 8, 1, 68)[..., :64]] * 2)
     assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_refuses_head_dim_80(cuda, dtype):
+    """The forward takes head dim 80, the backward kernels do not: their
+    wrapper raises naming the head dim before a launch, and autograd
+    through ops.flash_attention raises at the backward, with no plain
+    fallback."""
+    rng = np.random.default_rng(12)
+    q, k, v, dout = (_rand(rng, (1, 70, 4, 80), dtype, cuda)
+                     for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    before = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim 80"):
+        flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = ops.flash_attention(*leaves)
+    with pytest.raises(ValueError, match="head dim 80"):
+        torch.autograd.grad(got, leaves, dout)
+    assert flash_attention_bwd_cuda.launches == before
 
 
 def test_smoke_model_on_cuda_matches_cpu(cuda):
@@ -272,6 +300,38 @@ def test_falcon_smoke_on_cuda_matches_cpu(cuda, fused, monkeypatch):
         lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     assert kernel.launches == before   # decode reaches no kernel
+    torch.testing.assert_close(c_gpu["ssm"]["h"].cpu(), c_cpu["ssm"]["h"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_zamba2_smoke_on_cuda_matches_cpu(cuda):
+    """The hybrid smoke model: a K1 prefill launch for each of its shared
+    attention applications in the forward, a K1 decode launch for each in
+    every decode step; logits and every cache against the CPU's."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import forward, init_cache, init_lm, serve_step
+    cfg = smoke(get_config("zamba2-2.7b"))
+    G = cfg.n_layers // cfg.shared_attn_every
+    cpu = init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, cuda)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    want = forward(cfg, cpu, tok)
+    before = flash_attention_cuda.launches
+    got = forward(cfg, gpu, tok.to(cuda))
+    assert flash_attention_cuda.launches - before == G
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    c_cpu = init_cache(cfg, 2, 16, device="cpu")
+    c_gpu = init_cache(cfg, 2, 16, device=cuda)
+    before = flash_attention_cuda.launches
+    for i in range(8):
+        lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
+        lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert flash_attention_cuda.launches - before == 8 * G
+    for name in ("k", "v"):
+        torch.testing.assert_close(c_gpu[name].cpu(), c_cpu[name],
+                                   rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(c_gpu["ssm"]["h"].cpu(), c_cpu["ssm"]["h"],
                                rtol=1e-4, atol=1e-4)
 

@@ -22,7 +22,8 @@ from repro.models.layers import flash_attention as jax_flash  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    BWD_HEAD_DIMS, HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda,
+    flash_attention_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -53,6 +54,8 @@ def _np(x):
     (2, 4, 2, 16, 16, 8),       # GQA
     (1, 4, 4, 24, 16, 8),       # Sq != Skv (unaligned to blocks)
     (2, 8, 2, 8, 32, 16),       # long kv, group 4
+    (1, 4, 4, 16, 16, 80),      # head dim 80 (zamba2), group 1
+    (2, 4, 2, 12, 20, 80),      # head dim 80, GQA, Sq != Skv
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_kernel_sweep(B, H, Hkv, Sq, Skv, D, dtype):
@@ -103,6 +106,26 @@ def test_plain_matches_model_attention(q_offset, window, kv_chunk, Sq, Skv,
                                 torch.from_numpy(v), causal=True,
                                 window=window, kv_chunk=kv_chunk,
                                 q_offset=off)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("q_offset,Sq,Skv", [
+    (0, 16, 16),     # prefill
+    (5, 3, 16),      # an offset
+    (15, 1, 16),     # one-token decode at the last position
+])
+def test_plain_matches_model_attention_at_head_dim_80(q_offset, Sq, Skv):
+    """Head dim 80 and one kv head a q head, as zamba2's shared attention
+    has them, against the JAX model's chunked flash."""
+    rng = np.random.default_rng(17)
+    B, H, D = 2, 4, 80
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, Sq, H, D), (B, Skv, H, D), (B, Skv, H, D)))
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, kv_chunk=8, q_offset=jnp.int32(q_offset))
+    got = flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=True, kv_chunk=8,
+                                q_offset=q_offset)
     np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
 
@@ -158,3 +181,18 @@ def test_kernel_wrapper_validates_before_launch(bad, monkeypatch):
     with pytest.raises((ValueError, TypeError)):
         flash_attention_cuda(q, k, k, **kw)
     assert flash_attention_cuda.launches == before
+
+
+def test_backward_wrapper_refuses_head_dim_80_before_launch(monkeypatch):
+    """The forward takes head dim 80; the backward kernels do not, and
+    their wrapper raises before anything is launched."""
+    assert 80 in HEAD_DIMS and 80 not in BWD_HEAD_DIMS
+    q = torch.zeros(1, 4, 2, 80, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 4)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    before = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim 80"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert flash_attention_bwd_cuda.launches == before

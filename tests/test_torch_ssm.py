@@ -262,17 +262,6 @@ def test_softplus_has_no_linear_cutoff():
         np.asarray(jax.nn.softplus(jnp.asarray(x.numpy()))), rtol=1e-6)
 
 
-def test_mamba2_raises_not_implemented():
-    cfg = tsmoke(tget("zamba2-2.7b"))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        TS.init_ssm(gen, cfg)
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        TS.ssm_block({}, torch.zeros(1, 4, cfg.d_model), cfg)
-    with pytest.raises(NotImplementedError, match="mamba2"):
-        TS.init_ssm_state(cfg, 1)
-
-
 # ------------------------------------------- (d) the falcon-mamba smoke model --
 @pytest.fixture(scope="module")
 def model():

@@ -64,7 +64,12 @@
 // layout both TMA's swizzle and wgmma's descriptors name.  At D = 128 the
 // dK/dV kernel holds K and V (64 KB) and four stages of Q and dO (128 KB),
 // the dQ kernel Q and dO (64 KB) and four stages of K and V (128 KB): one
-// block of 256 threads per SM.
+// block of 256 threads per SM.  D = 80 (zamba2) keeps the 128-byte swizzle
+// and the tiles of D = 128: its 160-byte rows take two column blocks, the
+// second's last 48 columns zero (TMA's fill), so the products over D take
+// 5 k-steps of 16 with no padding, those with D as N are m64n80k16 (40
+// accumulators a thread) reading the second block through the descriptor's
+// leading byte offset, and the epilogue's stores clip the padding.
 // What bounds it: 5 products of 2.B.H.Sq.Skv.D flops (halved by a causal
 // mask) against reading q, k, v, o, dO once and writing dq, dk, dv once; at
 // qwen3's training shape (B 8, S 1024, 16/8 heads, D 128) that is 86 GFLOP
@@ -75,15 +80,16 @@
 // every tile in shared memory: flash_bwd_dkdv_fma_kernel and
 // flash_bwd_dq_fma_kernel, 64 keys or rows a block and query rows (query
 // position, q head of the group) interleaved, 32 a tile.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <stdint.h>
 #include <math.h>
 
+#include "tma.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int NT = 128;   // threads per block of the preprocess and FMA kernels
@@ -99,7 +105,6 @@ constexpr int TC_THREADS = 2 * WG;
 constexpr int ROWS = 64;              // rows of every operand tile
 constexpr int BLOCK_ROWS = 2 * ROWS;  // keys (dK/dV) or positions (dQ) a block
 constexpr int STAGES = 4;             // the ring of walked tiles
-constexpr long long WAIT_LIMIT = 1ll << 33;  // cycles (seconds) before a wait traps
 
 // Element strides (batch, seq, head) of one (B, S, heads, D) tensor.
 struct Stride {
@@ -116,8 +121,6 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
@@ -150,70 +153,7 @@ __device__ __forceinline__ float tile_lse(const Args& a, int b, int hk, int r, i
   return l == -INFINITY ? INFINITY : l;
 }
 
-// ------------------------------------------------ Hopper: TMA, mbarriers --
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-      :: "r"(smem_u32(bar))
-      : "memory");
-}
-// Arrive, and expect `bytes` more of TMA traffic before the phase completes.
-__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
-      :: "r"(smem_u32(bar)), "r"(bytes)
-      : "memory");
-}
-// Wait until the phase of parity `parity` has completed.  A wait that lasts
-// seconds is a fault: trap, so the launch fails instead of hanging.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-  }
-}
-
-// A 4-D box (d, head, seq, batch) of a tensor map into shared memory,
-// counted on `bar`; and back out of shared memory (tma_store).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int d, int h, int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(d), "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int d, int h,
-                                          int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
-         "r"(d), "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
+// -------------------------------------------- Hopper: fences, barriers --
 // Generic-proxy writes to shared memory, made visible to TMA and wgmma.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -329,6 +269,26 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -399,14 +359,18 @@ __device__ __forceinline__ bool valid(const Args& a, int kv, int pos) {
 // One operand tile: ROWS rows of D bf16 in column blocks of SW bytes a row,
 // the swizzle's span; a block is ROWS * SW bytes, and the 16-byte chunks of
 // a row are permuted by the row's place in 8 (CUTLASS's Swizzle<3,4,3> at
-// 128 bytes), the layout TMA writes and wgmma reads.
+// 128 bytes), the layout TMA writes and wgmma reads.  A D that is no
+// multiple of BOX (80: a 160-byte row) takes a last block that is partly
+// past the tensor map's D columns: TMA fills those columns with zeros on a
+// load, and still counts the whole box's bytes on the mbarrier, and clips
+// them on a store.
 template <int D>
 struct Tile {
   static constexpr int SW = D >= 64 ? 128 : 2 * D;  // bytes a row of a column block
   static constexpr int BOX = SW / 2;                // elements a row of a column block
-  static constexpr int BLOCKS = D / BOX;            // column blocks
+  static constexpr int BLOCKS = (D + BOX - 1) / BOX;  // column blocks
   static constexpr int BLOCK_BYTES = ROWS * SW;
-  static constexpr int BYTES = ROWS * D * 2;
+  static constexpr int BYTES = BLOCKS * BLOCK_BYTES;
   static constexpr uint64_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma's swizzle code
 };
 
@@ -492,7 +456,7 @@ __device__ __forceinline__ void init_ring(uint64_t* once, int once_count, uint64
       bar_init(&full[s], full_count);
       bar_init(&empty[s], 2 * WG / 32);  // each warp arrives once a tile
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 }
@@ -614,8 +578,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       bar_arrive_expect(&full[stage], 2 * TL::BYTES);
       for (int cb = 0; cb < TL::BLOCKS; ++cb) {
         const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
-        tma_load(smem + SM::Q + at, &maps.q, &full[stage], cb * TL::BOX, hq, p0, b);
-        tma_load(smem + SM::DO + at, &maps.dout, &full[stage], cb * TL::BOX, hq, p0, b);
+        tma_load_4d(smem + SM::Q + at, &maps.q, &full[stage], cb * TL::BOX, hq, p0, b);
+        tma_load_4d(smem + SM::DO + at, &maps.dout, &full[stage], cb * TL::BOX, hq, p0, b);
       }
     } else {
       bar_arrive(&full[stage]);
@@ -627,8 +591,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       for (int half = 0; half < 2; ++half)
         for (int cb = 0; cb < TL::BLOCKS; ++cb) {
           const int at = half * TL::BYTES + cb * TL::BLOCK_BYTES, j = j_blk + half * ROWS;
-          tma_load(smem + SM::K + at, &maps.k, kv_full, cb * TL::BOX, hk, j, b);
-          tma_load(smem + SM::V + at, &maps.v, kv_full, cb * TL::BOX, hk, j, b);
+          tma_load_4d(smem + SM::K + at, &maps.k, kv_full, cb * TL::BOX, hk, j, b);
+          tma_load_4d(smem + SM::V + at, &maps.v, kv_full, cb * TL::BOX, hk, j, b);
         }
     }
     float l[STAGES][2], d[STAGES][2];  // every stage starts free
@@ -736,8 +700,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   warpgroup_sync(1 + c);
   if (tid == 0 && j0 < a.Skv) {
     for (int cb = 0; cb < TL::BLOCKS; ++cb) {
-      tma_store(&maps.dk, tk + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
-      tma_store(&maps.dv, tv + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+      tma_store_4d(&maps.dk, tk + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+      tma_store_4d(&maps.dv, tv + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
     }
     tma_store_wait();
   }
@@ -792,8 +756,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     bar_arrive_expect(&full[stage], 2 * TL::BYTES);
     for (int cb = 0; cb < TL::BLOCKS; ++cb) {
       const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
-      tma_load(smem + SM::K + at, &maps.k, &full[stage], cb * TL::BOX, hk, k0, b);
-      tma_load(smem + SM::V + at, &maps.v, &full[stage], cb * TL::BOX, hk, k0, b);
+      tma_load_4d(smem + SM::K + at, &maps.k, &full[stage], cb * TL::BOX, hk, k0, b);
+      tma_load_4d(smem + SM::V + at, &maps.v, &full[stage], cb * TL::BOX, hk, k0, b);
     }
   };
   if (threadIdx.x < 32) {  // the block's positions' statistics, Q and dO
@@ -815,8 +779,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       for (int half = 0; half < 2; ++half)
         for (int cb = 0; cb < TL::BLOCKS; ++cb) {
           const int at = half * TL::BYTES + cb * TL::BLOCK_BYTES, p = p_blk + half * ROWS;
-          tma_load(smem + SM::Q + at, &maps.q, qo_full, cb * TL::BOX, hq, p, b);
-          tma_load(smem + SM::DO + at, &maps.dout, qo_full, cb * TL::BOX, hq, p, b);
+          tma_load_4d(smem + SM::Q + at, &maps.q, qo_full, cb * TL::BOX, hq, p, b);
+          tma_load_4d(smem + SM::DO + at, &maps.dout, qo_full, cb * TL::BOX, hq, p, b);
         }
       for (int it = 0; it < min(STAGES, n_t); ++it) fill(it);  // every stage starts free
     } else {
@@ -917,7 +881,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   warpgroup_sync(1 + c);
   if (tid == 0 && p0 < a.Sq) {
     for (int cb = 0; cb < TL::BLOCKS; ++cb)
-      tma_store(&maps.dq, tq + cb * TL::BLOCK_BYTES, cb * TL::BOX, hq, p0, b);
+      tma_store_4d(&maps.dq, tq + cb * TL::BLOCK_BYTES, cb * TL::BOX, hq, p0, b);
     tma_store_wait();
   }
 }
@@ -1111,35 +1075,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(Args a) {
 }
 
 // ----------------------------------------------------------------- launchers --
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes, unsigned long long* done) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (*done & bit) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done |= bit;
-  return (int)err;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the libcuda the runtime has loaded,
-// so this library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of a (B, S, heads, D) bf16 tensor, as the 4-D array
 // (D, heads, S, B) with its own strides, in boxes of one column block of
 // ROWS positions of one head, swizzled as Tile<D> lays them out.  TMA needs
@@ -1248,6 +1183,7 @@ int run(Phase phase, int dtype, int D, const void* q, const void* k, const void*
     case 16: REPRO_BWD_PHASE(16)
     case 32: REPRO_BWD_PHASE(32)
     case 64: REPRO_BWD_PHASE(64)
+    case 80: REPRO_BWD_PHASE(80)
     case 128: REPRO_BWD_PHASE(128)
   }
 #undef REPRO_BWD_PHASE

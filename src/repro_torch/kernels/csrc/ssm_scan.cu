@@ -81,11 +81,11 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "ssm_tma.cuh"
+#include "tma.cuh"
 
 namespace {
 
-using namespace ssm_tma;
+using namespace hopper;
 
 constexpr int NT = 128;          // threads per block: NT / P channels
 constexpr int U = 8;             // time steps loaded ahead of the recurrence

@@ -67,11 +67,11 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "ssm_tma.cuh"
+#include "tma.cuh"
 
 namespace {
 
-using namespace ssm_tma;
+using namespace hopper;
 
 constexpr int NTB = 128;       // threads a block: NTB / L channels a pass
 constexpr int NW = NTB / 32;   // warps a block

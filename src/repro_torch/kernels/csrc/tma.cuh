@@ -1,8 +1,10 @@
-// Staging helpers shared by the fused K2 forward (ssm_scan.cu) and K2's
-// backward (ssm_scan_bwd.cu): mbarriers, TMA loads of tiles of (B, S, cols)
-// tensors with a row stride, a plain bulk copy, and the host-side encoder
-// of the tensor maps (cuTensorMapEncodeTiled, looked up in the libcuda the
-// runtime has loaded, so these libraries need no link against libcuda).
+// Staging helpers of the Hopper kernels that move tiles by TMA: K1's
+// backward (flash_attention_bwd.cu), the fused K2 forward (ssm_scan.cu) and
+// K2's backward (ssm_scan_bwd.cu).  mbarriers with a wait that traps, TMA
+// loads and stores of tensor-map boxes, a plain bulk copy, the host-side
+// encoder of tensor maps (cuTensorMapEncodeTiled, looked up in the libcuda
+// the runtime has loaded, so these libraries need no link against libcuda),
+// the shared-memory opt-in, and K2's packed rows of a staged tile.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_runtime.h>
@@ -10,7 +12,7 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-namespace ssm_tma {
+namespace hopper {
 
 constexpr long long WAIT_LIMIT = 1ll << 33;  // cycles (seconds) before a wait traps
 
@@ -26,6 +28,13 @@ __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
 }
 __device__ __forceinline__ void bar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      :: "r"(smem_u32(bar))
+      : "memory");
 }
 // Arrive, and expect `bytes` more of TMA traffic before the phase completes.
 __device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, uint32_t bytes) {
@@ -63,6 +72,29 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(col), "r"(row), "r"(batch)
       : "memory");
+}
+// A 4-D box (d, head, seq, batch) of a tensor map into shared memory,
+// counted on `bar`; and back out of shared memory (tma_store_4d).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int d, int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(d), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int d,
+                                             int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(d), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+// Commit the stores issued so far and wait until they have read shared memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 // `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
 // aligned), counted on `bar`.
@@ -113,11 +145,24 @@ inline int tensor_map_rows(CUtensorMap* map, int dtype, const void* base, long l
 }
 
 // Opens `bytes` of dynamic shared memory to `kernel` (above the 48 KB
-// default).  Returns 0 or the cudaError_t.
+// default).  With `done`, a bit a device records that this kernel's
+// constant size is open there already, so later launches skip the call.
+// Returns 0 or the cudaError_t.
 template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
+int allow_smem(Kernel kernel, int bytes, unsigned long long* done = nullptr) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  unsigned long long bit = 0;
+  if (done != nullptr) {
+    int dev = 0;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    bit = 1ull << (dev & 63);
+    if (*done & bit) return 0;
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && done != nullptr) *done |= bit;
+  return (int)err;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -164,4 +209,4 @@ __device__ __forceinline__ void load_f32(const T* p, float (&out)[NL]) {
   for (int i = 0; i < NL; ++i) out[i] = r[i];
 }
 
-}  // namespace ssm_tma
+}  // namespace hopper

@@ -48,10 +48,10 @@ DECODE_SPLIT = 64   # keys per decode split (SPLIT in the source)
 KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
                 "flash_decode_kernel")
 BWD_SOURCE = "flash_attention_bwd.cu"
-#: Head dims the backward kernels are instantiated for: the bf16 kernels'
-#: 128-byte swizzled tiles take rows of 32, 64 or a multiple of 128 bytes,
-#: which a 160-byte row of head dim 80 is not.
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the backward kernels are instantiated for (80: zamba2, its
+#: 160-byte rows in two 128-byte swizzled column blocks, the second padded
+#: with zeros by TMA).
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 #: The backward's kernels, as a profiler shows them: the preprocess, then
 #: dK/dV and dQ (wgmma and TMA for bf16, FMA kernels for f32).
 BWD_KERNEL_NAMES = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",

@@ -1,8 +1,8 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
 the backward) and the K2 kernels (the unfused scan, the fused scan and its
 backward) against their plain versions, the smoke models (qwen3,
-falcon-mamba, zamba2) on CUDA against the same models on the CPU, both training
-paths (loss, gradients, kill and resume), and checkpoint round trips of
+falcon-mamba, zamba2) on CUDA against the same models on the CPU, the three
+training paths (loss, gradients, kill and resume), and checkpoint round trips of
 CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
@@ -190,23 +190,23 @@ def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_refuses_head_dim_80(cuda, dtype):
-    """The forward takes head dim 80, the backward kernels do not: their
-    wrapper raises naming the head dim before a launch, and autograd
-    through ops.flash_attention raises at the backward, with no plain
-    fallback."""
+def test_backward_refuses_head_dim_256(cuda, dtype):
+    """Head dim 256 (gemma3-4b) has no backward instantiation: the
+    backward's wrapper raises naming the head dim before a launch, and
+    autograd through ops.flash_attention raises (at the forward, which
+    lacks 256 too), with no plain fallback."""
     rng = np.random.default_rng(12)
-    q, k, v, dout = (_rand(rng, (1, 70, 4, 80), dtype, cuda)
+    q, k, v, dout = (_rand(rng, (1, 70, 4, 256), dtype, cuda)
                      for _ in range(4))
-    out, lse = flash_attention_cuda(q, k, v, with_lse=True)
-    before = flash_attention_bwd_cuda.launches
-    with pytest.raises(ValueError, match="head dim 80"):
-        flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    lse = torch.zeros((1, 4, 70), dtype=torch.float32, device=cuda)
+    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention_bwd_cuda(q, k, v, q, dout, lse)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = ops.flash_attention(*leaves)
-    with pytest.raises(ValueError, match="head dim 80"):
-        torch.autograd.grad(got, leaves, dout)
-    assert flash_attention_bwd_cuda.launches == before
+    with pytest.raises(ValueError, match="head dim 256"):
+        ops.flash_attention(*leaves)
+    assert flash_attention_cuda.launches == f0
+    assert flash_attention_bwd_cuda.launches == b0
 
 
 def test_smoke_model_on_cuda_matches_cpu(cuda):
@@ -387,6 +387,11 @@ BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
     (1, 2, 1, 8, 8, 64, True, 0, 0),             # empty window: all zero
     (2, 16, 8, 300, 300, 128, True, None, 0),    # qwen3's heads, ragged
     (1, 16, 8, 1024, 1024, 128, True, None, 0),  # qwen3's training length
+    (1, 32, 32, 300, 300, 80, True, None, 0),    # zamba2's heads, ragged
+    (2, 4, 4, 130, 130, 80, True, 16, 0),        # head dim 80, window
+    (1, 4, 2, 20, 100, 80, False, None, 0),      # head dim 80, Sq != Skv
+    (2, 8, 8, 129, 257, 80, True, None, 128),    # head dim 80, q_offset
+    (1, 32, 32, 1024, 1024, 80, True, None, 0),  # zamba2's training length
 ]
 
 
@@ -430,10 +435,11 @@ def test_backward_matches_plain_autograd(cuda, dtype, B, H, Hkv, Sq, Skv, D,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80)])
+def test_backward_is_deterministic(cuda, dtype, H, Hkv, D):
     """No atomics: two backward calls on the same inputs give the same bits."""
     rng = np.random.default_rng(11)
-    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, 16, 8, 300, 300, 128)
+    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, H, Hkv, 300, 300, D)
     out, lse = flash_attention_cuda(q, k, v, with_lse=True)
     a = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
     b = flash_attention_bwd_cuda(q, k, v, out, dout, lse)
@@ -451,11 +457,12 @@ def test_lse_output_leaves_the_forward_unchanged(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_autograd_goes_through_the_kernels(cuda, dtype):
+@pytest.mark.parametrize("D", [64, 80])
+def test_autograd_goes_through_the_kernels(cuda, dtype, D):
     """ops.flash_attention under autograd: one forward launch, the backward
     kernels' launches, and the gradients of the plain version."""
     rng = np.random.default_rng(13)
-    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, 8, 2, 70, 70, 64)
+    q, k, v, dout = _bwd_inputs(rng, dtype, cuda, 2, 8, 2, 70, 70, D)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
     out = ops.flash_attention(*leaves, window=40)
@@ -542,6 +549,49 @@ def test_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
         torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
 
 
+#: The hybrid smoke model's f32 gradients, two evaluations in another sum
+#: order, by relative L2: its Mamba2 layers' gradients (A_log's, the tied
+#: embedding's) move by up to 1.2e-4 between two f32 evaluations
+#: (tests/test_torch_hybrid.py's GRAD_REL).
+HYBRID_GRAD_REL = 2e-4
+
+
+def test_hybrid_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
+    """The zamba2 smoke model at head dim 80 (zamba2's): lm_loss and every
+    leaf's gradient through K1's forward and its backward at D 80, one of
+    each a shared-attention application (the forward twice: remat), and
+    the Mamba2 layers through autograd of plain torch, against the same
+    on the CPU: the loss within 1e-5, each gradient within HYBRID_GRAD_REL
+    by relative L2."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_lm, lm_loss
+    cfg = dataclasses.replace(smoke(get_config("zamba2-2.7b")), head_dim=80)
+    G = cfg.n_layers // cfg.shared_attn_every
+    tok, lab = _smoke_batch(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16)
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            assert flash_attention_cuda.launches - f0 == 2 * G
+            assert flash_attention_bwd_cuda.launches - b0 == \
+                BWD_LAUNCHES_PER_CALL * G
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    assert "shared_attn/attn/wq" in names
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel <= HYBRID_GRAD_REL, f"{name}: relative L2 {rel}"
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -556,7 +606,8 @@ def _get(tree, name):
     return tree
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
+                                  "zamba2-2.7b"])
 def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
                                                                tmp_path,
                                                                arch):
@@ -583,13 +634,15 @@ def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
         o["manager"].close()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
+                                  "zamba2-2.7b"])
 def test_launcher_trains_on_the_card(cuda, tmp_path, capsys, arch):
     """python -m repro_torch.launch.train --arch <arch>: the card is the
     default device; falcon-mamba's steps go through the fused K2 and its
-    backward."""
+    backward, qwen3's and zamba2's through K1's backward."""
     from repro_torch.launch import train as launch
     f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
+    a0 = flash_attention_bwd_cuda.launches
     launch.main(["--arch", arch, "--steps", "3", "--seq-len", "16",
                  "--global-batch", "2", "--ckpt-every", "2", "--ckpt-dir",
                  str(tmp_path)])
@@ -599,6 +652,8 @@ def test_launcher_trains_on_the_card(cuda, tmp_path, capsys, arch):
                ss.ssm_scan_bwd_cuda.launches > b0)
     assert trained == ((True, True) if arch == "falcon-mamba-7b"
                        else (False, False))
+    assert (flash_attention_bwd_cuda.launches > a0) == (
+        arch != "falcon-mamba-7b")
 
 
 def test_pinned_snapshot_is_not_reached_by_in_place_updates(cuda,

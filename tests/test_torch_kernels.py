@@ -183,16 +183,24 @@ def test_kernel_wrapper_validates_before_launch(bad, monkeypatch):
     assert flash_attention_cuda.launches == before
 
 
-def test_backward_wrapper_refuses_head_dim_80_before_launch(monkeypatch):
-    """The forward takes head dim 80; the backward kernels do not, and
-    their wrapper raises before anything is launched."""
-    assert 80 in HEAD_DIMS and 80 not in BWD_HEAD_DIMS
-    q = torch.zeros(1, 4, 2, 80, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 4)
+@pytest.mark.parametrize("D,match", [
+    (80, "lse must be"),     # admitted: the next check refuses the bad lse
+    (256, "head dim 256"),   # gemma3-4b's: no instantiation
+    (72, "head dim 72"),     # no multiple of 16
+])
+def test_backward_wrapper_admits_head_dim_80_and_refuses_others_before_launch(
+        monkeypatch, D, match):
+    """The backward kernels take head dim 80 (zamba2): at 80 the wrapper
+    passes its head-dim checks and stops only at the malformed lse given
+    here.  A head dim the kernels lack raises on the head dim.  Neither
+    launches anything."""
+    assert 80 in BWD_HEAD_DIMS and (D in BWD_HEAD_DIMS) == (D == 80)
+    q = torch.zeros(1, 4, 2, D, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 5)   # Sq is 4
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
     before = flash_attention_bwd_cuda.launches
-    with pytest.raises(ValueError, match="head dim 80"):
+    with pytest.raises(ValueError, match=match):
         flash_attention_bwd_cuda(q, q, q, q, q, lse)
     assert flash_attention_bwd_cuda.launches == before

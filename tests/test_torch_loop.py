@@ -21,8 +21,9 @@ from repro_torch.configs import smoke as tsmoke  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 
-#: The dense and the Mamba1 (ssm) family: the loop runs for both.
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
+#: The dense, the Mamba1 (ssm) and the hybrid family: the loop runs for
+#: the three.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b")
 
 
 @pytest.fixture(autouse=True, scope="module")

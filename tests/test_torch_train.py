@@ -1,6 +1,6 @@
 """The port's training path against the JAX package's, on the CPU: the
-attention gradient, the loss and every parameter's gradient of the qwen3
-and falcon-mamba smoke configs, one train step (the loop is in
+attention gradient, the loss and every parameter's gradient of the qwen3,
+falcon-mamba and zamba2 smoke configs, one train step (the loop is in
 test_torch_loop.py; the Mamba1 scan's gradient in test_torch_ssm_train.py)."""
 import numpy as np
 import pytest
@@ -25,9 +25,9 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
-#: The dense and the Mamba1 (ssm) family: every model-level test runs on
-#: both smoke configs.
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b")
+#: The dense, the Mamba1 (ssm) and the hybrid family: every model-level
+#: test runs on the three smoke configs.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b")
 B, S, CHUNK = 2, 32, 16
 
 
@@ -177,9 +177,10 @@ def test_remat_does_not_change_the_loss_or_gradients(model):
 def test_train_step_matches_jax(model):
     """One make_train_step step: params, optimizer state and metrics, all
     at 1e-5.  qwen3's parameters are held element by element against the
-    reference's step.  falcon-mamba's are held in two parts, because one of
-    its smoke gradients sits near AdamW's eps, where the first update lr g /
-    (|g| + eps) turns a 5e-9 difference of g into 3e-5 of the parameter:
+    reference's step.  falcon-mamba's and zamba2's are held in two parts,
+    because some of their smoke gradients sit near AdamW's eps, where the
+    first update lr g / (|g| + eps) turns a difference of g of 5e-9
+    (falcon) or a few 1e-8 (zamba2) into 3e-5 to 9e-5 of the parameter:
     the step is, bit for bit, the port's AdamW on the port's gradient, and
     the port's AdamW on the reference's gradient gives the reference
     AdamW's parameters at 1e-5.  The gradient itself is held through mu."""
@@ -195,7 +196,7 @@ def test_train_step_matches_jax(model):
     tp2, ts2, tm = step(tp, ts, {"tokens": torch.from_numpy(tok),
                                  "labels": torch.from_numpy(lab).long()})
     held = [(ts2.mu, js2.mu), (ts2.nu, js2.nu)]
-    if tcfg.family != "ssm":
+    if tcfg.family == "dense":
         held.append((tp2, jp2))
     else:
         tp = _tp(jp)
@@ -222,8 +223,13 @@ def test_train_step_matches_jax(model):
             np.testing.assert_allclose(t.detach().numpy(), w[name],
                                        err_msg=name, **tol)
     assert int(ts2.count) == int(js2.count) == 1
-    for k in ("loss", "grad_norm", "lr"):
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]), **tol)
+    # zamba2's global gradient norm: the two packages' f32 values meet at
+    # 1.2e-5 relative (the hybrid's f32 gradients differ by up to GRAD_REL,
+    # 2e-4, in tests/test_torch_hybrid.py)
+    norm_tol = dict(tol, rtol=2e-5) if tcfg.family == "hybrid" else tol
+    for k, t in (("loss", tol), ("grad_norm", norm_tol), ("lr", tol)):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), err_msg=k,
+                                   **t)
 
 
 def test_per_layer_cast_equals_the_cast_once_serve_path(model):

@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one process per source, all at once), holds each kernel
-against its plain PyTorch version on the card, then runs the port's
-serving path for three models at full width, random bf16 weights from a
+against its plain PyTorch version on the card (K1 at each served model's
+heads, and at gemma3's long-context shapes), then runs the port's
+serving path for four models at full width, random bf16 weights from a
 seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
@@ -28,7 +29,15 @@ prompt, then 32 greedy tokens).
   its own KV cache) through K1 at head dim 80: its prefill kernel in every
   application of a prefill, its decode kernel in every application of a
   decode step; then each application held at full width against the
-  plain attention, and each Mamba2 layer's decode against its prefill.
+  plain attention, and each Mamba2 layer's decode against its prefill;
+- gemma3-4b (34 layers, d_model 2560, 8 / 4 heads of head dim 256, a
+  1024-key window on 29 local layers and none on the 5 global ones, GeGLU
+  10 240, vocab 262 144; 7.76 GB of weights) through K1 at head dim 256,
+  as qwen3; then its window on the card: a prefill of 1 × 4096 tokens and
+  32 decode steps of one request from a cache of 4160 keys whose K/V are
+  seeded random values and whose position is set to 4064 (the reference
+  has no prefill into a cache, and 4064 steps would take minutes), each
+  held against the plain attention.
 
 Then the three families train at full width (8 x 1024 tokens a step, f32
 master weights, AdamW), each through ``repro_torch.train.loop.train``: run
@@ -73,12 +82,21 @@ ROOT = Path(__file__).resolve().parent
 QWEN = "qwen3-1.7b"
 FALCON = "falcon-mamba-7b"
 ZAMBA = "zamba2-2.7b"
+GEMMA = "gemma3-4b"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 512
 SERVE_B, MAX_LEN, PROMPT_LEN, GEN_LEN = 4, 1024, 64, 32
 DECODE_OFFSETS = (63, 95, 511, 1023)
 #: K1's heads on the served paths: (q heads, kv heads, head dim).
-K1_HEADS = {"qwen3-1.7b": (16, 8, 128), "zamba2-2.7b": (32, 32, 80)}
+K1_HEADS = {"qwen3-1.7b": (16, 8, 128), "zamba2-2.7b": (32, 32, 80),
+            "gemma3-4b": (8, 4, 256)}
+#: gemma3's window on the card: a prefill of 1 x LONG_S tokens, and
+#: LONG_STEPS decode steps of one request from a cache of LONG_CACHE keys
+#: whose position is set to LONG_POS (its K/V seeded random values: the
+#: reference has no prefill into a cache, and LONG_POS decode steps would
+#: take minutes).
+LONG_S = 4096
+LONG_CACHE, LONG_POS, LONG_STEPS = 4160, 4064, 32
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -113,9 +131,10 @@ TOL_SCAN = dict(rtol=1e-5, atol=1e-5)
 #: such differences until the logits decorrelate (the run prints how far),
 #: so the logits of two rounding paths are reported, not held.
 REL_LAYER_PLAIN = 1e-3
-#: zamba2, one shared-attention application at full width: the block's bf16
-#: output through K1 against the same block through the plain attention on
-#: the same input (the kernel rounds p to bf16 per 64-key tile, the plain
+#: One attention block at full width (a zamba2 application, a gemma3
+#: layer, prefill or decode): its bf16 output through K1 against the same
+#: block through the plain attention on the same input (the kernel rounds
+#: p to bf16 per 64-key tile or split, 32 at gemma3's head dim, the plain
 #: version per 512-key chunk; then the bf16 output projection).
 REL_APP = 1e-2
 #: The fused K2 forward against mamba1_scan_plain: both build decay with
@@ -239,30 +258,64 @@ def device_split_ms(fn, iters: int, parts=(), warmup: int = 3):
     """Mean device time a ``fn()`` spends in the kernels whose names hold
     each of ``parts``, by part; without parts, ``{"": all its kernels}``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    check(sum(e.self_device_time_total for e in rows) > 0,
-          "the profiler recorded no device time")
+    rows, _ = profiled(torch, run)
     return {part: sum(e.self_device_time_total for e in rows
                       if part in e.key) / 1e3 / iters
             for part in (parts or ("",))}
 
 
-def device_rows(prof):
-    """The profile's rows that are device activity (kernels, copies,
-    sets); operator rows are left out, as their device time repeats their
-    kernels'."""
+#: Profiles taken, and those that came back with no device activity and
+#: were taken again (printed at the end of the run).
+PROFILES = {"taken": 0, "empty": 0}
+#: Seconds of host idle inside each end of a profiler's window (see
+#: ``profiled``).
+PROFILE_PAD_S = 0.02
+
+
+def profiled(torch, fn, tries: int = 3):
+    """Run ``fn()`` once under ``torch.profiler`` (host and card
+    activity); return the profile's device rows (kernels, copies, sets;
+    operator rows are left out, as their device time repeats their
+    kernels') and the run's time on the card's clock in ms (CUDA events
+    around it).
+
+    The trace keeps only the card's activity whose timestamps, put on
+    the host's clock, fall inside the profiler's window, and that
+    conversion is now and then off by milliseconds: the first kernels,
+    or all of them, then fall before the window and are dropped.  So the
+    run sits PROFILE_PAD_S inside the window at each end, and a profile
+    that still recorded no device time is taken again, ``fn()`` run
+    anew, up to ``tries`` times in all; the script fails if none did."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        PROFILES["taken"] += 1
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in rows) > 0:
+            return rows, start.elapsed_time(end)
+        PROFILES["empty"] += 1
+        print(f"profile {PROFILES['taken']} recorded no device time "
+              f"(try {attempt + 1} of {tries})", flush=True)
+    fail(f"the profiler recorded no device time in {tries} tries")
 
 
 def timings(kernel, plain, library, iters: int):
@@ -340,6 +393,15 @@ def kernel_checks(torch, fa):
         (2, 4, 4, 5, 40, 80, True, None, off(30)),
         (2, 32, 32, 1, 150, 80, True, None, off(95)),
         (2, 4, 4, 1, MAX_LEN, 80, True, None, off(MAX_LEN - 1)),
+        # head dim 256 (gemma3): prefill with group 2 and 16, a window over
+        # several 32-key tiles, and decode across split boundaries, a
+        # window across one
+        (1, 8, 4, 70, 70, 256, True, None, 0),
+        (1, 16, 1, 9, 9, 256, True, None, 0),
+        (1, 8, 4, 100, 100, 256, True, 40, 0),
+        (2, 8, 4, 1, 150, 256, True, None, off(63)),
+        (2, 8, 4, 1, 150, 256, True, 50, off(128)),
+        (1, 32, 2, 1, 150, 256, True, None, off(149)),
     ]
     worst = 0.0
     for B, H, Hkv, Sq, Skv, D, causal, window, q_off in small:
@@ -357,13 +419,16 @@ def kernel_checks(torch, fa):
     records = []
     for model, (H, Hkv, D) in K1_HEADS.items():
         records += k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D)
+    records += k1_long_shapes(torch, fa, rand, off, *K1_HEADS[GEMMA])
     for r in records:
         print(f"K1 {r['kernel']} {r['shape']} ({r['model']}): err "
               f"{r['max_abs_err']} device ms "
               f"{r['ms']:.5f} plain {r['plain_ms']:.5f} sdpa "
               f"{r['library_ms']:.5f} bound {r['bound_ms']:.5f} "
               f"({r['bound_by']}); per call ms {r['call_ms']:.5f} plain "
-              f"{r['plain_call_ms']:.5f} sdpa {r['library_call_ms']:.5f}")
+              f"{r['plain_call_ms']:.5f} sdpa {r['library_call_ms']:.5f}"
+              + (f"; sdpa took {r['library_backend']}"
+                 if "library_backend" in r else ""))
     return records
 
 
@@ -443,6 +508,96 @@ def k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D):
     return records
 
 
+def k1_long_shapes(torch, fa, rand, off, H, Hkv, D):
+    """K1 at gemma3's long-context shapes in bf16: the prefill kernel over
+    1 x LONG_S tokens with the local layers' window and without it (the
+    global layers), and the decode kernel at the last position of a
+    LONG_S cache (SERVE_B requests) with and without the window, each
+    held against its plain version and SDPA, and timed beside SDPA with
+    the backend SDPA took (a boolean mask for the windowed prefill; the
+    window's keys, a view of the cache, for the windowed decode)."""
+    from repro_torch.configs import get_config
+    bf16 = torch.bfloat16
+    sdpa = sdpa_gqa(torch)
+    W, S = get_config(GEMMA).attn_window, LONG_S
+    records = []
+    q = rand(1, S, H, D, dtype=bf16)
+    k = rand(1, S, Hkv, D, dtype=bf16)
+    v = rand(1, S, Hkv, D, dtype=bf16)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(S, device=q.device)
+    local = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < W)
+    for window in (W, None):
+        kw = dict(causal=True, window=window)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = assert_close(got, want, TOL_BF16,
+                           f"K1 bf16 prefill 1 x {S} window {window}")
+        lib_kw = (dict(attn_mask=local) if window
+                  else dict(is_causal=True))
+
+        def library():
+            return sdpa(qh, kh, vh, **lib_kw)
+        check(torch.allclose(library().transpose(1, 2).float(), got.float(),
+                             **TOL_BF16),
+              f"SDPA disagrees (prefill 1 x {S} window {window})")
+        pairs = sum(min(p + 1, window or S) for p in range(S))
+        records.append(dict(
+            shape=f"prefill B1 S{S} H{H}/{Hkv} D{D} causal window "
+                  f"{window} bf16", kernel="flash_prefill_kernel",
+            max_abs_err=err, library_backend=library_backend(torch, library),
+            **timings(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                      lambda: fa.flash_attention_plain(q, k, v, **kw),
+                      library, 20),
+            **bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
+                    4 * H * D * pairs, PEAK_BF16_FLOPS)))
+
+    # decode at the last position of a full LONG_S cache; 4 copies of it
+    # (67 MB each) rotate, so each is read cold
+    copies, pos = 4, S - 1
+    caches = [(rand(SERVE_B, S, Hkv, D, dtype=bf16),
+               rand(SERVE_B, S, Hkv, D, dtype=bf16)) for _ in range(copies)]
+    qd = rand(SERVE_B, 1, H, D, dtype=bf16)
+    p = off(pos)
+    for window in (W, None):
+        lo = pos + 1 - (window or S)
+        kw = dict(window=window, q_offset=p)
+        kc, vc = caches[0]
+        got = fa.flash_attention_cuda(qd, kc, vc, **kw)
+        want = fa.flash_attention_plain(qd, kc, vc, **kw)
+        err = assert_close(got, want, TOL_BF16,
+                           f"K1 bf16 decode pos {pos} window {window}")
+        it = iter(range(1 << 30))
+
+        def run(fn):
+            def call():
+                kc_, vc_ = caches[next(it) % copies]
+                return fn(kc_, vc_)
+            return call
+
+        def lib(kc_, vc_):
+            return sdpa(qd.transpose(1, 2), kc_[:, lo:].transpose(1, 2),
+                        vc_[:, lo:].transpose(1, 2))
+        check(torch.allclose(lib(kc, vc).transpose(1, 2).float(),
+                             got.float(), **TOL_BF16),
+              f"SDPA disagrees (decode {pos} window {window})")
+        live = pos + 1 - lo
+        records.append(dict(
+            shape=f"decode B{SERVE_B} Smax{S} pos{pos} H{H}/{Hkv} D{D} "
+                  f"window {window} bf16", kernel="flash_decode_kernel",
+            max_abs_err=err, library_backend=library_backend(
+                torch, run(lib)),
+            **timings(
+                run(lambda a, b: fa.flash_attention_cuda(qd, a, b, **kw)),
+                run(lambda a, b: fa.flash_attention_plain(qd, a, b, **kw)),
+                run(lib), 200),
+            **bound(2 * (2 * qd.numel() + 2 * SERVE_B * live * Hkv * D),
+                    4 * SERVE_B * H * D * live, PEAK_BF16_FLOPS)))
+    for r in records:
+        r["model"] = f"{GEMMA}, long context"
+    return records
+
+
 def sdpa_gqa(torch):
     """PyTorch's fused attention with grouped kv heads: the timing
     yardstick only (the port never calls it).  Before torch 2.5 it has no
@@ -480,19 +635,21 @@ def ptxas_summary(log: str):
 def print_prefill_occupancy(log: str) -> None:
     """The bf16 prefill kernel's blocks an SM at each head dim, from its
     ptxas registers (65,536 a SM, allotted 8 a thread at a time, 128
-    threads a block) and its shared memory (4 tiles of 64 rows of D + 8
-    bf16; 233,472 B a SM, 1 KB of it reserved a block)."""
+    threads a block) and its shared memory (rows of D + 8 bf16: 4 tiles of
+    64 keys, or at D 256 4 tiles of 32 keys and Q's 64 rows; 233,472 B a
+    SM, 1 KB of it reserved a block)."""
     import re
     for line in ptxas_summary(log):
         m = re.match(r"flash_prefill_kernel<(\d+), (\d)>: (\d+) registers",
                      line)
         if m:
             D, regs = int(m.group(1)), int(m.group(3))
+            rows, asked = (4 * 32 + 64, 2) if D > 128 else (4 * 64, 3)
             by_regs = 65536 // (-(-regs // 8) * 8 * 128)
-            by_smem = 233472 // (4 * 64 * (D + 8) * 2 + 1024)
+            by_smem = 233472 // (rows * (D + 8) * 2 + 1024)
             print(f"  K1 prefill D {D} lse {m.group(2)}: {regs} registers: "
                   f"{by_regs} blocks an SM by registers, {by_smem} by shared "
-                  f"memory (the launch bounds ask 3)")
+                  f"memory (the launch bounds ask {asked})")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -945,8 +1102,8 @@ def bwd_checks(torch, fa):
           f"bf16 relative L2 <= {worst[torch.bfloat16]} (limit "
           f"{BWD_REL_BF16})")
 
-    records = [bwd_train_shape(torch, fa, rand, model, H, Hkv, D)
-               for model, (H, Hkv, D) in K1_HEADS.items()]
+    records = [bwd_train_shape(torch, fa, rand, model, *K1_HEADS[model])
+               for model in (QWEN, ZAMBA)]   # the trained models' heads
     return records + [dict(shape="checks", max_abs_err=worst[torch.float32],
                            bf16_rel_err=worst[torch.bfloat16],
                            lse_max_abs_err=lse_worst)]
@@ -1046,22 +1203,15 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D):
 
 def library_backend(torch, fn) -> str:
     """The names of the heaviest kernels that 5 calls of ``fn()`` launch:
-    which of PyTorch's attention backends served it.  A profile that
-    recorded no device rows is taken again, up to 3 times."""
-    from torch.profiler import ProfilerActivity, profile
+    which of PyTorch's attention backends served it."""
     fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        rows = sorted(device_rows(prof),
-                      key=lambda e: -e.self_device_time_total)
-        if rows:
-            return "; ".join(e.key[:80] for e in rows[:3])
-    return "no device rows"
+
+    def run():
+        for _ in range(5):
+            fn()
+    rows, _ = profiled(torch, run)
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key[:80] for e in rows[:3])
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1297,25 +1447,21 @@ def decode_breakdown(torch, cfg, weights, out, kernels, label: str,
     served cache under the profiler — wall time per step, device busy
     time per step, the share of the kernels whose name holds one of
     ``kernels`` and the heaviest kernels."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_serve_step
     step_fn = make_serve_step(cfg)
-    cache = out["cache"]
-    tok = out["tokens"][:, -1:].to(torch.int32)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
+    state = dict(cache=out["cache"],
+                 tok=out["tokens"][:, -1:].to(torch.int32))
+
+    def run():
         for _ in range(steps):
-            logits, cache = step_fn(weights, cache, tok)
-            tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / steps
+            logits, state["cache"] = step_fn(weights, state["cache"],
+                                             state["tok"])
+            state["tok"] = torch.argmax(logits, dim=-1,
+                                        keepdim=True).to(torch.int32)
+    prof_rows, wall = profiled(torch, run)
+    wall /= steps
     rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-            for e in device_rows(prof)]
+            for e in prof_rows]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     mine = sum(r[1] for r in rows if any(k in r[0] for k in kernels))
@@ -1523,25 +1669,16 @@ def ssm_prefill_profile(torch, cfg, weights, tokens, fused_names):
     """Where a warm prefill's time goes: its time unprofiled, then one
     profiled run split into the fused K2, the matmuls and the rest; peak
     memory."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
     batch = {"tokens": tokens}
     warm_ms = cuda_time_ms(lambda: prefill(weights, batch), 3, warmup=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        prefill(weights, batch)
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end)
+    prof_rows, wall = profiled(torch, lambda: prefill(weights, batch))
     peak = torch.cuda.max_memory_allocated()
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in device_rows(prof)), key=lambda r: -r[1])
+                   for e in prof_rows), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     mine = [r for r in rows if any(k in r[0] for k in fused_names)]
     k_ms, k_n = sum(r[1] for r in mine), sum(r[2] for r in mine)
@@ -1588,23 +1725,13 @@ def k1_prefill_profile(torch, cfg, weights, tokens, k1_names):
     """A warm prefill of 4 × 512 beside the first call: its time
     unprofiled, then one profiled run split into K1, the matmuls and the
     rest."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
     batch = {"tokens": tokens}
     warm_ms = cuda_time_ms(lambda: prefill(weights, batch), 5, warmup=2)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        prefill(weights, batch)
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end)
+    prof_rows, wall = profiled(torch, lambda: prefill(weights, batch))
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in device_rows(prof)]
+            for e in prof_rows]
     busy = sum(r[1] for r in rows)
     k1 = [r for r in rows if any(k in r[0] for k in k1_names)]
     k1_ms, k1_n = sum(r[1] for r in k1), sum(r[2] for r in k1)
@@ -1666,6 +1793,54 @@ def falcon_path(torch, K, tmp):
 
 
 # ------------------------------------------------------ the zamba2 path --
+def hold_attention_block(torch, p, u, positions, window, kw, what: str):
+    """One attention block at full width on input ``u``: K1's prefill
+    kernel on the block's q, k, v held against the plain version
+    (TOL_BF16), and the block through K1 against the block through the
+    plain attention (REL_APP).  Returns (the block's output through K1,
+    the kernel's max abs err, the block's relative L2 error)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    q, k, v = L._project_qkv(p, u, kw["n_heads"], kw["n_kv"],
+                             kw["head_dim"], positions, kw["rope_base"],
+                             kw["eps"])
+    core = assert_close(
+        fa_mod.flash_attention_cuda(q, k, v, window=window),
+        fa_mod.flash_attention_plain(q, k, v, window=window), TOL_BF16,
+        f"{what}: K1 vs plain on its q, k, v")
+    h = L.attention_block(p, u, window=window, **kw)
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        hp = L.attention_block(p, u, window=window, **kw)
+    r = rel_err(h, hp)
+    check(r <= REL_APP, f"{what}: block through K1 vs plain attention, "
+          f"relative L2 {r} > {REL_APP}")
+    return h, core, r
+
+
+def hold_attention_decode(torch, p, up, window, kw, what: str):
+    """One attention block's PROMPT_LEN decode steps on ``up`` (K1's decode
+    kernel into a MAX_LEN cache) held against its prefill
+    (REL_LAYER_DECODE).  Returns (the prefill's output, the relative L2
+    error, the max abs err)."""
+    from repro_torch.models import layers as L
+    hb = L.attention_block(p, up, window=window, **kw)
+    kc = torch.zeros((up.shape[0], MAX_LEN, kw["n_kv"], kw["head_dim"]),
+                     dtype=up.dtype, device=up.device)
+    vc = torch.zeros_like(kc)
+    outs = []
+    for t in range(up.shape[1]):
+        pos = torch.tensor(t, dtype=torch.int32, device=up.device)
+        o, _, _ = L.attention_decode(p, up[:, t:t + 1], kc, vc, pos,
+                                     window=window, **kw)
+        outs.append(o)
+    hd = torch.cat(outs, 1)
+    r = rel_err(hd, hb)
+    check(r <= REL_LAYER_DECODE, f"{what}: {up.shape[1]} decode steps vs its "
+          f"prefill, relative L2 {r} > {REL_LAYER_DECODE}")
+    return hb, r, max_err(hd, hb)
+
+
 def hybrid_app_checks(torch, cfg, weights, tokens):
     """Each shared-attention application of the hybrid model at full
     width, kernel and plain attention fed the same input: the residual
@@ -1723,40 +1898,20 @@ def hybrid_app_checks(torch, cfg, weights, tokens):
                   f"{REL_LAYER_DECODE}")
             worst_ssm = max(worst_ssm, r)
             xp = xp + hb
-        u = L.rms_norm(x, sa["ln"], eps)
-        q, k, v = L._project_qkv(sa["attn"], u, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.head_dim_, positions, cfg.rope_base, eps)
-        worst_core = max(worst_core, assert_close(
-            fa_mod.flash_attention_cuda(q, k, v),
-            fa_mod.flash_attention_plain(q, k, v), TOL_BF16,
-            f"application {g}: K1 vs plain on its q, k, v"))
-        h = L.attention_block(sa["attn"], u, **kw)
+        h, core, r = hold_attention_block(
+            torch, sa["attn"], L.rms_norm(x, sa["ln"], eps), positions, None,
+            kw, f"application {g}")
+        worst_core, worst_app = max(worst_core, core), max(worst_app, r)
         with mock.patch.object(ops, "flash_attention", plain):
-            hp = L.attention_block(sa["attn"], u, **kw)
             xq = xq + L.attention_block(sa["attn"],
                                         L.rms_norm(xq, sa["ln"], eps), **kw)
-        r = rel_err(h, hp)
-        check(r <= REL_APP, f"application {g}: block through K1 vs plain "
-              f"attention, relative L2 {r} > {REL_APP}")
-        worst_app = max(worst_app, r)
         x = x + h
         divergence[g + 1] = rel_err(xq, x)
 
-        up = L.rms_norm(xp, sa["ln"], eps)
-        hb = L.attention_block(sa["attn"], up, **kw)
-        kc = torch.zeros((SERVE_B, MAX_LEN, cfg.n_kv_heads, cfg.head_dim_),
-                         dtype=up.dtype, device=up.device)
-
-        def attn_step(u, cache, t):
-            pos = torch.tensor(t, dtype=torch.int32, device=u.device)
-            o, _, _ = L.attention_decode(sa["attn"], u, *cache, pos, **kw)
-            return o, cache
-
-        hd = decoded(attn_step, up, (kc, torch.zeros_like(kc)))
-        r = rel_err(hd, hb)
-        check(r <= REL_LAYER_DECODE, f"application {g}: {PROMPT_LEN} decode "
-              f"steps vs its prefill, relative L2 {r} > {REL_LAYER_DECODE}")
-        worst_dec, max_dec = max(worst_dec, r), max(max_dec, max_err(hd, hb))
+        hb, r, m = hold_attention_decode(
+            torch, sa["attn"], L.rms_norm(xp, sa["ln"], eps), None, kw,
+            f"application {g}")
+        worst_dec, max_dec = max(worst_dec, r), max(max_dec, m)
         xp = xp + hb
     print(f"{cfg.name} shared-attention applications: all "
           f"{attention_apps(cfg)} held at full width; K1 vs plain on each "
@@ -1807,6 +1962,279 @@ def zamba_path(torch, K, tmp):
     check_counts(K, dict(k1=apps * (3 + PROMPT_LEN)),
                  f"the {cfg.name} application checks")
     return launches["k1"], serve
+
+
+# ------------------------------------------------------ the gemma3 path --
+def gemma_path(torch, K, tmp):
+    """gemma3-4b through K1 at head dim 256: the serve cell as qwen3's, then
+    its window on the card (``long_context_phase``).  Returns (K1 launches
+    on both, serve record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    from repro_torch.train.step import make_prefill_step
+    cfg = get_config(GEMMA)
+    apps = attention_apps(cfg)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    zero_counts(K)                            # the main path starts
+    # 34 random layers carry two rounding paths' logits 0.10-0.28 apart,
+    # past TOL_LOGITS where qwen3's 28 held: the whole-model logits are
+    # reported and each layer held, as zamba2's applications are
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"], hold=False)
+    serve, out = serve_phase(torch, cfg, weights, K["k1"], hold=False)
+    launches = check_counts(K, dict(k1=apps * (1 + 1 + PROMPT_LEN + GEN_LEN)),
+                            f"the {cfg.name} path")["k1"]
+    zero_counts(K)                            # the long-context path starts
+    long, long_tokens, start, fed = long_context_phase(torch, cfg, weights,
+                                                       K["k1"])
+    launches += check_counts(K, dict(k1=apps * (1 + LONG_STEPS)),
+                             f"the {cfg.name} long-context path")["k1"]
+    zero_counts(K)                            # the layer checks start
+    serve["layers"] = dense_layer_checks(torch, cfg, weights, tokens)
+    long["layers"] = dense_layer_checks(torch, cfg, weights, long_tokens,
+                                        decode=False)
+    long["decode_layers"] = long_decode_layer_checks(torch, cfg, weights,
+                                                     start, fed)
+    # each layer: the kernel alone and the block, on the prefill's and on
+    # the long prefill's inputs; the block on the prompts' and their decode
+    # steps; the long decode's steps
+    check_counts(K, dict(k1=apps * (2 + 2 + 1 + PROMPT_LEN + LONG_STEPS)),
+                 f"the {cfg.name} layer checks")
+    prefill_long = make_prefill_step(cfg)
+    long["prefill_warm_ms"] = cuda_time_ms(
+        lambda: prefill_long(weights, {"tokens": long_tokens}), 3, warmup=1)
+    print(f"{cfg.name} prefill 1 x {LONG_S}: warm "
+          f"{long['prefill_warm_ms']:.3f} ms")
+    prefill.update(k1_prefill_profile(torch, cfg, weights, tokens,
+                                      KERNEL_NAMES))
+    serve.update(checkpoint=ckpt, prefill=prefill, long_context=long,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
+    return launches, serve
+
+
+def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
+    """Each layer of a dense model at full width, K1 and the plain attention
+    fed the same input.  The residual stream walks the layers on
+    ``tokens``; at each layer the K1 prefill kernel's output on the layer's
+    q, k, v is held against the plain version's (TOL_BF16) and the
+    attention block through K1 against the block through the plain
+    attention (REL_APP), each with the layer's window.  With ``decode``, on
+    the prompts' stream (4 × 64) each layer's attention decoded token by
+    token (K1's decode kernel into a MAX_LEN cache) is held against its
+    prefill (REL_LAYER_DECODE).  Beside them a second residual stream runs
+    on the plain attention alone; how far it is from the kernel stream
+    after each layer shows what the layers make of rounding differences
+    end to end."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    eps, kw = cfg.norm_eps, LM._attn_kwargs(cfg)
+    plain = _plain_attention(fa_mod)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    windows = LM._windows_per_layer(cfg, S)
+    dec_windows = LM._windows_per_layer(cfg, MAX_LEN)
+    x = xq = weights["embed"][tokens]
+    prompts = serve_prompts(torch, cfg)
+    xp = weights["embed"][prompts]
+    worst_core = worst_block = worst_dec = max_dec = 0.0
+    divergence = {}
+    for i in range(cfg.n_layers):
+        lp = _layer(weights["layers"], i)
+        window = windows[i] if windows else None
+        h, core, r = hold_attention_block(
+            torch, lp["attn"], L.rms_norm(x, lp["ln1"], eps), positions,
+            window, kw, f"layer {i} (window {window})")
+        worst_core, worst_block = max(worst_core, core), max(worst_block, r)
+        with mock.patch.object(ops, "flash_attention", plain):
+            xq = xq + L.attention_block(
+                lp["attn"], L.rms_norm(xq, lp["ln1"], eps), window=window,
+                **kw)
+        x = x + h
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], eps),
+                            cfg.mlp_type)
+        xq = xq + L.mlp_block(lp["mlp"], L.rms_norm(xq, lp["ln2"], eps),
+                              cfg.mlp_type)
+        divergence[i + 1] = rel_err(xq, x)
+        if not decode:
+            continue
+        hb, r, m = hold_attention_decode(
+            torch, lp["attn"], L.rms_norm(xp, lp["ln1"], eps),
+            dec_windows[i] if dec_windows else None, kw, f"layer {i}")
+        worst_dec, max_dec = max(worst_dec, r), max(max_dec, m)
+        xp = xp + hb
+        xp = xp + L.mlp_block(lp["mlp"], L.rms_norm(xp, lp["ln2"], eps),
+                              cfg.mlp_type)
+    print(f"{cfg.name} layers on {B} x {S} tokens: all {cfg.n_layers} held at "
+          f"full width; K1 vs plain on each layer's q, k, v max abs err "
+          f"{worst_core} (tol {TOL_BF16}); block through K1 vs plain "
+          f"attention relative L2 <= {worst_block} (limit {REL_APP})"
+          + (f"; {PROMPT_LEN} decode steps vs prefill relative L2 <= "
+             f"{worst_dec} (limit {REL_LAYER_DECODE}), max abs err {max_dec}"
+             if decode else ""))
+    print(f"{cfg.name} streams on {B} x {S} tokens, K1 vs plain attention end "
+          f"to end, relative L2 of the residual stream after layers " +
+          ", ".join(f"{k}: {v:.3g}" for k, v in divergence.items()
+                    if k % 6 == 0 or k == cfg.n_layers))
+    return dict(layers=cfg.n_layers, core_max_abs_err=worst_core,
+                block_rel_err=worst_block,
+                decode_rel_err=worst_dec if decode else None,
+                decode_max_abs_err=max_dec if decode else None,
+                stream_divergence=divergence)
+
+
+def long_decode_layer_checks(torch, cfg, weights, cache, fed):
+    """The long decode's steps layer by layer: the residual stream of each
+    step walks the layers on the kernel path from the decode's starting
+    ``cache`` and fed tokens; at each layer the attention through K1's
+    decode kernel is held against the plain attention on the same input
+    and cache (REL_APP; both write the same key and value at the step's
+    position)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    eps, kw = cfg.norm_eps, LM._attn_kwargs(cfg)
+    plain = _plain_attention(fa_mod)
+    windows = LM._windows_per_layer(cfg, LONG_CACHE)
+    layers = [_layer(weights["layers"], j) for j in range(cfg.n_layers)]
+    worst = 0.0
+    for step, tok in enumerate(fed):
+        pos = cache["pos"]
+        x = weights["embed"][tok]
+        for j, lp in enumerate(layers):
+            u = L.rms_norm(x, lp["ln1"], eps)
+            args = (lp["attn"], u, cache["k"][j], cache["v"][j], pos)
+            h, _, _ = L.attention_decode(*args, window=windows[j], **kw)
+            with mock.patch.object(ops, "flash_attention", plain):
+                hp, _, _ = L.attention_decode(*args, window=windows[j], **kw)
+            r = rel_err(h, hp)
+            check(r <= REL_APP, f"long decode at pos {LONG_POS + step}, "
+                  f"layer {j}: attention through K1 vs plain, relative L2 "
+                  f"{r} > {REL_APP}")
+            worst = max(worst, r)
+            x = x + h
+            x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], eps),
+                                cfg.mlp_type)
+        cache["pos"] = pos + 1
+    print(f"{cfg.name} long decode layers: {len(fed)} steps from pos "
+          f"{LONG_POS} x {cfg.n_layers} layers held; attention through K1's "
+          f"decode kernel vs plain relative L2 <= {worst} (limit {REL_APP})")
+    return dict(steps=len(fed), rel_err=worst)
+
+
+def greedy_agrees(got, plain) -> bool:
+    """The kernel path's greedy token is the plain path's, or scores within
+    TOL_LOGITS of the plain path's best (a near tie that either path's
+    rounding may break)."""
+    tok = int(got.argmax())
+    best = plain.float().max()
+    return float(plain[0, tok]) >= float(
+        best - TOL_LOGITS["atol"] - TOL_LOGITS["rtol"] * best.abs())
+
+
+def long_context_phase(torch, cfg, weights, k1):
+    """gemma3's window on the card at full width.  A prefill of 1 x LONG_S
+    tokens, whose local layers mask keys ``attn_window`` back: a K1 launch a
+    layer.  Then LONG_STEPS greedy
+    decode steps of one request from a cache of LONG_CACHE keys filled with
+    seeded random bf16 K/V and its position set to LONG_POS, so the local
+    layers' decode kernel skips the splits before the window: a K1 launch a
+    layer and step; the plain attention path, fed the same tokens from the
+    same cache, gives the same greedy token (or one within TOL_LOGITS of
+    its best).  Both paths' logits are reported (``gemma_path`` holds the
+    layers).  Returns (record, the prefill's tokens, the decode's starting
+    cache, its fed tokens)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    cuda = torch.device("cuda")
+    apps = attention_apps(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg.vocab, (1, LONG_S), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    before = k1.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(weights, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(k1.launches - before == apps, f"long prefill launched K1 "
+          f"{k1.launches - before} times, expected {apps}")
+    check(tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "long prefill logits")
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        plain = prefill(weights, {"tokens": tokens})
+    err_pre = hold_logits(logits, plain, False, f"{cfg.name} prefill 1 x "
+                          f"{LONG_S} logits, kernel vs plain attention")
+
+    cache = init_cache(cfg, 1, LONG_CACHE, device=cuda)
+    for name in ("k", "v"):
+        for layer in cache[name]:
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=cuda))
+    cache["pos"].fill_(LONG_POS)
+    start = {name: t.clone() for name, t in cache.items()}
+    step_fn = make_serve_step(cfg)
+    tok = tokens[:, -1:]
+    fed, kept, per_step, events = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events.append(ev)
+    for _ in range(LONG_STEPS):
+        before = k1.launches
+        fed.append(tok)
+        logits, cache = step_fn(weights, cache, tok)
+        per_step.append(k1.launches - before)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        kept.append(logits)
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    dec_peak = torch.cuda.max_memory_allocated()
+    check(per_step == [apps] * LONG_STEPS,
+          f"long decode: K1 launches per step {sorted(set(per_step))}, "
+          f"expected {apps}")
+    check(int(cache["pos"]) == LONG_POS + LONG_STEPS, "long cache position")
+    step_ms = events[0].elapsed_time(events[-1]) / LONG_STEPS
+    err_dec, same, ties = 0.0, 0, []
+    cache = {name: t.clone() for name, t in start.items()}
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        for i in range(LONG_STEPS):
+            plain, cache = step_fn(weights, cache, fed[i])
+            err_dec = max(err_dec, hold_logits(
+                kept[i], plain, False, f"{cfg.name} decode step at pos "
+                f"{LONG_POS + i} of {LONG_CACHE}, kernel vs plain attention"))
+            check(greedy_agrees(kept[i], plain),
+                  f"{cfg.name} decode at pos {LONG_POS + i}: the kernel's "
+                  f"greedy token scores below the plain path's best by more "
+                  f"than {TOL_LOGITS}")
+            if int(kept[i].argmax()) == int(plain.argmax()):
+                same += 1
+            else:
+                ties.append(LONG_POS + i)
+    local = sum(not cfg.layer_is_global(i) for i in range(cfg.n_layers))
+    print(f"{cfg.name} long context: prefill 1 x {LONG_S} (window "
+          f"{cfg.attn_window} on {local} of {cfg.n_layers} layers) "
+          f"{dt * 1e3:.3f} ms first call, peak memory {peak} B, {apps} K1 "
+          f"launches, logits vs plain attention max abs err {err_pre}; "
+          f"{LONG_STEPS} "
+          f"decode steps from pos {LONG_POS} of a {LONG_CACHE} cache: "
+          f"{step_ms:.4f} ms/step, peak memory {dec_peak} B, {apps} K1 "
+          f"launches a step, logits vs plain attention max abs err "
+          f"{err_dec}, greedy tokens equal in {same} of {LONG_STEPS} steps "
+          f"(near ties at {ties or 'none'})")
+    return dict(prefill_first_call_ms=dt * 1e3, prefill_peak_bytes=peak,
+                prefill_vs_plain_max_abs_err=err_pre, decode_ms=step_ms,
+                decode_peak_bytes=dec_peak,
+                decode_vs_plain_max_abs_err=err_dec,
+                greedy_equal_steps=same, near_ties=ties), tokens, start, fed
 
 
 # ------------------------------------------------------ the training path --
@@ -2098,22 +2526,13 @@ def train_profile(torch, cfg, state, opt, data, parts, split=None):
     time, idle share, each kernel's share (``parts``: label -> kernel
     names; ``split``: label -> one kernel of a part, printed apart), the
     matmuls, the heaviest kernels."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.step import make_train_step
     step_fn = make_train_step(cfg, opt, loss_chunk=TRAIN_CHUNK)
     batch = data.sharded_batch(TRAIN_STEPS, torch.device("cuda"))
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        step_fn(state["params"], state["opt"], batch)
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end)
+    prof_rows, wall = profiled(
+        torch, lambda: step_fn(state["params"], state["opt"], batch))
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in device_rows(prof)), key=lambda r: -r[1])
+                   for e in prof_rows), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
 
     def share(names):
@@ -2411,8 +2830,14 @@ def main(argv=None) -> int:
                   f"{torch.cuda.memory_allocated()} B")
             phase(f"{ZAMBA} serve path")
             zamba_launches, zamba_serve = zamba_path(torch, K, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # zamba2's weights are gone
+            print(f"device memory allocated before {GEMMA}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            phase(f"{GEMMA} serve path")
+            gemma_launches, gemma_serve = gemma_path(torch, K, tmp)
         gc.collect()
-        torch.cuda.empty_cache()   # zamba2's weights are gone
+        torch.cuda.empty_cache()   # gemma3's weights are gone
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
         phase(f"{QWEN} training path")
@@ -2465,6 +2890,8 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     phase("done")
+    print(f"profiles: {PROFILES['taken']} taken, {PROFILES['empty']} of "
+          f"them recorded no device time and were taken again")
     qwen_serve["train"] = qwen_train
     falcon_serve["train"] = falcon_trained
     zamba_serve["train"] = zamba_trained
@@ -2472,9 +2899,10 @@ def main(argv=None) -> int:
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
                      fa.KERNEL_NAMES,
-                     k1_launches + zamba_launches + qwen_train_launches["k1"]
-                     + zamba_train_launches["k1"],
-                     k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve}),
+                     k1_launches + zamba_launches + gemma_launches
+                     + qwen_train_launches["k1"] + zamba_train_launches["k1"],
+                     k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve,
+                                  GEMMA: gemma_serve}),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,

@@ -22,7 +22,8 @@
 //    mma.sync.m16n8k16 (bf16 -> f32), the online softmax on the accumulator
 //    fragments (row max and sum over the 4 lanes of a quad), P repacked to
 //    bf16 A fragments in registers, V read with ldmatrix.trans.  K/V tiles of
-//    64 keys move through a 2-stage cp.async ring (rows padded by 16 bytes,
+//    64 keys (32 at D = 256, where Q stays in shared memory: PrefillSmem)
+//    move through a 2-stage cp.async ring (rows padded by 16 bytes,
 //    so ldmatrix is free of bank conflicts), the next tile's loads in flight
 //    while this one is computed.  Masks are evaluated only on the tiles that
 //    cross the causal diagonal, the window's edge or Skv.  The heaviest
@@ -49,12 +50,15 @@
 //  * flash_prefill_f32_kernel (Sq > 1, f32): the plain FMA path, with S,
 //    P and the accumulator in shared memory; it serves the f32 checks.
 //
-// Head dims 16, 32, 64, 80 and 128 (80: zamba2's shared attention).  The
-// kernels need D to be a multiple of 16 and nothing more: fragments and
-// loops run over D / 16 MMA k-steps, D / 8 accumulator blocks and 16-byte
-// pieces, and f32 loops stride D by 32 lanes with a ragged last pass.  A
-// padded row of D = 80 is 11 pieces of 16 bytes, odd as at D = 128, so the
-// 8 rows an ldmatrix reads still start in 8 different bank groups.
+// Head dims 16, 32, 64, 80, 128 and 256 (80: zamba2's shared attention,
+// 256: gemma3's).  The kernels need D to be a multiple of 16 and nothing
+// more: fragments and loops run over D / 16 MMA k-steps, D / 8 accumulator
+// blocks and 16-byte pieces, and f32 loops stride D by 32 lanes with a
+// ragged last pass.  A padded row of D = 80 is 11 pieces of 16 bytes, odd
+// as at D = 128 and 256 (33), so the 8 rows an ldmatrix reads still start
+// in 8 different bank groups.  D = 256 changes two plans at compile time
+// (PrefillSmem, F32Smem): the bf16 prefill keeps Q in shared memory and
+// walks kv tiles of 32 keys, the f32 prefill walks tiles of 32 keys.
 //
 // For training, both prefill kernels can also write each row's
 // log-sum-exp, the statistic the backward (flash_attention_bwd.cu)
@@ -75,7 +79,6 @@ using bf16 = __nv_bfloat16;
 constexpr int NT = 128;      // threads per block, every kernel
 constexpr int NWARPS = NT / 32;
 constexpr int BM = 64;       // prefill rows per block: (query position, q head)
-constexpr int BN = 64;       // keys per kv tile
 constexpr int SPLIT = 64;    // decode keys per split (DECODE_SPLIT in the wrapper)
 constexpr int MAX_GROUP = 64;
 
@@ -152,32 +155,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Shared memory of a prefill block: K and V for each of 2 stages.  Q lands
-// in stage 1's K tile and is read into registers before that stage's first
-// load.  Rows are padded by 16 bytes: the 8 rows an ldmatrix reads then
-// start in 8 different 16-byte bank groups.
+// The plan of a prefill block by head dim: K and V tiles for each of 2
+// stages, and Q.  D <= 128: tiles of 64 keys; Q lands in stage 1's K tile
+// and each warp reads its A fragments into registers before that stage's
+// first load; 3 blocks of 128 threads an SM, at most 168 registers a
+// thread (ptxas spills a few bytes at D = 128) and 3 x 69,632 B.  D = 256:
+// a warp's Q fragments (64 registers) beside its accumulator (128) and S
+// tile would pass 168, so Q keeps a region of its own and each k-step reads
+// its A fragment by ldmatrix; tiles of 32 keys (a 16-register S tile) keep
+// the block at 101,376 B, 2 blocks an SM, up to 255 registers a thread.
+// Rows are padded by 16 bytes: the 8 rows an ldmatrix reads then start in
+// 8 different 16-byte bank groups.
 template <int D>
 struct PrefillSmem {
+  static constexpr bool Q_SMEM = D > 128;  // Q read from shared memory at each k-step
+  static constexpr int BN = Q_SMEM ? 32 : 64;  // keys per kv tile
+  static constexpr int BLOCKS = Q_SMEM ? 2 : 3;  // blocks an SM (launch bounds)
   static constexpr int LD = D + 8;
-  static constexpr int TILE = BM * LD;  // elements; BM == BN
-  static constexpr int BYTES = 4 * TILE * (int)sizeof(bf16);
+  static constexpr int TILE = BN * LD;  // elements of a K or V tile
+  static constexpr int Q = Q_SMEM ? 4 * TILE : 2 * TILE;  // Q's offset (elements)
+  static constexpr int BYTES = (Q_SMEM ? Q + BM * LD : 4 * TILE) * (int)sizeof(bf16);
 };
 
-// 3 blocks of 128 threads per SM: at most 168 registers a thread (ptxas
-// spills a few bytes at D = 128) and 3 x 69,632 B of shared memory.
 template <int D, bool LSE>
-__global__ void __launch_bounds__(NT, 3)
+__global__ void __launch_bounds__(NT, PrefillSmem<D>::BLOCKS)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, int B,
                      int Sq, int Skv, int Hkv, int group, int n_qt, int causal, int window,
                      const int* __restrict__ q_offset_dev, int q_offset, float scale_log2,
                      float* __restrict__ lse) {
   using SM = PrefillSmem<D>;
-  constexpr int LD = SM::LD;
+  constexpr int LD = SM::LD, BN = SM::BN;  // this D's kv tile
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* const sK0 = reinterpret_cast<bf16*>(smem);
   bf16* const sV0 = sK0 + SM::TILE;
-  bf16* const sQ = sK0 + 2 * SM::TILE;  // stage 1's K tile
+  bf16* const sQ = sK0 + SM::Q;  // stage 1's K tile, or Q's own region
 
   // Heaviest causal q tiles first: the q tile is the slowest index of a
   // linear grid, counted down.
@@ -219,11 +231,14 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // This warp's Q as A fragments, one per 16 of D (lanes 0-15 address rows
-  // 0-15 at column 0 of the chunk, lanes 16-31 the same rows at column 8).
-  uint32_t qf[D / 16][4];
+  // 0-15 at column 0 of the chunk, lanes 16-31 the same rows at column 8):
+  // all of them kept, or (Q_SMEM) one, read again at each k-step.
+  uint32_t qf[SM::Q_SMEM ? 1 : D / 16][4];
+  if constexpr (!SM::Q_SMEM) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -244,19 +259,22 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* sK = sK0 + 2 * stage * SM::TILE;
     const bf16* sV = sV0 + 2 * stage * SM::TILE;
 
-    // S = Q K^T (unscaled): 8 blocks of 8 keys, 4 floats each.
+    // S = Q K^T (unscaled): BN / 8 blocks of 8 keys, 4 floats each.
     float s[BN / 8][4];
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (SM::Q_SMEM)
+        ldsm_x4(qf[0], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      const uint32_t* const a = qf[SM::Q_SMEM ? 0 : kk];
 #pragma unroll
       for (int np = 0; np < BN / 16; ++np) {
         uint32_t bk[4];  // K rows are B's columns: b0, b1 of key blocks 2np, 2np+1
         ldsm_x4(bk, sK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
       }
     }
 
@@ -276,7 +294,7 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
     }
 
-    // Online softmax on the fragments; a row's 64 scores sit on one quad.
+    // Online softmax on the fragments; a row's BN scores sit on one quad.
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = m_row[h];
@@ -304,7 +322,7 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // O += P V: P (16 x 64) repacked to bf16 A fragments, one per 16 keys.
+    // O += P V: P (16 x BN) repacked to bf16 A fragments, one per 16 keys.
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
       const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
@@ -361,8 +379,12 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // -------------------------------------------------------------- f32 prefill --
+// The f32 prefill's shared memory.  Tiles of 64 keys, or of 32 at D = 256,
+// where 64 would take 284,160 B (a block may have 232,448); that plan takes
+// 209,408 B.
 template <int D>
 struct F32Smem {
+  static constexpr int BN = D > 128 ? 32 : 64;  // keys per kv tile
   static constexpr int LDT = D + 4;   // q, k, v tiles
   static constexpr int LDS = BN + 4;  // scores, then probabilities
   static constexpr int Q = 0;
@@ -383,7 +405,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const int* __restrict__ q_offset_dev, int q_offset, float scale,
                          float* __restrict__ lse) {
   using SM = F32Smem<D>;
-  constexpr int LDT = SM::LDT, LDS = SM::LDS, RPW = BM / NWARPS;
+  constexpr int LDT = SM::LDT, LDS = SM::LDS, RPW = BM / NWARPS, BN = SM::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem + SM::Q);
   float* sK = reinterpret_cast<float*>(smem + SM::K);
@@ -816,6 +838,7 @@ extern "C" int repro_flash_prefill(int dtype, int D, const void* q, const void* 
     case 64: return launch_prefill<64>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     case 80: return launch_prefill<80>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     case 128: return launch_prefill<128>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
+    case 256: return launch_prefill<256>(dtype, q, k, v, o, st, B, Sq, Skv, H, Hkv, causal, window, q_offset_dev, q_offset, scale, lse, s);
     default: return -2;
   }
 }
@@ -839,6 +862,7 @@ extern "C" int repro_flash_decode(int dtype, int D, const void* q, const void* k
       case 64: REPRO_DECODE(float, 64);
       case 80: REPRO_DECODE(float, 80);
       case 128: REPRO_DECODE(float, 128);
+      case 256: REPRO_DECODE(float, 256);
       default: return -2;
     }
   }
@@ -849,6 +873,7 @@ extern "C" int repro_flash_decode(int dtype, int D, const void* q, const void* k
       case 64: REPRO_DECODE(bf16, 64);
       case 80: REPRO_DECODE(bf16, 80);
       case 128: REPRO_DECODE(bf16, 128);
+      case 256: REPRO_DECODE(bf16, 256);
       default: return -2;
     }
   }

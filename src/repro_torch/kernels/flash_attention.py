@@ -40,8 +40,9 @@ import torch
 from repro_torch.runtime import needs_grad
 
 SOURCE = "flash_attention.cu"
-#: Head dims the forward kernels are instantiated for (80: zamba2).
-HEAD_DIMS = (16, 32, 64, 80, 128)
+#: Head dims the forward kernels are instantiated for (80: zamba2, 256:
+#: gemma3).
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP = 64   # a prefill block's 64 rows hold at least one position
 DECODE_SPLIT = 64   # keys per decode split (SPLIT in the source)
 #: The kernels' names, as a profiler shows them.

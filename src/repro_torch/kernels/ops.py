@@ -10,7 +10,8 @@ card the kernels are on the model's path.
 Gradients: on the card, attention whose q, k or v requires grad goes
 through :class:`FlashAttentionFunction`, K1's forward with its log-sum-exp
 and K1's backward kernels; a case they do not cover (the decode kernel, a
-query offset held in a tensor) raises.  The fused Mamba1 scan whose
+query offset held in a tensor, a head dim the backward lacks) raises
+before the forward launches.  The fused Mamba1 scan whose
 inputs require grad goes through :class:`Mamba1ScanFunction`, the fused
 K2 forward (writing the states its backward needs) and K2's backward
 kernel.  The unfused K2 (:func:`ssm_scan`) has no backward, on purpose: no
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import (QOffset,
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, QOffset,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
@@ -68,6 +69,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
                 raise NotImplementedError(
                     "flash attention: no backward kernel for the decode "
                     "kernel (Sq = 1) or a query offset held in a tensor")
+            if q.shape[-1] not in BWD_HEAD_DIMS:   # before the forward runs
+                raise ValueError(
+                    f"flash attention: no backward kernel for head dim "
+                    f"{q.shape[-1]} (takes {BWD_HEAD_DIMS})")
             return FlashAttentionFunction.apply(q, k, v, causal, window,
                                                 int(q_offset))
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

@@ -68,6 +68,11 @@ def _rand(rng, shape, dtype, device):
     (1, 8, 2, 70, 70, 80, True, None, 0),       # head dim 80, group 4
     (1, 4, 4, 130, 130, 80, True, 16, 0),       # head dim 80, window
     (2, 32, 32, 1, 300, 80, True, None, 157),   # zamba2's decode heads
+    (1, 8, 4, 100, 100, 256, True, None, 0),    # head dim 256, group 2
+    (1, 32, 2, 70, 70, 256, True, None, 0),     # head dim 256, group 16
+    (1, 8, 4, 200, 200, 256, True, 70, 0),      # head dim 256, window
+    (2, 4, 2, 5, 40, 256, True, 8, 30),         # head dim 256, offset
+    (2, 8, 4, 1, 300, 256, True, 100, 157),     # gemma3's decode, window
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
                               window, q_offset):
@@ -91,7 +96,7 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
 @pytest.mark.parametrize("window", [None, 50])
 @pytest.mark.parametrize("group", [1, 2, 16])
 @pytest.mark.parametrize("pos", [0, 63, 64, 127, 128])
-@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("D", [64, 80, 256])
 def test_decode_kernel_at_split_boundaries(cuda, dtype, pos, group, window,
                                            D):
     """Decode against a 150-key cache (not a multiple of the 64-key split)
@@ -126,10 +131,12 @@ def test_decode_is_deterministic(cuda, dtype):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
-@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80)])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80),
+                                     (8, 4, 256)])
 def test_prefill_at_the_main_path_shape(cuda, H, Hkv, D):
     """The prefills of the served models, 4 x 512 in bf16: qwen3's 16 / 8
-    heads of head dim 128 and zamba2's 32 / 32 of head dim 80."""
+    heads of head dim 128, zamba2's 32 / 32 of head dim 80 and gemma3's
+    8 / 4 of head dim 256."""
     rng = np.random.default_rng(9)
     q = _rand(rng, (4, 512, H, D), torch.bfloat16, cuda)
     k = _rand(rng, (4, 512, Hkv, D), torch.bfloat16, cuda)
@@ -173,7 +180,7 @@ def test_kernel_reads_strided_views(cuda, Sq):
 
 @pytest.mark.parametrize("Sq", [1, 4])
 def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
-    """Neither forward kernel takes fp16, head dim 256 or a group over 64:
+    """Neither forward kernel takes fp16, head dim 512 or a group over 64:
     the wrapper raises before a launch, and nothing falls back."""
     z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda)  # noqa
     before = flash_attention_cuda.launches
@@ -181,7 +188,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
         flash_attention_cuda(z(1, Sq, 2, 64, dt=torch.float16),
                              *[z(1, 8, 1, 64, dt=torch.float16)] * 2)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_cuda(z(1, Sq, 2, 256), *[z(1, 8, 1, 256)] * 2)
+        flash_attention_cuda(z(1, Sq, 2, 512), *[z(1, 8, 1, 512)] * 2)
     with pytest.raises(ValueError, match="group"):
         flash_attention_cuda(z(1, Sq, 128, 64), *[z(1, 8, 1, 64)] * 2)
     with pytest.raises(ValueError, match="aligned"):
@@ -193,8 +200,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
 def test_backward_refuses_head_dim_256(cuda, dtype):
     """Head dim 256 (gemma3-4b) has no backward instantiation: the
     backward's wrapper raises naming the head dim before a launch, and
-    autograd through ops.flash_attention raises (at the forward, which
-    lacks 256 too), with no plain fallback."""
+    autograd through ops.flash_attention raises naming it before the
+    forward, which takes 256, launches; no plain fallback."""
     rng = np.random.default_rng(12)
     q, k, v, dout = (_rand(rng, (1, 70, 4, 256), dtype, cuda)
                      for _ in range(4))
@@ -227,6 +234,36 @@ def test_smoke_model_on_cuda_matches_cpu(cuda):
     for i in range(8):
         lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
         lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def test_gemma_attention_at_head_dim_256_on_cuda_matches_cpu(cuda):
+    """gemma3's smoke config at head dim 256 with its 5:1 pattern (a window
+    of 8 keys on layers 0-4, layer 5 global) over 24 tokens: the forward
+    and 24 decode steps on the card, through K1 (6 launches each), against
+    the same model on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import forward, init_cache, init_lm, serve_step
+    cfg = dataclasses.replace(smoke(get_config("gemma3-4b")), head_dim=256,
+                              attn_window=8, local_global_pattern=5,
+                              n_layers=6)
+    cpu = init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, cuda)
+    tok = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    want = forward(cfg, cpu, tok)
+    before = flash_attention_cuda.launches
+    got = forward(cfg, gpu, tok.to(cuda))
+    assert flash_attention_cuda.launches - before == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    c_cpu = init_cache(cfg, 2, 32, device="cpu")
+    c_gpu = init_cache(cfg, 2, 32, device=cuda)
+    for i in range(24):
+        before = flash_attention_cuda.launches
+        lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
+        lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+        assert flash_attention_cuda.launches - before == cfg.n_layers
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 

@@ -56,6 +56,8 @@ def _np(x):
     (2, 8, 2, 8, 32, 16),       # long kv, group 4
     (1, 4, 4, 16, 16, 80),      # head dim 80 (zamba2), group 1
     (2, 4, 2, 12, 20, 80),      # head dim 80, GQA, Sq != Skv
+    (1, 8, 4, 16, 16, 256),     # head dim 256 (gemma3), its group 2
+    (2, 4, 2, 12, 20, 256),     # head dim 256, Sq != Skv
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_kernel_sweep(B, H, Hkv, Sq, Skv, D, dtype):
@@ -79,6 +81,19 @@ def test_plain_matches_pallas_kernel_masks(causal, window):
     got = flash_attention_plain(tq, tk, tv, causal=causal, window=window)
     np.testing.assert_allclose(_np(got.transpose(1, 2)), _np(want),
                                **TOL["float32"])
+
+
+def test_plain_matches_pallas_kernel_window_at_head_dim_256():
+    """gemma3's head dim and group, a sliding window over several blocks
+    of the Pallas kernel and chunks of the plain version."""
+    (q, k, v), (tq, tk, tv) = _inputs(11, 1, 8, 4, 32, 32, 256)
+    want = flash_attention_kernel(q, k, v, causal=True, window=6,
+                                  block_q=8, block_k=8, interpret=True)
+    oracle = jref.flash_attention_ref(q, k, v, causal=True, window=6)
+    got = _np(flash_attention_plain(tq, tk, tv, causal=True, window=6,
+                                    kv_chunk=8).transpose(1, 2))
+    np.testing.assert_allclose(got, _np(want), **TOL["float32"])
+    np.testing.assert_allclose(got, _np(oracle), **TOL["float32"])
 
 
 @pytest.mark.parametrize("q_offset,window,kv_chunk,Sq,Skv", [
@@ -181,6 +196,46 @@ def test_kernel_wrapper_validates_before_launch(bad, monkeypatch):
     with pytest.raises((ValueError, TypeError)):
         flash_attention_cuda(q, k, k, **kw)
     assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("D,match", [
+    (256, "window -1 < 0"),  # admitted: the next check refuses the window
+    (72, "head dim 72"),     # no multiple of 16
+    (512, "head dim 512"),   # no instantiation
+])
+@pytest.mark.parametrize("Sq", [1, 4])
+def test_kernel_wrapper_admits_head_dim_256_and_refuses_others_before_launch(
+        monkeypatch, D, match, Sq):
+    """The forward kernels take head dim 256 (gemma3-4b), prefill and
+    decode alike: at 256 the wrapper passes its head-dim checks and stops
+    only at the negative window given here.  A head dim the kernels lack
+    raises on the head dim.  Neither launches anything."""
+    assert 256 in HEAD_DIMS and (D in HEAD_DIMS) == (D == 256)
+    q = torch.zeros(1, Sq, 8, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 4, D, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(q, k, k, window=-1)
+    assert flash_attention_cuda.launches == before
+
+
+def test_gradient_at_head_dim_256_raises_before_the_forward(monkeypatch):
+    """With q, k or v requiring grad at head dim 256, ops.flash_attention
+    raises naming the head dim before the forward kernel would launch (it
+    takes 256; the backward does not), and nothing falls back."""
+    q = torch.zeros(1, 4, 8, 256, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 4, 4, 256, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim 256"):
+        ops.flash_attention(q, k, k)
+    assert flash_attention_cuda.launches == f0
+    assert flash_attention_bwd_cuda.launches == b0
 
 
 @pytest.mark.parametrize("D,match", [

@@ -39,19 +39,23 @@ prompt, then 32 greedy tokens).
   has no prefill into a cache, and 4064 steps would take minutes), each
   held against the plain attention.
 
-Then the three families train at full width (8 x 1024 tokens a step, f32
-master weights, AdamW), each through ``repro_torch.train.loop.train``: run
-1 dies after step 3's save, run 2 resumes bit-exactly.  qwen3-1.7b trains
-through K1's forward and its backward; falcon-mamba-7b, cut to 16 of its
-64 layers (its state at full depth would not fit the card), through the
-fused K2 forward and K2's backward kernel; zamba2-2.7b, cut to 42 of its
-54 layers (its two state files at full depth would take the run's disk
-footprint past 45 GiB), through K1's forward and its backward at head dim 80 in
-each of its shared-attention applications (each held against the plain
-backward in step 0, and one group's output and gradients against the
-plain attention), its Mamba2 layers through autograd of plain torch.  The
-backward kernels are timed at each training shape and in a profiled
-training step.
+Then four models train at full width (8192 tokens a step, f32 master
+weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
+after step 3's save, run 2 resumes bit-exactly.  qwen3-1.7b trains
+through K1's forward and its backward (8 x 1024 tokens); falcon-mamba-7b,
+cut to 16 of its 64 layers (its state at full depth would not fit the
+card), through the fused K2 forward and K2's backward kernel; zamba2-2.7b,
+cut to 42 of its 54 layers (its two state files at full depth would take
+the run's disk footprint past 45 GiB), through K1's forward and its
+backward at head dim 80 in each of its shared-attention applications
+(each held against the plain backward in step 0, and one group's output
+and gradients against the plain attention), its Mamba2 layers through
+autograd of plain torch; gemma3-4b, cut to 12 of its 34 layers for the
+same disk, on 2 x 4096 tokens so that its 1024-key window masks, through
+K1's forward and its backward at head dim 256 with each layer's window
+(each backward call held against the plain backward in step 0, the loss
+and gradient norm against the plain attention).  The backward kernels are
+timed at each training shape and in a profiled training step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Every phase asserts; any failure exits non-zero.  The
@@ -59,7 +63,8 @@ line before the last is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
 prints no result.  Needs about 52 GB free in the temporary directory
-(falcon-mamba's training state, twice, while its final save commits).
+(falcon-mamba's training state, twice, while its final save commits;
+gemma3's and zamba2's each need about 48 GB).
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
 """
@@ -182,6 +187,15 @@ FALCON_TRAIN_LAYERS = 16
 #: at 54 layers and 42.8 GB at 42, and the run keeps its disk footprint
 #: under 45 GiB.  Its device memory fits at 54 layers (a 53.6 GB peak).
 ZAMBA_TRAIN_LAYERS = 42
+#: gemma3-4b trains at full width cut to GEMMA_TRAIN_LAYERS of its 34 layers
+#: (two whole 5:1 periods: layers 5 and 11 global), on GEMMA_TRAIN_B x
+#: GEMMA_TRAIN_S tokens a step, the 8192 of the other paths, so that its
+#: 1024-key window masks (at 1024 tokens it masks nothing): its two f32
+#: state files, which coexist while the final save commits, are 93.1 GB at
+#: 34 layers and 43.3 GB at 12, and the run keeps its disk footprint under
+#: 45 GiB.  Its state on the card is 28.9 GB at 16 B a parameter.
+GEMMA_TRAIN_LAYERS = 12
+GEMMA_TRAIN_B, GEMMA_TRAIN_S = 2, 4096
 #: One falcon layer at the training shape, kernel path against plain path
 #: on the same inputs: its bf16 output as REL_LAYER_PLAIN, its bf16
 #: gradients (each rounded once from f32 sums taken in another order) by
@@ -611,6 +625,24 @@ def sdpa_gqa(torch):
         return f(q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
                  **kw)
     return repeated
+
+
+def sdpa_masks(torch, Sq, Skv, causal=True, window=None, device="cuda"):
+    """SDPA's keyword arguments for K1's masks (query offset 0): causal
+    alone as ``is_causal``, a window as a boolean (Sq, Skv) mask."""
+    if window is None:
+        return dict(is_causal=causal)
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    kv_pos = torch.arange(Skv, device=device)[None, :]
+    mask = q_pos - kv_pos < window
+    return dict(attn_mask=mask & (kv_pos <= q_pos) if causal else mask)
+
+
+def attended_pairs(S: int, window=None) -> int:
+    """(position, key) pairs a causal attention over S tokens computes,
+    with a window of ``window`` keys or without."""
+    w = S if window is None else window
+    return sum(min(i + 1, w) for i in range(S))
 
 
 def ptxas_summary(log: str):
@@ -1045,10 +1077,13 @@ def hold_grad(got, want, dtype, what: str) -> float:
 
 def bwd_checks(torch, fa):
     """K1's forward log-sum-exp and its backward kernels against the plain
-    versions (f32 and bf16; D 16, 32, 64, 80, 128; groups 1 to 8; causal or
-    not; a window; ragged S; a query offset), two calls bit-equal, then
-    the backward at each training path's shape (bwd_train_shape): qwen3's
-    record first, then zamba2's."""
+    versions (f32 and bf16; D 16, 32, 64, 80, 128, 256; groups 1 to 8;
+    causal or not; a window; ragged S; a query offset), two calls
+    bit-equal, then the backward at each training path's shape
+    (bwd_train_shape): qwen3's record first, then zamba2's, then gemma3's
+    at 2 x 4096 with its 1024-key window (its local layers) and without
+    (its global ones)."""
+    from repro_torch.configs import get_config
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
 
@@ -1074,6 +1109,10 @@ def bwd_checks(torch, fa):
         (2, 4, 4, 130, 130, 80, True, 16, 0),       # head dim 80, window
         (1, 4, 2, 20, 100, 80, False, None, 0),     # head dim 80, Sq != Skv
         (2, 8, 8, 129, 257, 80, True, None, 128),   # head dim 80, q_offset
+        (1, 8, 4, 300, 300, 256, True, None, 0),    # gemma3's heads, ragged
+        (1, 8, 4, 200, 200, 256, True, 70, 0),      # head dim 256, window edge in a tile
+        (1, 4, 2, 20, 100, 256, False, None, 0),    # head dim 256, Sq != Skv
+        (2, 8, 4, 129, 257, 256, True, None, 128),  # head dim 256, q_offset
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     lse_worst = 0.0
@@ -1104,45 +1143,54 @@ def bwd_checks(torch, fa):
 
     records = [bwd_train_shape(torch, fa, rand, model, *K1_HEADS[model])
                for model in (QWEN, ZAMBA)]   # the trained models' heads
+    records += [bwd_train_shape(torch, fa, rand, GEMMA, *K1_HEADS[GEMMA],
+                                B=GEMMA_TRAIN_B, S=GEMMA_TRAIN_S,
+                                window=window)
+                for window in (get_config(GEMMA).attn_window, None)]
     return records + [dict(shape="checks", max_abs_err=worst[torch.float32],
                            bf16_rel_err=worst[torch.bfloat16],
                            lse_max_abs_err=lse_worst)]
 
 
-def bwd_train_shape(torch, fa, rand, model, H, Hkv, D):
-    """K1's backward at a training path's shape (8 x 1024, causal, bf16,
-    ``model``'s heads): held against the plain version and SDPA's backward,
-    two calls bit-equal, then timed beside the plain version, SDPA's
-    backward and the bound, whole and by part; and K1's forward there."""
-    B, S = TRAIN_B, TRAIN_S
+def bwd_train_shape(torch, fa, rand, model, H, Hkv, D, B=TRAIN_B, S=TRAIN_S,
+                    window=None):
+    """K1's backward at a training path's shape (B x S, causal, with
+    ``window`` or none, bf16, ``model``'s heads): held against the plain
+    version and SDPA's backward (the window as a boolean mask), two calls
+    bit-equal, then timed beside the plain version, SDPA's backward and
+    the bound, whole and by part; and K1's forward there."""
     bf16 = torch.bfloat16
+    kw = dict(window=window)
+    label = f"{model}{'' if window is None else f', window {window}'}"
     q, dout = (rand(B, S, H, D, dtype=bf16) for _ in range(2))
     k, v = (rand(B, S, Hkv, D, dtype=bf16) for _ in range(2))
-    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
-    assert_close(lse, fa.lse_plain(q, k, v), LSE_TOL,
-                 f"K1 lse, train shape ({model})")
-    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
-    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert_close(lse, fa.lse_plain(q, k, v, **kw), LSE_TOL,
+                 f"K1 lse, train shape ({label})")
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"K1 bwd, train shape ({model}): two calls differ")
-    want = fa.flash_attention_bwd_plain(q, k, v, dout)
-    rels = [hold_grad(g, w, bf16, f"K1 bwd train shape ({model}) d{name}")
+          f"K1 bwd, train shape ({label}): two calls differ")
+    want = fa.flash_attention_bwd_plain(q, k, v, dout, **kw)
+    rels = [hold_grad(g, w, bf16, f"K1 bwd train shape ({label}) d{name}")
             for name, g, w in zip("qkv", got, want)]
     errs = [max_err(g, w) for g, w in zip(got, want)]
     del want, again
     sdpa = sdpa_gqa(torch)
+    masks = sdpa_masks(torch, S, S, window=window)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    lib_out = sdpa(qh, kh, vh, is_causal=True)
+    lib_out = sdpa(qh, kh, vh, **masks)
     doh = dout.transpose(1, 2)
     lib = torch.autograd.grad(lib_out, (qh, kh, vh), doh, retain_graph=True)
     for name, g, w in zip("qkv", got, lib):
         check(rel_err(g, w.transpose(1, 2)) <= BWD_REL_BF16,
-              f"SDPA backward yardstick disagrees ({model}, d{name})")
+              f"SDPA backward yardstick disagrees ({label}, d{name})")
     backend = library_backend(torch, lambda: torch.autograd.grad(
         lib_out, (qh, kh, vh), doh, retain_graph=True))
-    product = 2 * B * H * D * (S * (S + 1) // 2)   # one causal product
+    # one product over the pairs the masks leave
+    product = 2 * B * H * D * attended_pairs(S, window)
     flops = 5 * product
     nbytes = (2 * (3 * q.numel() + 2 * k.numel())   # q, o, dO, k, v read
               + 4 * lse.numel()                       # lse read
@@ -1157,30 +1205,35 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D):
         dkdv=bound(inputs + 2 * 2 * k.numel(), 4 * product, PEAK_BF16_FLOPS),
         dq=bound(inputs + 2 * q.numel(), 3 * product, PEAK_BF16_FLOPS))
     split = device_split_ms(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse), 30,
-        tuple(BWD_PARTS.values()))
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw),
+        30, tuple(BWD_PARTS.values()))
     fwd_bound = bound(2 * (q.numel() + 2 * k.numel() + out.numel())
                       + 4 * lse.numel(), 2 * product, PEAK_BF16_FLOPS)
     with torch.no_grad():
-        fwd_library_ms = device_time_ms(
-            lambda: sdpa(qh, kh, vh, is_causal=True), 50)
+        fwd_library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, **masks), 50)
     rec = dict(
-        shape=f"train B{B} S{S} H{H}/{Hkv} D{D} causal bf16", model=model,
-        kernel="flash_bwd_preprocess_kernel + flash_bwd_dkdv_kernel + "
-               "flash_bwd_dq_kernel", max_abs_err=max(errs),
+        shape=f"train B{B} S{S} H{H}/{Hkv} D{D} causal"
+              f"{'' if window is None else f' window {window}'} bf16",
+        model=model,
+        kernel=" + ".join(
+            ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_wide_kernel",
+             "flash_bwd_dq_wide_kernel") if D == fa.BWD_WIDE
+            else ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
+                  "flash_bwd_dq_kernel")), max_abs_err=max(errs),
         max_abs_err_dq_dk_dv=errs, rel_err_dq_dk_dv=rels,
         library=f"SDPA backward ({backend})",
         fwd_lse_ms=device_time_ms(
-            lambda: fa.flash_attention_cuda(q, k, v, with_lse=True), 50),
-        fwd_ms=device_time_ms(lambda: fa.flash_attention_cuda(q, k, v), 50),
+            lambda: fa.flash_attention_cuda(q, k, v, with_lse=True, **kw), 50),
+        fwd_ms=device_time_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, **kw), 50),
         fwd_bound_ms=fwd_bound["bound_ms"], fwd_bound_by=fwd_bound["bound_by"],
         fwd_library_ms=fwd_library_ms,
         **{f"{part}_ms": split[name] for part, name in BWD_PARTS.items()},
         **{f"{part}_bound_ms": b["bound_ms"]
            for part, b in split_bounds.items()},
         **timings(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
-                                                      lse),
-                  lambda: fa.flash_attention_bwd_plain(q, k, v, dout),
+                                                      lse, **kw),
+                  lambda: fa.flash_attention_bwd_plain(q, k, v, dout, **kw),
                   lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
                                               retain_graph=True), 30),
         **bound(nbytes, flops, PEAK_BF16_FLOPS))
@@ -1194,7 +1247,7 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D):
           f"K1 forward with lse {rec['fwd_lse_ms']:.5f} ms, without "
           f"{rec['fwd_ms']:.5f} ms, bound {rec['fwd_bound_ms']:.5f} "
           f"({rec['fwd_bound_by']}), SDPA forward {fwd_library_ms:.5f} ms")
-    print(f"K1 bwd split, train shape ({model}): " + "; ".join(
+    print(f"K1 bwd split, train shape ({label}): " + "; ".join(
         f"{part} {rec[part + '_ms']:.5f} ms (bound "
         f"{rec[part + '_bound_ms']:.5f}, {split_bounds[part]['bound_by']})"
         for part in BWD_PARTS))
@@ -2263,8 +2316,9 @@ def train_step0_check(torch, cfg, data, required, plain=None):
     (zamba2) and their gradients are held one by one instead
     (train_layer_check, train_group_check).  Every call of K1's backward
     in the step, one an attention application, is held against the plain
-    backward on the same q, k, v and dO: within BWD_REL_BF16, or
-    BWD_LIB_RATIO of SDPA's backward's distance where that is larger."""
+    backward on the same q, k, v and dO, with the call's masks (a window
+    as a boolean mask for SDPA): within BWD_REL_BF16, or BWD_LIB_RATIO of
+    SDPA's backward's distance where that is larger."""
     from repro_torch.checkpoint.pytree_io import flatten_named
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
@@ -2274,18 +2328,21 @@ def train_step0_check(torch, cfg, data, required, plain=None):
     batch = data.sharded_batch(0, cuda)
     named = flatten_named(params)[0]
     bwd_errs = []   # each backward call's dq, dk, dv: (K1, SDPA) relative L2
+    windows = []    # each backward call's window
     sdpa = sdpa_gqa(torch)
 
     def held_bwd(q, k, v, out, dout, lse, **kw):
         got = fa_mod.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
         want = fa_mod.flash_attention_bwd_plain(q, k, v, dout, **kw)
-        check(kw["window"] is None and kw["q_offset"] == 0,
-              f"step 0: a backward with masks SDPA does not take: {kw}")
+        check(kw["q_offset"] == 0,
+              f"step 0: a backward with a query offset SDPA does not take: {kw}")
+        masks = sdpa_masks(torch, q.shape[1], k.shape[1], kw["causal"],
+                           kw["window"], q.device)
         with torch.enable_grad():   # autograd runs backward in no-grad mode
             qkv = [t.transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
-            lib = torch.autograd.grad(sdpa(*qkv, is_causal=kw["causal"]),
-                                      qkv, dout.transpose(1, 2))
+            lib = torch.autograd.grad(sdpa(*qkv, **masks), qkv,
+                                      dout.transpose(1, 2))
         errs = []
         for name, g, l_, w in zip("qkv", got, lib, want):
             r, r_lib = rel_err(g, w), rel_err(l_.transpose(1, 2), w)
@@ -2295,6 +2352,7 @@ def train_step0_check(torch, cfg, data, required, plain=None):
                   f"{r_lib}")
             errs.append((r, r_lib))
         bwd_errs.append(errs)
+        windows.append(kw["window"])
         return got
 
     def loss_and_norms():
@@ -2317,8 +2375,9 @@ def train_step0_check(torch, cfg, data, required, plain=None):
               f"{BWD_LIB_RATIO} x SDPA's backward's distance where larger): "
               f"dq, dk, dv relative L2, K1 (SDPA) " + "; ".join(
                   ", ".join(f"{r:.3g} ({r_lib:.3g})" for r, r_lib in e)
-                  for e in bwd_errs))
-    rec = dict(loss=loss, bwd_rel_err=bwd_errs)
+                  + ("" if w is None else f" [window {w}]")
+                  for e, w in zip(bwd_errs, windows)))
+    rec = dict(loss=loss, bwd_rel_err=bwd_errs, bwd_windows=windows)
     if plain is not None:
         with mock.patch.object(ops, *plain):
             loss_plain, norms_plain = loss_and_norms()
@@ -2479,9 +2538,10 @@ def train_group_check(torch, cfg, K):
     return dict(out_rel_err=r_out, grad_rel_err=rels)
 
 
-def train_run(torch, cfg, loop, opt, spies, hooks):
-    """One ``repro_torch.train.loop.train`` call on the card, with the
-    checkpoint manager's snapshot, background write and restore timed."""
+def train_run(torch, cfg, loop, opt, spies, hooks, B, S):
+    """One ``repro_torch.train.loop.train`` call on the card, B x S tokens
+    a step, with the checkpoint manager's snapshot, background write and
+    restore timed."""
     from repro_torch.checkpoint import manager as mgr_mod
     from repro_torch.train.loop import train
     real_snapshot = mgr_mod.snapshot_to_host
@@ -2517,8 +2577,8 @@ def train_run(torch, cfg, loop, opt, spies, hooks):
                               write), \
             mock.patch.object(mgr_mod.CheckpointManager, "restore_or_init",
                               restore_or_init):
-        return train(cfg, loop, opt, seq_len=TRAIN_S,
-                     global_batch=TRAIN_B, hooks=hooks, device="cuda")
+        return train(cfg, loop, opt, seq_len=S, global_batch=B, hooks=hooks,
+                     device="cuda")
 
 
 def train_profile(torch, cfg, state, opt, data, parts, split=None):
@@ -2567,15 +2627,15 @@ def train_profile(torch, cfg, state, opt, data, parts, split=None):
 
 
 def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
-               split=None, part_check=None):
-    """``cfg`` trained at full width through ``train()``: run 1 dies after
-    step 3's save commits, run 2 resumes from it bit-exactly and finishes
-    steps 4 and 5 with a blocking save.  ``per_step``: each kernel's
-    launches a step (every other kernel launches none); ``required`` and
-    ``plain``: train_step0_check's; ``part_check``: a
-    check of one layer or group run before them (train_layer_check,
-    train_group_check).  Returns (launches of each kernel on the path,
-    record)."""
+               split=None, part_check=None, B=TRAIN_B, S=TRAIN_S):
+    """``cfg`` trained at full width through ``train()`` on B x S tokens a
+    step: run 1 dies after step 3's save commits, run 2 resumes from it
+    bit-exactly and finishes steps 4 and 5 with a blocking save.
+    ``per_step``: each kernel's launches a step (every other kernel
+    launches none); ``required`` and ``plain``: train_step0_check's;
+    ``part_check``: a check of one layer or group run before them
+    (train_layer_check, train_group_check).  Returns (launches of each
+    kernel on the path, record)."""
     import statistics
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.optim.adamw import AdamWConfig
@@ -2586,8 +2646,8 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     free = shutil.disk_usage(tmp).free
     check(free >= need, f"{tmp} has {free} B free; two state checkpoints "
           f"of {cfg.name} ({cfg.n_layers} layers) need about {need:.0f} B")
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
-                                      global_batch=TRAIN_B, seed=SEED))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B, seed=SEED))
     rec = dict(layers=cfg.n_layers)
     if part_check is not None:
         phase(f"{cfg.name} {part_check.__name__}")
@@ -2622,7 +2682,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     zero_counts(K)                                   # the main path starts
     died = False
     try:
-        train_run(torch, cfg, loop, opt, spies, hooks)
+        train_run(torch, cfg, loop, opt, spies, hooks, B, S)
     except SystemExit as e:
         died = str(e) == f"injected failure at step {TRAIN_DIE_AT}"
     check(died, f"run 1 did not die at step {TRAIN_DIE_AT}")
@@ -2631,7 +2691,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
           f"run 1 left {run1_files}")
     phase(f"{cfg.name} run 2")
-    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step))
+    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step), B, S)
     want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in K}
     launches = check_counts(K, want, f"the {cfg.name} training path")  # ends
     peak = torch.cuda.max_memory_allocated()
@@ -2664,10 +2724,10 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     # times: steps 1 to 5 (step 0 is the first call; no step's interval
     # holds a save: step 3's comes after its on_step)
     step_s = statistics.median(steps[i][1] for i in range(1, TRAIN_STEPS))
-    tokens = TRAIN_B * TRAIN_S
+    tokens = B * S
     n_params = cfg.param_count()
     flops_per_token = 6 * n_params + 6 * attention_apps(cfg) * cfg.n_heads \
-        * cfg.head_dim_ * TRAIN_S
+        * cfg.head_dim_ * S
     mfu = flops_per_token * tokens / step_s / PEAK_BF16_FLOPS
     state_bytes = spies["file_bytes"][0]
     snap_s, write_s = spies["snapshot_s"], spies["write_s"]
@@ -2678,6 +2738,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
                     "the attention applications a step (the layers of a "
                     "dense model, a hybrid's groups, none in Mamba1), no "
                     "remat counted",
+        batch=B, seq_len=S,
         params=n_params, launches_per_step=per_step,
         snapshot_s=snap_s, write_s=write_s, file_bytes=spies["file_bytes"],
         write_mb_s=[b / s / 1e6 for b, s in zip(spies["file_bytes"],
@@ -2685,7 +2746,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
         restore_s=restored["s"],
         restore_mb_s=restored["file_bytes"] / restored["s"] / 1e6,
         peak_bytes=peak)
-    print(f"train {cfg.name} ({cfg.n_layers} layers): B{TRAIN_B} S{TRAIN_S} "
+    print(f"train {cfg.name} ({cfg.n_layers} layers): B{B} S{S} "
           f"loss_chunk {TRAIN_CHUNK}, {TRAIN_STEPS} steps in two runs; "
           f"losses {losses}; step time median {step_s * 1e3:.3f} ms over "
           f"steps 1-5 (all: {[round(s * 1e3, 3) for s in rec['step_s']]} "
@@ -2886,6 +2947,26 @@ def main(argv=None) -> int:
                                     ("A_log", "in_x", "in_dt", "D",
                                      "out_proj")],
             split=BWD_PARTS, part_check=train_group_check)
+        gemma = dataclasses.replace(get_config(GEMMA),
+                                    n_layers=GEMMA_TRAIN_LAYERS)
+        check(not os.listdir(tmp), f"{tmp} holds {os.listdir(tmp)} before "
+              f"training {GEMMA}")
+        print(f"device memory allocated before training {GEMMA}: "
+              f"{torch.cuda.memory_allocated()} B; {tmp} has "
+              f"{shutil.disk_usage(tmp).free} B free")
+        phase(f"{GEMMA} training path ({GEMMA_TRAIN_LAYERS} layers, "
+              f"{GEMMA_TRAIN_B} x {GEMMA_TRAIN_S} tokens)")
+        L = gemma.n_layers
+        # as qwen3's: K1's forward twice a layer, its backward's kernels
+        # once, each layer with its window (1024 keys, or none on layers 5
+        # and 11)
+        gemma_train_launches, gemma_trained = train_path(
+            torch, gemma, K, dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
+            {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
+            tmp, required=[f"layers/attn/{part}" for part in
+                           ("wq", "wk", "wv", "q_norm", "k_norm")],
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS,
+            B=GEMMA_TRAIN_B, S=GEMMA_TRAIN_S)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2895,20 +2976,24 @@ def main(argv=None) -> int:
     qwen_serve["train"] = qwen_train
     falcon_serve["train"] = falcon_trained
     zamba_serve["train"] = zamba_trained
+    gemma_serve["train"] = gemma_trained
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
                      fa.KERNEL_NAMES,
                      k1_launches + zamba_launches + gemma_launches
-                     + qwen_train_launches["k1"] + zamba_train_launches["k1"],
+                     + qwen_train_launches["k1"] + zamba_train_launches["k1"]
+                     + gemma_train_launches["k1"],
                      k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve,
                                   GEMMA: gemma_serve}),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,
                      qwen_train_launches["k1_bwd"]
-                     + zamba_train_launches["k1_bwd"], bwd_records,
-                     {QWEN: qwen_train, ZAMBA: zamba_trained},
+                     + zamba_train_launches["k1_bwd"]
+                     + gemma_train_launches["k1_bwd"], bwd_records,
+                     {QWEN: qwen_train, ZAMBA: zamba_trained,
+                      GEMMA: gemma_trained},
                      extra=[f"{part}_ms" for part in BWD_PARTS]),
         kernel_entry("ssm_scan", ss.SOURCE,
                      "src/repro/kernels/ssm_scan.py:45", ss.KERNEL_NAMES,

@@ -76,9 +76,31 @@
 // against 0.2 GB, so the tensor cores' rate bounds it.  The kernels do 7
 // products (dQ recomputes S and dP); PERF.md has their times.
 //
+// D = 256 (gemma3) takes kernels of its own, flash_bwd_dkdv_wide_kernel and
+// flash_bwd_dq_wide_kernel: there a warpgroup's two 64 x 256 f32
+// accumulators (dK and dV, 256 registers a thread) do not fit, nor do the
+// tiles above (384 KB of shared memory for dK/dV).  A block owns one tile
+// of 64 keys (dK/dV) or positions (dQ), and its two warpgroups split the
+// work by product rather than by row: warpgroup 0 computes S^T = K Q^T
+// (dQ: S = Q K^T) and P, warpgroup 1 dP^T = V dO^T (dQ: dP = dO V^T), each
+// contracting all 256 columns by wgmma from shared memory; warpgroup 1
+// hands dP over in f32 through shared memory, warpgroup 0 forms dS = P o
+// (dP - Delta) and writes P and dS as bf16 64 x 64 tiles; then each
+// warpgroup accumulates its half of D of dV += P^T dO and dK += dS^T Q
+// (dQ: dQ += dS K) by m64n128k16 with both operands in shared memory, 64
+// accumulator registers a product, so no product is done twice.  Named
+// barriers order the two hand-offs.  K and V (dK/dV) or Q and dO (dQ)
+// stay resident (64 KB), the walked tiles go through a 2-stage ring (128
+// KB), the exchange takes 32 KB (dQ 24 KB); warp 0 of warpgroup 1, which
+// waits while warpgroup 0 forms dS, keeps the ring full.  At gemma3's
+// training shape (B 2, S 4096, 8/4 heads) the 5 products are 344 GFLOP
+// causal and 150 with its 1024-key window, against 0.2 GB: the tensor
+// cores' rate bounds it there too.
+//
 // f32 (the smoke configurations and the checks) takes plain FMA kernels with
 // every tile in shared memory: flash_bwd_dkdv_fma_kernel and
-// flash_bwd_dq_fma_kernel, 64 keys or rows a block and query rows (query
+// flash_bwd_dq_fma_kernel, 64 keys or rows a block (32 at D = 256, where
+// tiles of 64 rows of D + 1 floats would not fit) and query rows (query
 // position, q head of the group) interleaved, 32 a tile.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -93,9 +115,13 @@ using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int NT = 128;   // threads per block of the preprocess and FMA kernels
-constexpr int BM = 64;    // FMA: keys per dK/dV block; query rows per dQ block
-constexpr int BN = 64;    // FMA: keys per kv tile of the dQ kernel
 constexpr int BQ = 32;    // FMA: query rows per tile of the dK/dV kernel
+// FMA: keys per dK/dV block, query rows per dQ block and keys per kv tile
+// of the dQ kernel; 32 at D = 256, where tiles of 64 rows would not fit.
+template <int D>
+constexpr int fma_rows() {
+  return D > 128 ? 32 : 64;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The tensor-core kernels: two warpgroups of 64 rows each, up to 255
@@ -161,6 +187,14 @@ __device__ __forceinline__ void fence_async_smem() {
 // A barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads).
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory");
+}
+// A barrier of both warpgroups (ids 3 and 4, the D = 256 kernels' hand-offs):
+// one side arrives without waiting, the other waits for it.
+__device__ __forceinline__ void block_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(TC_THREADS) : "memory");
+}
+__device__ __forceinline__ void block_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(TC_THREADS) : "memory");
 }
 
 // ------------------------------------------------------------------ wgmma --
@@ -314,6 +348,34 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 128, f32) = A (64 x 16) . B (16 x 128), plus d where `add` is
+// nonzero; both operands in shared memory, A K-major, B MN-major (the
+// transpose bit).
+__device__ __forceinline__ void wgmma_ss128_mn(float* d, uint64_t a, uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(add));
+}
+
 // ------------------------------------------------------------- preprocess --
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_preprocess_kernel(Args a) {
@@ -340,7 +402,9 @@ __device__ __forceinline__ void rows_seeing(const Args& a, int j0, int nk, int* 
   *r_hi = max(p_hi, p_lo) * a.group;
 }
 
-// The key tiles [kv_begin, kv_end) that query positions [p0, p0 + nq) see.
+// The keys [kv_begin, kv_end) that query positions [p0, p0 + nq) see, the
+// first rounded down to a tile of BN.
+template <int BN>
 __device__ __forceinline__ void keys_seen(const Args& a, int p0, int nq, int* kv_begin,
                                           int* kv_end) {
   const int q_lo = a.q_offset + p0, q_hi = q_lo + nq - 1;
@@ -437,6 +501,20 @@ __device__ __forceinline__ bool mask_free(const Args& a, int p0, int k0) {
 // A row with no valid key has lse = -inf; +inf makes its P 0, not NaN.
 __device__ __forceinline__ float no_key(float lse) { return lse == -INFINITY ? INFINITY : lse; }
 
+// The log-sum-exp and Delta of query positions p0 + lane and p0 + lane + 32
+// of q head hq, as a tile uses them: +inf and 0 past Sq (padding: P = 0,
+// dS = 0).
+__device__ __forceinline__ void tile_stats(const Args& a, int b, int hq, int p0, int lane,
+                                           float* l, float* d) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + lane + 32 * h;
+    const long long at = ((long long)b * a.H + hq) * a.Sq + p;
+    l[h] = p < a.Sq ? no_key(a.lse[at]) : INFINITY;
+    d[h] = p < a.Sq ? a.delta[at] : 0.f;
+  }
+}
+
 // x, opaque to the compiler: a descriptor built from it inside the walk is
 // not hoisted out of it, where it would hold registers the whole way.
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
@@ -448,11 +526,12 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
+template <int NS>
 __device__ __forceinline__ void init_ring(uint64_t* once, int once_count, uint64_t* full,
                                           int full_count, uint64_t* empty) {
   if (threadIdx.x == 0) {
     bar_init(once, once_count);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NS; ++s) {
       bar_init(&full[s], full_count);
       bar_init(&empty[s], 2 * WG / 32);  // each warp arrives once a tile
     }
@@ -495,17 +574,21 @@ __device__ __forceinline__ void softmax_grad(float* s, float* dp, float sl2, Lse
     }
 }
 
-// Write a 64 x D accumulator, times `mul`, as bf16 into a tile.
-template <int D>
+// Write a 64 x N accumulator, times `mul`, as bf16 into columns [col0,
+// col0 + N) of a tile of D columns; zeros instead with `none` (an
+// accumulator no product has set).
+template <int D, int N = D>
 __device__ __forceinline__ void stage_tile(unsigned char* tile, const float* acc, float mul,
-                                           int warp, int g, int t4) {
+                                           int warp, int g, int t4, int col0 = 0,
+                                           bool none = false) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<__nv_bfloat162*>(tile + tile_offset<D>(16 * warp + g + 8 * h,
-                                                               8 * j + 2 * t4)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+                                                               col0 + 8 * j + 2 * t4)) =
+          none ? __floats2bfloat162_rn(0.f, 0.f)
+               : __floats2bfloat162_rn(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
 }
 
 // ------------------------------------------------------------ bf16 dK, dV --
@@ -546,7 +629,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   dkdv_walk(a, j_blk + ROWS, &lo[1], &hi[1]);
   block_walk(lo, hi, &t_lo, &n_t);
   const int n_iter = n_t * a.group;  // each q head of the group, one after another
-  init_ring(kv_full, 1, full, 32, empty);
+  init_ring<STAGES>(kv_full, 1, full, 32, empty);
 
   const int c = threadIdx.x / WG;
   const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
@@ -558,14 +641,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   // hides behind a tile's work), then, once the stage is free, those into
   // shared memory and Q and dO by TMA.
   auto load_stats = [&](int it, float* l, float* d) {
-    const int hq = hk * a.group + it / n_t, p0 = (t_lo + it % n_t) * ROWS;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + lane + 32 * h;
-      const long long at = ((long long)b * a.H + hq) * a.Sq + p;
-      l[h] = p < a.Sq ? no_key(a.lse[at]) : INFINITY;  // padding: P = 0, dS = 0
-      d[h] = p < a.Sq ? a.delta[at] : 0.f;
-    }
+    tile_stats(a, b, hk * a.group + it / n_t, (t_lo + it % n_t) * ROWS, lane, l, d);
   };
   auto fill = [&](int it, const float* l, const float* d) {
     const int stage = it % STAGES, hq = hk * a.group + it / n_t, p0 = (t_lo + it % n_t) * ROWS;
@@ -745,7 +821,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   dq_walk(a, p_blk, &lo[0], &hi[0]);
   dq_walk(a, p_blk + ROWS, &lo[1], &hi[1]);
   block_walk(lo, hi, &t_lo, &n_t);
-  init_ring(qo_full, 32, full, 1, empty);
+  init_ring<STAGES>(qo_full, 32, full, 1, empty);
 
   const int c = threadIdx.x / WG;
   const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
@@ -763,12 +839,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   if (threadIdx.x < 32) {  // the block's positions' statistics, Q and dO
     float l[BLOCK_ROWS / 32], d[BLOCK_ROWS / 32];
 #pragma unroll
-    for (int h = 0; h < BLOCK_ROWS / 32; ++h) {
-      const int p = p_blk + lane + 32 * h;
-      const long long at = ((long long)b * a.H + hq) * a.Sq + p;
-      l[h] = p < a.Sq ? no_key(a.lse[at]) : INFINITY;  // padding: P = 0, dS = 0
-      d[h] = p < a.Sq ? a.delta[at] : 0.f;
-    }
+    for (int half = 0; half < 2; ++half)
+      tile_stats(a, b, hq, p_blk + half * ROWS, lane, l + 2 * half, d + 2 * half);
 #pragma unroll
     for (int h = 0; h < BLOCK_ROWS / 32; ++h) {
       s_lse[lane + 32 * h] = l[h];
@@ -886,6 +958,375 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// ------------------------------------------------ bf16 at head dim 256 --
+// The kernels the header describes for D = 256 (gemma3): a block of two
+// warpgroups owns one tile of ROWS keys (dK/dV) or positions (dQ);
+// warpgroup 0 computes S and P, warpgroup 1 dP, and each accumulates its
+// half of D of the products that follow.
+constexpr int WIDE = 256;
+constexpr int WIDE_STAGES = 2;                       // the ring of walked tiles
+constexpr int HALF_BLOCKS = Tile<WIDE>::BLOCKS / 2;  // column blocks of a half of D
+constexpr int BAR_DP = 3, BAR_PDS = 4;  // dP written; P and dS written
+
+// One walked tile of the D = 256 kernels: warpgroup 0's S (S^T for dK/dV)
+// or warpgroup 1's dP (dP^T), 64 x 64 f32, unscaled; A and B are K-major
+// tiles of 256 columns.
+__device__ __forceinline__ void wide_scores(float* acc, uint32_t tA, uint32_t tB) {
+  wgmma_fence();
+  wgmma_ss64_init(acc, desc_k<WIDE>(tA, 0), desc_k<WIDE>(tB, 0));
+#pragma unroll
+  for (int ks = 1; ks < WIDE / 16; ++ks)
+    wgmma_ss64(acc, desc_k<WIDE>(tA, ks), desc_k<WIDE>(tB, ks));
+  wgmma_commit();
+}
+
+// Warpgroup 1 hands dP over, each thread its fragment's 32 values at a
+// stride of WG (no bank conflicts), and warpgroup 0 reads them back in
+// the same fragment order.
+__device__ __forceinline__ void put_dp(float* x_dp, const float* dp, int tid) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x_dp[i * WG + tid] = dp[i];
+}
+
+struct WideDkvSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int T = Tile<WIDE>::BYTES, X = Tile<ROWS>::BYTES;
+  static constexpr int K = 0, V = T, Q = 2 * T, DO = Q + WIDE_STAGES * T;
+  static constexpr int P = DO + WIDE_STAGES * T, DS = P + X, DP = DS + X;  // DP: 64 x 64 f32
+  static constexpr int LSE = DP + ROWS * ROWS * 4, DELTA = LSE + WIDE_STAGES * ROWS * 4;
+  static constexpr int BARS = DELTA + WIDE_STAGES * ROWS * 4;  // kv, full[], empty[]
+  static constexpr int BYTES = BARS + (1 + 2 * WIDE_STAGES) * 8 + 1024;
+};
+static_assert(WideDkvSmem::BYTES <= 232448, "dK/dV at D = 256 exceeds a block's shared memory");
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dkdv_wide_kernel(const __grid_constant__ DkvMaps maps, const Args a) {
+  constexpr int D = WIDE;
+  using SM = WideDkvSmem;
+  using TL = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  float* const s_lse = reinterpret_cast<float*>(smem + SM::LSE);  // [WIDE_STAGES][ROWS]
+  float* const s_delta = reinterpret_cast<float*>(smem + SM::DELTA);
+  float* const x_dp = reinterpret_cast<float*>(smem + SM::DP);
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + WIDE_STAGES;
+
+  // Causal: the first key tiles are seen by the most positions; they go first.
+  int lin = blockIdx.x;
+  const int hk = lin % a.Hkv;
+  lin /= a.Hkv;
+  const int b = lin % a.B;
+  const int j0 = (lin / a.B) * ROWS;
+  int t_lo, t_hi;
+  dkdv_walk(a, j0, &t_lo, &t_hi);
+  const int n_t = t_hi - t_lo;
+  const int n_iter = n_t * a.group;  // each q head of the group, one after another
+  init_ring<WIDE_STAGES>(kv_full, 1, full, 32, empty);
+
+  const int c = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool loader = c == 1 && warp == 0;  // also keeps the ring full
+
+  // As in flash_bwd_dkdv_kernel: a step's statistics into registers early,
+  // then, once its stage is free, into shared memory, and Q and dO by TMA.
+  auto load_stats = [&](int it, float* l, float* d) {
+    tile_stats(a, b, hk * a.group + it / n_t, (t_lo + it % n_t) * ROWS, lane, l, d);
+  };
+  auto fill = [&](int it, const float* l, const float* d) {
+    const int stage = it % WIDE_STAGES, hq = hk * a.group + it / n_t;
+    const int p0 = (t_lo + it % n_t) * ROWS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s_lse[stage * ROWS + lane + 32 * h] = l[h];
+      s_delta[stage * ROWS + lane + 32 * h] = d[h];
+    }
+    if (lane == 0) {
+      bar_arrive_expect(&full[stage], 2 * TL::BYTES);
+      for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+        const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
+        tma_load_4d(smem + SM::Q + at, &maps.q, &full[stage], cb * TL::BOX, hq, p0, b);
+        tma_load_4d(smem + SM::DO + at, &maps.dout, &full[stage], cb * TL::BOX, hq, p0, b);
+      }
+    } else {
+      bar_arrive(&full[stage]);
+    }
+  };
+  if (loader) {
+    if (lane == 0) {
+      bar_arrive_expect(kv_full, 2 * TL::BYTES);
+      for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+        const int at = cb * TL::BLOCK_BYTES;
+        tma_load_4d(smem + SM::K + at, &maps.k, kv_full, cb * TL::BOX, hk, j0, b);
+        tma_load_4d(smem + SM::V + at, &maps.v, kv_full, cb * TL::BOX, hk, j0, b);
+      }
+    }
+    float l[WIDE_STAGES][2], d[WIDE_STAGES][2];  // every stage starts free
+#pragma unroll
+    for (int it = 0; it < WIDE_STAGES; ++it)
+      if (it < n_iter) load_stats(it, l[it], d[it]);
+#pragma unroll
+    for (int it = 0; it < WIDE_STAGES; ++it)
+      if (it < n_iter) fill(it, l[it], d[it]);
+  }
+
+  const uint32_t sK = smem_u32(smem + SM::K), sV = smem_u32(smem + SM::V);
+  const uint32_t xP = smem_u32(smem + SM::P), xDS = smem_u32(smem + SM::DS);
+  const int half = c * HALF_BLOCKS * TL::BLOCK_BYTES;  // this warpgroup's columns of a tile
+  const float sl2 = a.scale * LOG2E;
+  // 64 keys x this warpgroup's 128 columns, set by the first step's first
+  // products: zeroing them by other instructions serializes the wgmma
+  float dk[D / 4], dv[D / 4];
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[stage]);
+  };
+  bar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it % WIDE_STAGES, p0 = (t_lo + it % n_t) * ROWS;
+    const uint32_t sQ = smem_u32(smem + SM::Q + stage * TL::BYTES);
+    const uint32_t sO = smem_u32(smem + SM::DO + stage * TL::BYTES);
+    bar_wait(&full[stage], (it / WIDE_STAGES) & 1);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+    float acc[32];  // S^T (warpgroup 0) or dP^T (warpgroup 1): 64 keys x 64 positions
+    wide_scores(acc, opaque(c ? sV : sK), c ? sO : sQ);
+    wgmma_wait<0>();  // and this warpgroup's products of the step before
+    fence_regs<32>(acc);
+    if (it > 0) release((it - 1) % WIDE_STAGES);
+    if (c == 1) {
+      put_dp(x_dp, acc, tid);
+      block_arrive(BAR_DP);
+      // refill the stage of step it - 1, which both warpgroups have released
+      // once warpgroup 0 is past its S^T, with step it + 1
+      if (loader && it >= 1 && it + 1 < n_iter) {
+        float l[2], d[2];
+        load_stats(it + 1, l, d);
+        bar_wait(&empty[(it - 1) % WIDE_STAGES], ((it - 1) / WIDE_STAGES) & 1);
+        fill(it + 1, l, d);
+      }
+      __syncwarp();
+    } else {
+      const float* L = s_lse + stage * ROWS;
+      const float* Dl = s_delta + stage * ROWS;
+      const bool unmasked = mask_free(a, p0, j0);
+      // P^T = exp2(S^T log2(e) / sqrt(D) - lse); element e of block j is key
+      // 16 warp + g + 8 (e / 2), position 8 j + 2 t4 + e % 2
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const float p = exp2f(fmaf(acc[4 * j + e], sl2, -L[col]));
+          acc[4 * j + e] = unmasked || valid(a, j0 + 16 * warp + g + 8 * (e >> 1),
+                                             a.q_offset + p0 + col)
+                               ? p
+                               : 0.f;
+        }
+      // dP^T is in x_dp, and warpgroup 1's products of the step before,
+      // which read the P^T and dS^T tiles, are done
+      block_sync(BAR_DP);
+      stage_tile<ROWS>(smem + SM::P, acc, 1.f, warp, g, t4);
+      // dS^T = P^T (dP^T - Delta)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * j + e] *= x_dp[(4 * j + e) * WG + tid] - Dl[8 * j + 2 * t4 + (e & 1)];
+      stage_tile<ROWS>(smem + SM::DS, acc, 1.f, warp, g, t4);
+      fence_async_smem();
+    }
+    block_sync(BAR_PDS);  // P^T and dS^T are in their tiles
+    // this warpgroup's half of D: dV += P^T dO, dK += dS^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128_mn(dv, desc_k<ROWS>(xP, kk), desc_mn<D>(sO + half, kk), it > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128_mn(dk, desc_k<ROWS>(xDS, kk), desc_mn<D>(sQ + half, kk), it > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<D / 4>(dv);
+  fence_regs<D / 4>(dk);
+
+  // dK / sqrt(D) and dV in bf16 (zeros where no position sees a key),
+  // staged in this warpgroup's half of the K and V tiles (both warpgroups'
+  // S^T and dP^T were done before the last BAR_PDS)
+  unsigned char* const tk = smem + SM::K;
+  unsigned char* const tv = smem + SM::V;
+  stage_tile<D, D / 2>(tk, dk, a.scale, warp, g, t4, c * D / 2, n_iter == 0);
+  stage_tile<D, D / 2>(tv, dv, 1.f, warp, g, t4, c * D / 2, n_iter == 0);
+  fence_async_smem();
+  warpgroup_sync(1 + c);
+  if (tid == 0 && j0 < a.Skv) {
+    for (int cb = c * HALF_BLOCKS; cb < (c + 1) * HALF_BLOCKS; ++cb) {
+      tma_store_4d(&maps.dk, tk + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+      tma_store_4d(&maps.dv, tv + cb * TL::BLOCK_BYTES, cb * TL::BOX, hk, j0, b);
+    }
+    tma_store_wait();
+  }
+}
+
+struct WideDqSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int T = Tile<WIDE>::BYTES, X = Tile<ROWS>::BYTES;
+  static constexpr int Q = 0, DO = T, K = 2 * T, V = K + WIDE_STAGES * T;
+  static constexpr int DS = V + WIDE_STAGES * T, DP = DS + X;  // DP: 64 x 64 f32
+  static constexpr int LSE = DP + ROWS * ROWS * 4, DELTA = LSE + ROWS * 4;
+  static constexpr int BARS = DELTA + ROWS * 4;  // qo, full[], empty[]
+  static constexpr int BYTES = BARS + (1 + 2 * WIDE_STAGES) * 8 + 1024;
+};
+static_assert(WideDqSmem::BYTES <= 232448, "dQ at D = 256 exceeds a block's shared memory");
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ DqMaps maps, const Args a, int n_qb) {
+  constexpr int D = WIDE;
+  using SM = WideDqSmem;
+  using TL = Tile<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  float* const s_lse = reinterpret_cast<float*>(smem + SM::LSE);  // [ROWS]
+  float* const s_delta = reinterpret_cast<float*>(smem + SM::DELTA);
+  float* const x_dp = reinterpret_cast<float*>(smem + SM::DP);
+  uint64_t* const qo_full = reinterpret_cast<uint64_t*>(smem + SM::BARS);
+  uint64_t* const full = qo_full + 1;
+  uint64_t* const empty = full + WIDE_STAGES;
+
+  // Heaviest causal position tiles first, as in the forward.
+  int lin = blockIdx.x;
+  const int hq = lin % a.H;
+  lin /= a.H;
+  const int b = lin % a.B;
+  const int p0 = (n_qb - 1 - lin / a.B) * ROWS;
+  const int hk = hq / a.group;
+  int t_lo, t_hi;
+  dq_walk(a, p0, &t_lo, &t_hi);
+  const int n_t = t_hi - t_lo;
+  init_ring<WIDE_STAGES>(qo_full, 32, full, 1, empty);
+
+  const int c = threadIdx.x / WG;
+  const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // Warp 0 of warpgroup 1 loads the tile's statistics, Q and dO; its
+  // thread 0 also keeps the ring of K/V tiles full.
+  auto fill = [&](int it) {
+    const int stage = it % WIDE_STAGES, k0 = (t_lo + it) * ROWS;
+    bar_arrive_expect(&full[stage], 2 * TL::BYTES);
+    for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+      const int at = stage * TL::BYTES + cb * TL::BLOCK_BYTES;
+      tma_load_4d(smem + SM::K + at, &maps.k, &full[stage], cb * TL::BOX, hk, k0, b);
+      tma_load_4d(smem + SM::V + at, &maps.v, &full[stage], cb * TL::BOX, hk, k0, b);
+    }
+  };
+  if (c == 1 && warp == 0) {
+    float l[2], d[2];
+    tile_stats(a, b, hq, p0, lane, l, d);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s_lse[lane + 32 * h] = l[h];
+      s_delta[lane + 32 * h] = d[h];
+    }
+    if (lane == 0) {
+      bar_arrive_expect(qo_full, 2 * TL::BYTES);
+      for (int cb = 0; cb < TL::BLOCKS; ++cb) {
+        const int at = cb * TL::BLOCK_BYTES;
+        tma_load_4d(smem + SM::Q + at, &maps.q, qo_full, cb * TL::BOX, hq, p0, b);
+        tma_load_4d(smem + SM::DO + at, &maps.dout, qo_full, cb * TL::BOX, hq, p0, b);
+      }
+      for (int it = 0; it < min(WIDE_STAGES, n_t); ++it) fill(it);  // every stage starts free
+    } else {
+      bar_arrive(qo_full);
+    }
+  }
+
+  const uint32_t sQ = smem_u32(smem + SM::Q), sO = smem_u32(smem + SM::DO);
+  const uint32_t xDS = smem_u32(smem + SM::DS);
+  const int half = c * HALF_BLOCKS * TL::BLOCK_BYTES;  // this warpgroup's columns of a tile
+  const float sl2 = a.scale * LOG2E;
+  bar_wait(qo_full, 0);
+  float lse_row[2], delta_row[2];
+  int pos_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + g + 8 * h;
+    lse_row[h] = s_lse[r];
+    delta_row[h] = s_delta[r];
+    pos_row[h] = a.q_offset + p0 + r;
+  }
+  // 64 positions x this warpgroup's 128 columns, set by the first step's
+  // first product (as dK and dV above)
+  float dq[D / 4];
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[stage]);
+  };
+  for (int it = 0; it < n_t; ++it) {
+    const int stage = it % WIDE_STAGES, k0 = (t_lo + it) * ROWS;
+    const uint32_t sK = smem_u32(smem + SM::K + stage * TL::BYTES);
+    const uint32_t sV = smem_u32(smem + SM::V + stage * TL::BYTES);
+    bar_wait(&full[stage], (it / WIDE_STAGES) & 1);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+    float acc[32];  // S (warpgroup 0) or dP (warpgroup 1): 64 positions x 64 keys
+    wide_scores(acc, opaque(c ? sO : sQ), c ? sV : sK);
+    wgmma_wait<0>();  // and this warpgroup's product of the step before
+    fence_regs<32>(acc);
+    if (it > 0) release((it - 1) % WIDE_STAGES);
+    if (c == 1) {
+      put_dp(x_dp, acc, tid);
+      block_arrive(BAR_DP);
+      // refill the stage of step it - 1 with step it + 1
+      if (threadIdx.x == WG && it >= 1 && it + 1 < n_t) {
+        bar_wait(&empty[(it - 1) % WIDE_STAGES], ((it - 1) / WIDE_STAGES) & 1);
+        fill(it + 1);
+      }
+      __syncwarp();
+    } else {
+      const bool unmasked = mask_free(a, p0, k0);
+      // P = exp2(S log2(e) / sqrt(D) - lse); element e of block j is
+      // position 16 warp + g + 8 (e / 2), key 8 j + 2 t4 + e % 2
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(acc[4 * j + e], sl2, -lse_row[e >> 1]));
+          acc[4 * j + e] =
+              unmasked || valid(a, k0 + 8 * j + 2 * t4 + (e & 1), pos_row[e >> 1]) ? p : 0.f;
+        }
+      // dP is in x_dp, and warpgroup 1's product of the step before,
+      // which read the dS tile, is done
+      block_sync(BAR_DP);
+      // dS = P (dP - Delta)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= x_dp[i * WG + tid] - delta_row[(i & 3) >> 1];
+      stage_tile<ROWS>(smem + SM::DS, acc, 1.f, warp, g, t4);
+      fence_async_smem();
+    }
+    block_sync(BAR_PDS);  // dS is in its tile
+    // this warpgroup's half of D: dQ += dS K (K through the transpose bit)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128_mn(dq, desc_k<ROWS>(xDS, kk), desc_mn<D>(sK + half, kk), it > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs<D / 4>(dq);
+
+  // dQ / sqrt(D) in bf16 (zeros where a position sees no key), staged in
+  // this warpgroup's half of the Q tile (warpgroup 0's S were done before
+  // the last BAR_PDS)
+  unsigned char* const tq = smem + SM::Q;
+  stage_tile<D, D / 2>(tq, dq, a.scale, warp, g, t4, c * D / 2, n_t == 0);
+  fence_async_smem();
+  warpgroup_sync(1 + c);
+  if (tid == 0 && p0 < a.Sq) {
+    for (int cb = c * HALF_BLOCKS; cb < (c + 1) * HALF_BLOCKS; ++cb)
+      tma_store_4d(&maps.dq, tq + cb * TL::BLOCK_BYTES, cb * TL::BOX, hq, p0, b);
+    tma_store_wait();
+  }
+}
+
 // --------------------------------------------------------- FMA dK, dV, dQ --
 // Plain loads (converted to f32) into shared-memory tiles with a pitch of
 // D + 1 floats, so a warp reading one column of 32 rows hits 32 banks.
@@ -900,6 +1341,7 @@ __device__ __forceinline__ void load_tile(float* dst, int rows, int nrows, RowPt
 
 template <int D>
 struct FmaDkvSmem {
+  static constexpr int BM = fma_rows<D>();
   static constexpr int LT = D + 1, LP = BQ + 1;
   static constexpr int K = 0, V = K + BM * LT, DK = V + BM * LT, DV = DK + BM * LT;
   static constexpr int Q = DV + BM * LT, DO = Q + BQ * LT;
@@ -907,11 +1349,13 @@ struct FmaDkvSmem {
   static constexpr int L = DS + BM * LP, DELTA = L + BQ;
   static constexpr int BYTES = (DELTA + BQ) * 4;
 };
+static_assert(FmaDkvSmem<256>::BYTES <= 232448, "f32 dK/dV at D = 256: shared memory");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_fma_kernel(Args a) {
   using SM = FmaDkvSmem<D>;
-  constexpr int LT = SM::LT, LP = SM::LP;
+  constexpr int LT = SM::LT, LP = SM::LP, BM = SM::BM;
+  constexpr int RPT = BQ * BM / NT;  // a thread's query rows of a tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* const sm = reinterpret_cast<float*>(smem_raw);
   float *sK = sm + SM::K, *sV = sm + SM::V, *sdK = sm + SM::DK, *sdV = sm + SM::DV;
@@ -934,8 +1378,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_fma_kernel(Args a) {
   load_tile<T, D>(sV, BM, nk, [&](int r) { return vb + (long long)(j0 + r) * a.sv.s; }, tid);
   for (int i = tid; i < BM * LT; i += NT) sdK[i] = sdV[i] = 0.f;
 
-  // Scores: a thread holds key c = tid % BM against 16 of the tile's rows.
-  const int c = tid % BM, rb = (tid / BM) * (BQ / 2);
+  // Scores: a thread holds key c = tid % BM against RPT of the tile's rows.
+  const int c = tid % BM, rb = (tid / BM) * RPT;
   for (int r0 = r_lo; r0 < r_hi; r0 += BQ) {
     __syncthreads();  // the previous tile's readers are done
     const int n = min(BQ, r_hi - r0);
@@ -948,19 +1392,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_fma_kernel(Args a) {
       sD[r] = r0 + r < r_hi ? a.delta[stat_index(a, b, hk, r0 + r)] : 0.f;
     }
     __syncthreads();
-    float s[BQ / 2], dp[BQ / 2];
+    float s[RPT], dp[RPT];
 #pragma unroll
-    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < RPT; ++i) s[i] = dp[i] = 0.f;
     for (int d = 0; d < D; ++d) {
       const float kd = sK[c * LT + d], vd = sV[c * LT + d];
 #pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) {
+      for (int i = 0; i < RPT; ++i) {
         s[i] = fmaf(kd, sQ[(rb + i) * LT + d], s[i]);
         dp[i] = fmaf(vd, sO[(rb + i) * LT + d], dp[i]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < BQ / 2; ++i) {
+    for (int i = 0; i < RPT; ++i) {
       const int r = rb + i;
       float p = exp2f(s[i] * a.scale * LOG2E - sL[r]);
       if (!valid(a, j0 + c, a.q_offset + (r0 + r) / group)) p = 0.f;
@@ -991,16 +1435,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_fma_kernel(Args a) {
 
 template <int D>
 struct FmaDqSmem {
+  static constexpr int BM = fma_rows<D>(), BN = fma_rows<D>();
   static constexpr int LT = D + 1, LP = BN + 1;
   static constexpr int Q = 0, DO = Q + BM * LT, DQ = DO + BM * LT;
   static constexpr int K = DQ + BM * LT, V = K + BN * LT, DS = V + BN * LT;
   static constexpr int BYTES = (DS + BM * LP) * 4;
 };
+static_assert(FmaDqSmem<256>::BYTES <= 232448, "f32 dQ at D = 256: shared memory");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(Args a) {
   using SM = FmaDqSmem<D>;
-  constexpr int LT = SM::LT, LP = SM::LP;
+  constexpr int LT = SM::LT, LP = SM::LP, BM = SM::BM, BN = SM::BN;
+  constexpr int RPT = BM * BN / NT;  // a thread's rows of the block
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* const sm = reinterpret_cast<float*>(smem_raw);
   float *sQ = sm + SM::Q, *sO = sm + SM::DO, *sdQ = sm + SM::DQ;
@@ -1013,7 +1460,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(Args a) {
   const int nq = min(positions, a.Sq - p0);
   const int r0 = p0 * group, nrows = nq * group;
   int kv_begin, kv_end;
-  keys_seen(a, p0, nq, &kv_begin, &kv_end);
+  keys_seen<BN>(a, p0, nq, &kv_begin, &kv_end);
 
   load_tile<T, D>(sQ, BM, nrows,
                   [&](int r) { return row_ptr<T>(a.q, a.sq, b, hk, group, r0 + r); }, tid);
@@ -1021,11 +1468,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(Args a) {
                   [&](int r) { return row_ptr<T>(a.dout, a.sdo, b, hk, group, r0 + r); }, tid);
   for (int i = tid; i < BM * LT; i += NT) sdQ[i] = 0.f;
 
-  // Scores: a thread holds key c = tid % BN against 32 of the block's rows.
-  const int c = tid % BN, rb = (tid / BN) * (BM / 2);
-  float lse[BM / 2], delta[BM / 2];
+  // Scores: a thread holds key c = tid % BN against RPT of the block's rows.
+  const int c = tid % BN, rb = (tid / BN) * RPT;
+  float lse[RPT], delta[RPT];
 #pragma unroll
-  for (int i = 0; i < BM / 2; ++i) {
+  for (int i = 0; i < RPT; ++i) {
     const int r = rb + i;
     lse[i] = tile_lse(a, b, hk, r0 + r, r0 + nrows);
     delta[i] = r < nrows ? a.delta[stat_index(a, b, hk, r0 + r)] : 0.f;
@@ -1038,19 +1485,19 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_fma_kernel(Args a) {
     load_tile<T, D>(sK, BN, nk, [&](int r) { return kb + (long long)(j0 + r) * a.sk.s; }, tid);
     load_tile<T, D>(sV, BN, nk, [&](int r) { return vb + (long long)(j0 + r) * a.sv.s; }, tid);
     __syncthreads();
-    float s[BM / 2], dp[BM / 2];
+    float s[RPT], dp[RPT];
 #pragma unroll
-    for (int i = 0; i < BM / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < RPT; ++i) s[i] = dp[i] = 0.f;
     for (int d = 0; d < D; ++d) {
       const float kd = sK[c * LT + d], vd = sV[c * LT + d];
 #pragma unroll
-      for (int i = 0; i < BM / 2; ++i) {
+      for (int i = 0; i < RPT; ++i) {
         s[i] = fmaf(sQ[(rb + i) * LT + d], kd, s[i]);
         dp[i] = fmaf(sO[(rb + i) * LT + d], vd, dp[i]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < BM / 2; ++i) {
+    for (int i = 0; i < RPT; ++i) {
       const int r = rb + i;
       float p = exp2f(s[i] * a.scale * LOG2E - lse[i]);
       if (!valid(a, j0 + c, a.q_offset + (r0 + r) / group)) p = 0.f;
@@ -1108,7 +1555,8 @@ int launch_preprocess(int dtype, const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// n_blocks: the bf16 grid's blocks of BLOCK_ROWS keys per (b, kv head).
+// n_blocks: the bf16 grid's blocks per (b, kv head), of BLOCK_ROWS keys (ROWS
+// at D = 256).
 template <int D>
 int launch_dkdv(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
   static unsigned long long done_bf16 = 0, done_f32 = 0;
@@ -1120,11 +1568,19 @@ int launch_dkdv(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
     if (!err) err = tensor_map<D>(&m.v, a.v, a.sv, a.B, a.Skv, a.Hkv);
     if (!err) err = tensor_map<D>(&m.dk, a.dk, a.sdk, a.B, a.Skv, a.Hkv);
     if (!err) err = tensor_map<D>(&m.dv, a.dv, a.sdv, a.B, a.Skv, a.Hkv);
-    if (!err) err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvSmem<D>::BYTES, &done_bf16);
-    if (err) return err;
-    flash_bwd_dkdv_kernel<D>
-        <<<n_blocks * a.Hkv * a.B, TC_THREADS, DkvSmem<D>::BYTES, s>>>(m, a);
+    if constexpr (D == WIDE) {
+      if (!err) err = allow_smem(flash_bwd_dkdv_wide_kernel, WideDkvSmem::BYTES, &done_bf16);
+      if (err) return err;
+      flash_bwd_dkdv_wide_kernel<<<n_blocks * a.Hkv * a.B, TC_THREADS, WideDkvSmem::BYTES, s>>>(
+          m, a);
+    } else {
+      if (!err) err = allow_smem(flash_bwd_dkdv_kernel<D>, DkvSmem<D>::BYTES, &done_bf16);
+      if (err) return err;
+      flash_bwd_dkdv_kernel<D>
+          <<<n_blocks * a.Hkv * a.B, TC_THREADS, DkvSmem<D>::BYTES, s>>>(m, a);
+    }
   } else {
+    constexpr int BM = fma_rows<D>();
     const int blocks = (a.Skv + BM - 1) / BM * a.Hkv * a.B;
     int err = allow_smem(flash_bwd_dkdv_fma_kernel<float, D>, FmaDkvSmem<D>::BYTES, &done_f32);
     if (err) return err;
@@ -1133,7 +1589,8 @@ int launch_dkdv(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// n_blocks: the bf16 grid's blocks of BLOCK_ROWS positions per (b, q head).
+// n_blocks: the bf16 grid's blocks per (b, q head), of BLOCK_ROWS positions
+// (ROWS at D = 256).
 template <int D>
 int launch_dq(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
   static unsigned long long done_bf16 = 0, done_f32 = 0;
@@ -1144,12 +1601,21 @@ int launch_dq(int dtype, const Args& a, int n_blocks, cudaStream_t s) {
     if (!err) err = tensor_map<D>(&m.k, a.k, a.sk, a.B, a.Skv, a.Hkv);
     if (!err) err = tensor_map<D>(&m.v, a.v, a.sv, a.B, a.Skv, a.Hkv);
     if (!err) err = tensor_map<D>(&m.dq, a.dq, a.sdq, a.B, a.Sq, a.H);
-    if (!err) err = allow_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::BYTES, &done_bf16);
-    if (err) return err;
-    flash_bwd_dq_kernel<D>
-        <<<n_blocks * a.H * a.B, TC_THREADS, DqSmem<D>::BYTES, s>>>(m, a, n_blocks);
+    if constexpr (D == WIDE) {
+      if (!err) err = allow_smem(flash_bwd_dq_wide_kernel, WideDqSmem::BYTES, &done_bf16);
+      if (err) return err;
+      flash_bwd_dq_wide_kernel<<<n_blocks * a.H * a.B, TC_THREADS, WideDqSmem::BYTES, s>>>(
+          m, a, n_blocks);
+    } else {
+      if (!err) err = allow_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::BYTES, &done_bf16);
+      if (err) return err;
+      flash_bwd_dq_kernel<D>
+          <<<n_blocks * a.H * a.B, TC_THREADS, DqSmem<D>::BYTES, s>>>(m, a, n_blocks);
+    }
   } else {
-    const int n_qt = (a.Sq + BM / a.group - 1) / (BM / a.group);
+    const int positions = fma_rows<D>() / a.group;  // a block's whole positions
+    if (positions == 0) return -2;
+    const int n_qt = (a.Sq + positions - 1) / positions;
     int err = allow_smem(flash_bwd_dq_fma_kernel<float, D>, FmaDqSmem<D>::BYTES, &done_f32);
     if (err) return err;
     flash_bwd_dq_fma_kernel<float, D>
@@ -1185,6 +1651,7 @@ int run(Phase phase, int dtype, int D, const void* q, const void* k, const void*
     case 64: REPRO_BWD_PHASE(64)
     case 80: REPRO_BWD_PHASE(80)
     case 128: REPRO_BWD_PHASE(128)
+    case 256: REPRO_BWD_PHASE(256)
   }
 #undef REPRO_BWD_PHASE
   return -2;
@@ -1201,7 +1668,8 @@ int run(Phase phase, int dtype, int D, const void* q, const void* k, const void*
 // window.  n_blocks: the bf16 grids' blocks along the sequence, from
 // `bwd_plan` (keys for dK/dV, positions for dQ); the preprocess and the f32
 // kernels size their own grids.  Each returns 0, a cudaError_t, or -1 / -2 /
-// -3 for an unsupported dtype / head dim / a tensor map libcuda refused.
+// -3 for an unsupported dtype / head dim (or, f32 at D = 256, a group over
+// 32) / a tensor map libcuda refused.
 #define REPRO_BWD_ENTRY(NAME, PHASE)                                                          \
   extern "C" int NAME(int dtype, int D, const void* q, const void* k, const void* v,         \
                       const void* o, const void* dout, void* dq, void* dk, void* dv,          \

@@ -51,20 +51,26 @@ KERNEL_NAMES = ("flash_prefill_kernel", "flash_prefill_f32_kernel",
 BWD_SOURCE = "flash_attention_bwd.cu"
 #: Head dims the backward kernels are instantiated for (80: zamba2, its
 #: 160-byte rows in two 128-byte swizzled column blocks, the second padded
-#: with zeros by TMA).
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: with zeros by TMA; 256: gemma3, kernels of their own).
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: The head dim whose bf16 kernels split a tile's products between their
+#: two warpgroups (WIDE in the source).
+BWD_WIDE = 256
 #: The backward's kernels, as a profiler shows them: the preprocess, then
-#: dK/dV and dQ (wgmma and TMA for bf16, FMA kernels for f32).
+#: dK/dV and dQ (wgmma and TMA for bf16, their own at BWD_WIDE; FMA kernels
+#: for f32).
 BWD_KERNEL_NAMES = ("flash_bwd_preprocess_kernel", "flash_bwd_dkdv_kernel",
-                    "flash_bwd_dq_kernel", "flash_bwd_dkdv_fma_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dkdv_wide_kernel",
+                    "flash_bwd_dq_wide_kernel", "flash_bwd_dkdv_fma_kernel",
                     "flash_bwd_dq_fma_kernel")
 #: Kernels one backward call launches, whatever the dtype.
 BWD_LAUNCHES_PER_CALL = 3
 #: The bf16 backward kernels: rows of every tile a warpgroup owns or walks
-#: (ROWS in the source), and keys or positions a block owns (two
-#: warpgroups).
+#: (ROWS in the source).
 BWD_TILE = 64
-BWD_BLOCK = 2 * BWD_TILE
+#: The f32 dQ kernel's query rows a block at BWD_WIDE: a block holds whole
+#: positions, so the group may be at most this.
+BWD_F32_WIDE_ROWS = 32
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -170,22 +176,30 @@ class BwdWalk:
 
 @dataclass(frozen=True)
 class BwdBlock:
-    """A bf16 backward block: the tiles it loads (the union of its
-    warpgroups' walks, in walk order) and its two warpgroups."""
+    """A bf16 backward block: the tiles it loads (the union of its walks,
+    in walk order) and its walks, one for each tile of rows it owns."""
     tiles: Tuple[int, ...]
-    walks: Tuple[BwdWalk, BwdWalk]
+    walks: Tuple[BwdWalk, ...]
+
+
+def bwd_block(D: int) -> int:
+    """Rows (keys for dK/dV, positions for dQ) a bf16 backward block owns:
+    one tile for each of its two warpgroups, or at :data:`BWD_WIDE` one
+    tile whose products the two split."""
+    return BWD_TILE if D == BWD_WIDE else 2 * BWD_TILE
 
 
 @dataclass(frozen=True)
 class BwdPlan:
     """The walks of the bf16 backward kernels for one (b, head): the dK/dV
-    kernel's blocks of :data:`BWD_BLOCK` keys of a kv head, each walking
-    its tiles once for each of the ``group`` q heads, and the dQ kernel's
-    blocks of :data:`BWD_BLOCK` positions of a q head.  The grids are these
-    blocks times (Hkv, B) and (H, B)."""
+    kernel's blocks of ``block`` keys of a kv head, each walking its tiles
+    once for each of the ``group`` q heads, and the dQ kernel's blocks of
+    ``block`` positions of a q head.  The grids are these blocks times
+    (Hkv, B) and (H, B)."""
     dkdv: Tuple[BwdBlock, ...]
     dq: Tuple[BwdBlock, ...]
     group: int
+    block: int
 
 
 def _dkdv_tiles(j0, Sq, Skv, causal, window, q_offset):
@@ -222,21 +236,24 @@ def _unmasked(p0, k0, Sq, Skv, causal, window, q_offset):
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(Sq: int, Skv: int, group: int = 1, causal: bool = True,
-             window: Optional[int] = None, q_offset: int = 0) -> BwdPlan:
-    """The tiles each bf16 backward block visits, as the kernels compute
-    them (``dkdv_walk``, ``dq_walk``, ``block_walk`` and ``mask_free`` in
-    the source): a dK/dV warpgroup visits the tiles of query positions that
-    see one of its keys, a dQ warpgroup the tiles of keys that one of its
-    positions sees, and a tile needs masks when it crosses the causal
-    diagonal, the window's edge, Sq or Skv.  Masks depend on the position
-    alone, so every q head of a group walks the same tiles."""
+             window: Optional[int] = None, q_offset: int = 0,
+             D: int = 128) -> BwdPlan:
+    """The tiles each bf16 backward block visits at head dim ``D``, as the
+    kernels compute them (``dkdv_walk``, ``dq_walk``, ``block_walk`` and
+    ``mask_free`` in the source): the walk of a tile of keys (dK/dV) visits
+    the tiles of query positions that see one of its keys, the walk of a
+    tile of positions (dQ) the tiles of keys that one of its positions
+    sees, and a tile needs masks when it crosses the causal diagonal, the
+    window's edge, Sq or Skv.  Masks depend on the position alone, so
+    every q head of a group walks the same tiles."""
     if Sq < 1 or Skv < 1 or group < 1:
         raise ValueError(f"bwd plan: Sq {Sq}, Skv {Skv}, group {group}")
     masks = (Sq, Skv, causal, window, q_offset)
+    rows_per_block = bwd_block(D)
 
     def block(start, tiles_of, pair):
         walks = []
-        for rows in (start, start + BWD_TILE):
+        for rows in range(start, start + rows_per_block, BWD_TILE):
             walks.append(BwdWalk(rows, tuple(
                 (t, not _unmasked(*pair(rows, t), *masks))
                 for t in tiles_of(rows, *masks))))
@@ -244,10 +261,10 @@ def bwd_plan(Sq: int, Skv: int, group: int = 1, causal: bool = True,
         return BwdBlock(tuple(union), tuple(walks))
 
     dkdv = tuple(block(j, _dkdv_tiles, lambda rows, t: (t, rows))
-                 for j in range(0, Skv, BWD_BLOCK))
+                 for j in range(0, Skv, rows_per_block))
     dq = tuple(block(p, _dq_tiles, lambda rows, t: (rows, t))
-               for p in range(0, Sq, BWD_BLOCK))
-    return BwdPlan(dkdv=dkdv, dq=dq, group=group)
+               for p in range(0, Sq, rows_per_block))
+    return BwdPlan(dkdv=dkdv, dq=dq, group=group, block=rows_per_block)
 
 
 def flash_attention_split_plain(q, k, v, *, causal: bool = True,
@@ -521,6 +538,10 @@ class FlashAttentionBwdKernel:
         B, Sq, H, D, Skv, Hkv = _check_qkv(q, k, v, what)
         if D not in BWD_HEAD_DIMS:
             raise ValueError(f"{what}: head dim {D} (takes {BWD_HEAD_DIMS})")
+        if q.dtype == torch.float32 and D == BWD_WIDE \
+                and H // Hkv > BWD_F32_WIDE_ROWS:
+            raise ValueError(f"{what}: f32 at head dim {D} takes a group of "
+                             f"at most {BWD_F32_WIDE_ROWS}, not {H // Hkv}")
         _check_window(window, what)
         if isinstance(q_offset, torch.Tensor):
             raise TypeError(f"{what}: q_offset must be a host int")
@@ -551,7 +572,7 @@ class FlashAttentionBwdKernel:
         blocks = (0, 0, 0)
         if q.dtype == torch.bfloat16:
             plan = bwd_plan(Sq, Skv, H // Hkv, bool(causal), window,
-                            int(q_offset))
+                            int(q_offset), D)
             blocks = (0, len(plan.dkdv), len(plan.dq))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream

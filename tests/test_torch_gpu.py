@@ -1,7 +1,7 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
 the backward) and the K2 kernels (the unfused scan, the fused scan and its
 backward) against their plain versions, the smoke models (qwen3,
-falcon-mamba, zamba2) on CUDA against the same models on the CPU, the three
+falcon-mamba, zamba2, gemma3) on CUDA against the same models on the CPU, the four
 training paths (loss, gradients, kill and resume), and checkpoint round trips of
 CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
@@ -194,26 +194,6 @@ def test_kernel_refuses_what_it_does_not_take(cuda, Sq):
     with pytest.raises(ValueError, match="aligned"):
         flash_attention_cuda(z(1, Sq, 2, 64), *[z(1, 8, 1, 68)[..., :64]] * 2)
     assert flash_attention_cuda.launches == before
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_refuses_head_dim_256(cuda, dtype):
-    """Head dim 256 (gemma3-4b) has no backward instantiation: the
-    backward's wrapper raises naming the head dim before a launch, and
-    autograd through ops.flash_attention raises naming it before the
-    forward, which takes 256, launches; no plain fallback."""
-    rng = np.random.default_rng(12)
-    q, k, v, dout = (_rand(rng, (1, 70, 4, 256), dtype, cuda)
-                     for _ in range(4))
-    lse = torch.zeros((1, 4, 70), dtype=torch.float32, device=cuda)
-    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash_attention_bwd_cuda(q, k, v, q, dout, lse)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    with pytest.raises(ValueError, match="head dim 256"):
-        ops.flash_attention(*leaves)
-    assert flash_attention_cuda.launches == f0
-    assert flash_attention_bwd_cuda.launches == b0
 
 
 def test_smoke_model_on_cuda_matches_cpu(cuda):
@@ -429,6 +409,11 @@ BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
     (1, 4, 2, 20, 100, 80, False, None, 0),      # head dim 80, Sq != Skv
     (2, 8, 8, 129, 257, 80, True, None, 128),    # head dim 80, q_offset
     (1, 32, 32, 1024, 1024, 80, True, None, 0),  # zamba2's training length
+    (1, 8, 4, 300, 300, 256, True, None, 0),     # gemma3's heads, ragged
+    (1, 8, 4, 200, 200, 256, True, 70, 0),       # head dim 256, window edge in a tile
+    (1, 4, 2, 20, 100, 256, False, None, 0),     # head dim 256, Sq != Skv
+    (2, 8, 4, 129, 257, 256, True, None, 128),   # head dim 256, q_offset
+    (1, 8, 4, 4096, 4096, 256, True, 1024, 0),   # gemma3's training length, window
 ]
 
 
@@ -472,7 +457,7 @@ def test_backward_matches_plain_autograd(cuda, dtype, B, H, Hkv, Sq, Skv, D,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80)])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80), (8, 4, 256)])
 def test_backward_is_deterministic(cuda, dtype, H, Hkv, D):
     """No atomics: two backward calls on the same inputs give the same bits."""
     rng = np.random.default_rng(11)
@@ -494,7 +479,7 @@ def test_lse_output_leaves_the_forward_unchanged(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("D", [64, 80, 256])
 def test_autograd_goes_through_the_kernels(cuda, dtype, D):
     """ops.flash_attention under autograd: one forward launch, the backward
     kernels' launches, and the gradients of the plain version."""
@@ -629,6 +614,41 @@ def test_hybrid_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
         assert rel <= HYBRID_GRAD_REL, f"{name}: relative L2 {rel}"
 
 
+def test_gemma_smoke_loss_and_gradients_at_head_dim_256_on_cuda_match_cpu(
+        cuda):
+    """gemma3's smoke config at its head dim 256 with its 5:1 pattern (a
+    window of 8 keys on layers 0-4, layer 5 global) over 32 tokens:
+    lm_loss and every leaf's gradient through K1's forward (twice a layer:
+    remat) and its backward at D 256, each layer with its window, against
+    the same on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import init_lm, lm_loss
+    cfg = dataclasses.replace(smoke(get_config("gemma3-4b")), head_dim=256,
+                              attn_window=8, local_global_pattern=5,
+                              n_layers=6)
+    tok, lab = _smoke_batch(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16)
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            assert flash_attention_cuda.launches - f0 == 2 * cfg.n_layers
+            assert flash_attention_bwd_cuda.launches - b0 == \
+                BWD_LAUNCHES_PER_CALL * cfg.n_layers
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -644,7 +664,7 @@ def _get(tree, name):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "gemma3-4b"])
 def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
                                                                tmp_path,
                                                                arch):
@@ -672,11 +692,11 @@ def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "gemma3-4b"])
 def test_launcher_trains_on_the_card(cuda, tmp_path, capsys, arch):
     """python -m repro_torch.launch.train --arch <arch>: the card is the
     default device; falcon-mamba's steps go through the fused K2 and its
-    backward, qwen3's and zamba2's through K1's backward."""
+    backward, qwen3's, zamba2's and gemma3's through K1's backward."""
     from repro_torch.launch import train as launch
     f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
     a0 = flash_attention_bwd_cuda.launches

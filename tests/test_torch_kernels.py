@@ -222,34 +222,54 @@ def test_kernel_wrapper_admits_head_dim_256_and_refuses_others_before_launch(
     assert flash_attention_cuda.launches == before
 
 
-def test_gradient_at_head_dim_256_raises_before_the_forward(monkeypatch):
-    """With q, k or v requiring grad at head dim 256, ops.flash_attention
-    raises naming the head dim before the forward kernel would launch (it
-    takes 256; the backward does not), and nothing falls back."""
-    q = torch.zeros(1, 4, 8, 256, dtype=torch.bfloat16, requires_grad=True)
-    k = torch.zeros(1, 4, 4, 256, dtype=torch.bfloat16)
+def test_gradient_at_head_dim_512_raises_before_the_forward(monkeypatch):
+    """With q, k or v requiring grad at a head dim the backward lacks
+    (512), ops.flash_attention raises naming the head dim before the
+    forward kernel would launch, and nothing falls back."""
+    assert 512 not in BWD_HEAD_DIMS
+    q = torch.zeros(1, 4, 8, 512, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 4, 4, 512, dtype=torch.bfloat16)
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda", 0)))
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
     f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
-    with pytest.raises(ValueError, match="head dim 256"):
+    with pytest.raises(ValueError, match="head dim 512"):
         ops.flash_attention(q, k, k)
     assert flash_attention_cuda.launches == f0
     assert flash_attention_bwd_cuda.launches == b0
 
 
+def test_gradient_at_head_dim_256_goes_to_the_autograd_function(monkeypatch):
+    """At head dim 256 (gemma3-4b) a gradient is admitted: with q
+    requiring grad on the card, ops.flash_attention hands q, k, v and the
+    masks to FlashAttentionFunction (K1's forward with its log-sum-exp,
+    then its backward kernels), as at any head dim the backward takes."""
+    q = torch.zeros(1, 4, 8, 256, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 4, 4, 256, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    calls = []
+    monkeypatch.setattr(ops.FlashAttentionFunction, "apply",
+                        lambda *args: calls.append(args) or "applied")
+    assert ops.flash_attention(q, k, k, window=1024, q_offset=3) == "applied"
+    (args,) = calls
+    assert args[0] is q and args[1] is k and args[2] is k
+    assert args[3:] == (True, 1024, 3)
+
+
 @pytest.mark.parametrize("D,match", [
     (80, "lse must be"),     # admitted: the next check refuses the bad lse
-    (256, "head dim 256"),   # gemma3-4b's: no instantiation
+    (256, "lse must be"),    # gemma3-4b's: admitted as well
     (72, "head dim 72"),     # no multiple of 16
+    (512, "head dim 512"),   # no instantiation
 ])
 def test_backward_wrapper_admits_head_dim_80_and_refuses_others_before_launch(
         monkeypatch, D, match):
-    """The backward kernels take head dim 80 (zamba2): at 80 the wrapper
-    passes its head-dim checks and stops only at the malformed lse given
-    here.  A head dim the kernels lack raises on the head dim.  Neither
-    launches anything."""
-    assert 80 in BWD_HEAD_DIMS and (D in BWD_HEAD_DIMS) == (D == 80)
+    """The backward kernels take head dims 80 (zamba2) and 256 (gemma3):
+    there the wrapper passes its head-dim checks and stops only at the
+    malformed lse given here.  A head dim the kernels lack raises on the
+    head dim.  Neither launches anything."""
+    assert (D in BWD_HEAD_DIMS) == (D in (80, 256))
     q = torch.zeros(1, 4, 2, D, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 5)   # Sq is 4
     monkeypatch.setattr(torch.Tensor, "device",
@@ -258,4 +278,24 @@ def test_backward_wrapper_admits_head_dim_80_and_refuses_others_before_launch(
     before = flash_attention_bwd_cuda.launches
     with pytest.raises(ValueError, match=match):
         flash_attention_bwd_cuda(q, q, q, q, q, lse)
+    assert flash_attention_bwd_cuda.launches == before
+
+
+def test_backward_wrapper_refuses_an_f32_group_over_32_at_head_dim_256(
+        monkeypatch):
+    """At head dim 256 the f32 dQ kernel's blocks hold 32 query rows of
+    whole positions, so an f32 group over 32 raises before any launch;
+    bf16 at 256 takes the group of 64 up to the checks after it."""
+    k = torch.zeros(1, 4, 1, 256)
+    lse = torch.zeros(1, 2, 5)   # malformed: the first check after the group's
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    before = flash_attention_bwd_cuda.launches
+    for group, dtype, match in ((64, torch.float32, "group of at most 32"),
+                                (32, torch.float32, "lse must be"),
+                                (64, torch.bfloat16, "lse must be")):
+        q = torch.zeros(1, 4, group, 256, dtype=dtype)
+        with pytest.raises(ValueError, match=match):
+            flash_attention_bwd_cuda(q, k.to(dtype), k.to(dtype), q, q, lse)
     assert flash_attention_bwd_cuda.launches == before

@@ -23,7 +23,7 @@ from repro_torch.train import loop as tloop  # noqa: E402
 
 #: The dense, the Mamba1 (ssm) and the hybrid family: the loop runs for
 #: the three.
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b")
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b", "gemma3-4b")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -9,7 +9,7 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one process per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1 at each served model's
 heads, and at gemma3's long-context shapes), then runs the port's
-serving path for four models at full width, random bf16 weights from a
+serving path for five models at full width, random bf16 weights from a
 seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
@@ -37,25 +37,36 @@ prompt, then 32 greedy tokens).
   32 decode steps of one request from a cache of 4160 keys whose K/V are
   seeded random values and whose position is set to 4064 (the reference
   has no prefill into a cache, and 4064 steps would take minutes), each
-  held against the plain attention.
+  held against the plain attention;
+- granite-moe-3b-a800m (32 layers, d_model 1536, 24 / 8 heads of head dim
+  64, 40 experts of SwiGLU 512, top-8, vocab 49 155; 6.60 GB of weights)
+  through K1 at head dim 64, group 3, and the MoE block (plain torch: the
+  reference has no kernel there): its layers held as gemma3's, and each
+  layer's share of dropped expert assignments printed for the prefill and
+  for a decode step, which runs with CUDA's sync debug mode raising.
 
-Then four models train at full width (8192 tokens a step, f32 master
+Then five models train at full width (8192 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
-after step 3's save, run 2 resumes bit-exactly.  qwen3-1.7b trains
-through K1's forward and its backward (8 x 1024 tokens); falcon-mamba-7b,
-cut to 16 of its 64 layers (its state at full depth would not fit the
-card), through the fused K2 forward and K2's backward kernel; zamba2-2.7b,
-cut to 42 of its 54 layers (its two state files at full depth would take
-the run's disk footprint past 45 GiB), through K1's forward and its
+after step 3's save, run 2 resumes bit-exactly.  Each is cut in depth
+(``*_TRAIN_LAYERS``) to keep the run's time well under its limit and
+its disk footprint under 45 GiB.  qwen3-1.7b, cut to 14 of its 28
+layers, trains through K1's forward and its backward (8 x 1024 tokens);
+falcon-mamba-7b, cut to 8 of its 64 layers, through the fused K2 forward
+and K2's backward kernel; zamba2-2.7b, cut to 12 of its 54 layers, through
+K1's forward and its
 backward at head dim 80 in each of its shared-attention applications
 (each held against the plain backward in step 0, and one group's output
 and gradients against the plain attention), its Mamba2 layers through
-autograd of plain torch; gemma3-4b, cut to 12 of its 34 layers for the
-same disk, on 2 x 4096 tokens so that its 1024-key window masks, through
+autograd of plain torch; gemma3-4b, cut to 6 of its 34 layers (one 5:1
+period), on 2 x 4096 tokens so that its 1024-key window masks, through
 K1's forward and its backward at head dim 256 with each layer's window
 (each backward call held against the plain backward in step 0, the loss
-and gradient norm against the plain attention).  The backward kernels are
-timed at each training shape and in a profiled training step.
+and gradient norm against the plain attention); granite-moe-3b-a800m, cut
+to 16 of its 32 layers, through K1's forward and its
+backward at head dim 64, group 3, and its MoE layers through autograd of
+plain torch (the loss with the reference's load-balance term).  The
+backward kernels are timed at each training shape and in a profiled
+training step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Every phase asserts; any failure exits non-zero.  The
@@ -64,7 +75,7 @@ and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
 prints no result.  Needs about 52 GB free in the temporary directory
 (falcon-mamba's training state, twice, while its final save commits;
-gemma3's and zamba2's each need about 48 GB).
+gemma3's and zamba2's each need about 48 GB, granite's 45 GB).
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
 """
@@ -88,13 +99,15 @@ QWEN = "qwen3-1.7b"
 FALCON = "falcon-mamba-7b"
 ZAMBA = "zamba2-2.7b"
 GEMMA = "gemma3-4b"
+GRANITE = "granite-moe-3b-a800m"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 512
 SERVE_B, MAX_LEN, PROMPT_LEN, GEN_LEN = 4, 1024, 64, 32
 DECODE_OFFSETS = (63, 95, 511, 1023)
 #: K1's heads on the served paths: (q heads, kv heads, head dim).
 K1_HEADS = {"qwen3-1.7b": (16, 8, 128), "zamba2-2.7b": (32, 32, 80),
-            "gemma3-4b": (8, 4, 256)}
+            "gemma3-4b": (8, 4, 256),
+            "granite-moe-3b-a800m": (24, 8, 64)}
 #: gemma3's window on the card: a prefill of 1 x LONG_S tokens, and
 #: LONG_STEPS decode steps of one request from a cache of LONG_CACHE keys
 #: whose position is set to LONG_POS (its K/V seeded random values: the
@@ -174,28 +187,34 @@ BWD_REL_BF16 = 1e-2
 #: alike.
 BWD_LIB_RATIO = 1.1
 LSE_TOL = dict(rtol=1e-4, atol=1e-4)
-#: The training paths: qwen3-1.7b at full width, and falcon-mamba-7b at full
-#: width cut to FALCON_TRAIN_LAYERS of its 64 layers (its state at 64 layers,
-#: 16 B a parameter with the gradients, would be 112 GB); f32 master
-#: weights and AdamW moments, bf16 compute, 8 × 1024 tokens a step.
+#: The training paths, at full width, f32 master weights and AdamW moments,
+#: bf16 compute, 8 × 1024 tokens a step, each cut in depth.  A path's time
+#: is mostly its state's I/O (two saves and a restore of 12 B a
+#: parameter), and with granite's paths and every model's training at the
+#: depths it had before (qwen3 28, falcon 16, zamba2 42 or 24, gemma3 12
+#: layers) the run took 938.9 and 1080.4 s to "done" on two H100 machines,
+#: against a 1200 s limit; at these depths it keeps a margin.  The disk
+#: bounds them too: two state files coexist while the final save commits,
+#: and the run keeps its footprint under 45 GiB (falcon's at 64 layers
+#: would also not fit the card: 112 GB at 16 B a parameter; zamba2's two at
+#: 54 layers are 54.3 GB, gemma3's at 34 are 93.1 GB).
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
-FALCON_TRAIN_LAYERS = 16
-#: zamba2-2.7b trains at full width cut to ZAMBA_TRAIN_LAYERS of its 54
-#: layers (7 of its 9 groups, so 7 shared-attention applications): its two
-#: f32 state files, which coexist while the final save commits, are 54.3 GB
-#: at 54 layers and 42.8 GB at 42, and the run keeps its disk footprint
-#: under 45 GiB.  Its device memory fits at 54 layers (a 53.6 GB peak).
-ZAMBA_TRAIN_LAYERS = 42
-#: gemma3-4b trains at full width cut to GEMMA_TRAIN_LAYERS of its 34 layers
-#: (two whole 5:1 periods: layers 5 and 11 global), on GEMMA_TRAIN_B x
-#: GEMMA_TRAIN_S tokens a step, the 8192 of the other paths, so that its
-#: 1024-key window masks (at 1024 tokens it masks nothing): its two f32
-#: state files, which coexist while the final save commits, are 93.1 GB at
-#: 34 layers and 43.3 GB at 12, and the run keeps its disk footprint under
-#: 45 GiB.  Its state on the card is 28.9 GB at 16 B a parameter.
-GEMMA_TRAIN_LAYERS = 12
+QWEN_TRAIN_LAYERS = 14
+FALCON_TRAIN_LAYERS = 8
+#: zamba2's cut is in whole groups (2 of its 9, so 2 shared-attention
+#: applications).  Its device memory fits at 54 layers (a 53.6 GB peak).
+ZAMBA_TRAIN_LAYERS = 12
+#: gemma3-4b trains one whole 5:1 period (layers 0-4 local, 5 global), on
+#: GEMMA_TRAIN_B x GEMMA_TRAIN_S tokens a step, the 8192 of the other
+#: paths, so that its 1024-key window masks (at 1024 tokens it masks
+#: nothing).
+GEMMA_TRAIN_LAYERS = 6
 GEMMA_TRAIN_B, GEMMA_TRAIN_S = 2, 4096
+#: granite-moe-3b-a800m's two state files would be 39.6 GB each at its 32
+#: layers; at 16, 20.2 GB (its state on the card 27.0 GB at 16 B a
+#: parameter).
+GRANITE_TRAIN_LAYERS = 16
 #: One falcon layer at the training shape, kernel path against plain path
 #: on the same inputs: its bf16 output as REL_LAYER_PLAIN, its bf16
 #: gradients (each rounded once from f32 sums taken in another order) by
@@ -213,8 +232,9 @@ REL_LAYER_GRAD = 1e-2
 #: path's distance from it within GROUP_F32_RATIO of the plain path's.
 GROUP_F32_RATIO = 1.1
 #: Step 0's loss and global gradient norm through K1 against the same step
-#: through the plain attention (28 layers in bf16, the plain version's
-#: rounding of p per 512-key chunk against the kernel's per 64 keys).
+#: through the plain attention (up to 16 layers in bf16, the plain
+#: version's rounding of p per 512-key chunk against the kernel's per 64
+#: keys).
 TOL_TRAIN = dict(rtol=1e-2, atol=1e-2)
 
 
@@ -416,6 +436,10 @@ def kernel_checks(torch, fa):
         (2, 8, 4, 1, 150, 256, True, None, off(63)),
         (2, 8, 4, 1, 150, 256, True, 50, off(128)),
         (1, 32, 2, 1, 150, 256, True, None, off(149)),
+        # head dim 64 with group 3 (granite): a ragged prefill, and decode
+        # across a split boundary
+        (1, 24, 8, 70, 70, 64, True, None, 0),
+        (2, 24, 8, 1, 150, 64, True, None, off(95)),
     ]
     worst = 0.0
     for B, H, Hkv, Sq, Skv, D, causal, window, q_off in small:
@@ -1082,7 +1106,7 @@ def bwd_checks(torch, fa):
     bit-equal, then the backward at each training path's shape
     (bwd_train_shape): qwen3's record first, then zamba2's, then gemma3's
     at 2 x 4096 with its 1024-key window (its local layers) and without
-    (its global ones)."""
+    (its global ones), then granite's (24 / 8 heads of 64)."""
     from repro_torch.configs import get_config
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
@@ -1113,6 +1137,7 @@ def bwd_checks(torch, fa):
         (1, 8, 4, 200, 200, 256, True, 70, 0),      # head dim 256, window edge in a tile
         (1, 4, 2, 20, 100, 256, False, None, 0),    # head dim 256, Sq != Skv
         (2, 8, 4, 129, 257, 256, True, None, 128),  # head dim 256, q_offset
+        (1, 24, 8, 140, 140, 64, True, None, 0),    # granite's heads, group 3
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     lse_worst = 0.0
@@ -1147,6 +1172,8 @@ def bwd_checks(torch, fa):
                                 B=GEMMA_TRAIN_B, S=GEMMA_TRAIN_S,
                                 window=window)
                 for window in (get_config(GEMMA).attn_window, None)]
+    records.append(bwd_train_shape(torch, fa, rand, GRANITE,
+                                   *K1_HEADS[GRANITE]))
     return records + [dict(shape="checks", max_abs_err=worst[torch.float32],
                            bf16_rel_err=worst[torch.bfloat16],
                            lse_max_abs_err=lse_worst)]
@@ -1428,9 +1455,14 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True):
           "generated tokens")
     times = step_times(events)
 
-    # the logits after the prompt equal a prefill of the same 64 tokens
+    # the logits after the prompt equal a prefill of the same 64 tokens;
+    # not in the moe family, whose decode step routes its SERVE_B tokens
+    # with the capacity of SERVE_B tokens (1 slot an expert for granite)
+    # and drops assignments that a prefill's capacity keeps, as the
+    # reference's step does: there they are reported
     pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
-    err_pre = hold_logits(out["prompt_logits"], pre, hold,
+    err_pre = hold_logits(out["prompt_logits"], pre,
+                          hold and cfg.family != "moe",
                           f"{cfg.name} serve logits after the prompt vs "
                           f"prefill")
 
@@ -2066,18 +2098,19 @@ def gemma_path(torch, K, tmp):
 
 
 def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
-    """Each layer of a dense model at full width, K1 and the plain attention
-    fed the same input.  The residual stream walks the layers on
+    """Each layer of a dense or moe model at full width, K1 and the plain
+    attention fed the same input.  The residual stream walks the layers on
     ``tokens``; at each layer the K1 prefill kernel's output on the layer's
     q, k, v is held against the plain version's (TOL_BF16) and the
     attention block through K1 against the block through the plain
     attention (REL_APP), each with the layer's window.  With ``decode``, on
     the prompts' stream (4 × 64) each layer's attention decoded token by
     token (K1's decode kernel into a MAX_LEN cache) is held against its
-    prefill (REL_LAYER_DECODE).  Beside them a second residual stream runs
-    on the plain attention alone; how far it is from the kernel stream
-    after each layer shows what the layers make of rounding differences
-    end to end."""
+    prefill (REL_LAYER_DECODE): the attention alone, as an MoE layer's
+    decode step routes with another capacity than its prefill.  Beside
+    them a second residual stream runs on the plain attention alone; how
+    far it is from the kernel stream after each layer shows what the
+    layers make of rounding differences end to end."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
@@ -2105,10 +2138,8 @@ def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
                 lp["attn"], L.rms_norm(xq, lp["ln1"], eps), window=window,
                 **kw)
         x = x + h
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], eps),
-                            cfg.mlp_type)
-        xq = xq + L.mlp_block(lp["mlp"], L.rms_norm(xq, lp["ln2"], eps),
-                              cfg.mlp_type)
+        x = x + LM._ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))[0]
+        xq = xq + LM._ffn(cfg, lp, L.rms_norm(xq, lp["ln2"], eps))[0]
         divergence[i + 1] = rel_err(xq, x)
         if not decode:
             continue
@@ -2117,8 +2148,7 @@ def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
             dec_windows[i] if dec_windows else None, kw, f"layer {i}")
         worst_dec, max_dec = max(worst_dec, r), max(max_dec, m)
         xp = xp + hb
-        xp = xp + L.mlp_block(lp["mlp"], L.rms_norm(xp, lp["ln2"], eps),
-                              cfg.mlp_type)
+        xp = xp + LM._ffn(cfg, lp, L.rms_norm(xp, lp["ln2"], eps))[0]
     print(f"{cfg.name} layers on {B} x {S} tokens: all {cfg.n_layers} held at "
           f"full width; K1 vs plain on each layer's q, k, v max abs err "
           f"{worst_core} (tol {TOL_BF16}); block through K1 vs plain "
@@ -2288,6 +2318,90 @@ def long_context_phase(torch, cfg, weights, k1):
                 decode_peak_bytes=dec_peak,
                 decode_vs_plain_max_abs_err=err_dec,
                 greedy_equal_steps=same, near_ties=ties), tokens, start, fed
+
+
+# ---------------------------------------------------- the granite path --
+def granite_path(torch, K, tmp):
+    """granite-moe-3b-a800m through K1 at head dim 64, group 3, and the MoE
+    block: the serve cell as qwen3's (the logits after the prompt reported
+    against a prefill, not held: see serve_phase), then each layer held as
+    gemma3's, and each MoE layer's share of dropped assignments in a
+    prefill and in a decode step.  Returns (K1 launches, serve record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    cfg = get_config(GRANITE)
+    apps = attention_apps(cfg)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    zero_counts(K)                            # the main path starts
+    # wherever K1's and the plain attention's roundings flip a near tie of
+    # the router, a token goes to other experts: over 32 random bf16
+    # layers the two residual streams part within a few layers, and the
+    # logits with them, so the whole-model logits are reported and each
+    # layer held, as gemma3's
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"],
+                                    hold=False)
+    serve, out = serve_phase(torch, cfg, weights, K["k1"], hold=False)
+    launches = check_counts(K, dict(k1=apps * (1 + 1 + PROMPT_LEN + GEN_LEN)),
+                            f"the {cfg.name} path")["k1"]
+    zero_counts(K)                            # the layer checks start
+    serve["layers"] = dense_layer_checks(torch, cfg, weights, tokens)
+    serve["dropped"] = moe_drop_shares(torch, cfg, weights, tokens, out)
+    # each layer: the kernel alone and the block on the prefill's inputs,
+    # the block on the prompts' and their decode steps; then a prefill and
+    # a decode step
+    check_counts(K, dict(k1=apps * (2 + 1 + PROMPT_LEN + 2)),
+                 f"the {cfg.name} layer checks")
+    prefill.update(k1_prefill_profile(torch, cfg, weights, tokens,
+                                      KERNEL_NAMES))
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
+    return launches, serve
+
+
+def moe_drop_shares(torch, cfg, weights, tokens, out):
+    """Each MoE layer's share of dropped expert assignments in the
+    prefill of ``tokens`` (4 x 512: 512 slots an expert) and in one more
+    decode step of the served requests (SERVE_B tokens: 1 slot an
+    expert).  The decode step runs with CUDA's sync debug mode set to
+    raise: it reads no device value on the host."""
+    from repro_torch.models import layers as L
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+    real, shares = L.moe_route, []
+
+    def route(*args, **kw):
+        r = real(*args, **kw)
+        shares.append((~r.keep).float().mean())
+        return r
+
+    with mock.patch.object(L, "moe_route", route):
+        make_prefill_step(cfg)(weights, {"tokens": tokens})
+        prefill = torch.stack(shares).tolist()
+        shares.clear()
+        tok = out["tokens"][:, -1:].to(torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            make_serve_step(cfg)(weights, out["cache"], tok)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        decode = torch.stack(shares).tolist()
+    check(len(prefill) == len(decode) == cfg.n_layers,
+          f"{len(prefill)}, {len(decode)} MoE calls, expected "
+          f"{cfg.n_layers} each")
+    caps = {n: L.moe_capacity(n, cfg.n_experts, cfg.experts_top_k,
+                              cfg.capacity_factor)
+            for n in (tokens.numel(), tok.numel())}
+    for what, got, n in (("prefill", prefill, tokens.numel()),
+                         ("decode step", decode, tok.numel())):
+        print(f"{cfg.name} dropped expert assignments by layer, {what} of "
+              f"{n} tokens (capacity {caps[n]} an expert): mean "
+              f"{sum(got) / len(got):.4f}, " + ", ".join(
+                  f"{x:.4f}" for x in got))
+    print(f"{cfg.name} decode step under CUDA sync debug mode \"error\": no "
+          f"host sync")
+    return dict(prefill=prefill, decode=decode,
+                capacity={str(n): c for n, c in caps.items()})
 
 
 # ------------------------------------------------------ the training path --
@@ -2497,7 +2611,7 @@ def train_group_check(torch, cfg, K):
               if plain else contextlib.nullcontext()):
             x = uu   # the layers, then the application on their output
             for lp in lm._unstack(tree["layers"], E):
-                x = lm._layer(cfg, lp, x, None, 512)
+                x, _ = lm._layer(cfg, lp, x, None, 512)
             out = lm._hybrid_group(cfg, [], tree["shared_attn"], x, 512)
             grads = torch.autograd.grad(out, [*leaves, uu, x],
                                         dout.to(dtype))
@@ -2725,7 +2839,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     # holds a save: step 3's comes after its on_step)
     step_s = statistics.median(steps[i][1] for i in range(1, TRAIN_STEPS))
     tokens = B * S
-    n_params = cfg.param_count()
+    n_params = cfg.active_param_count()   # param_count() outside moe
     flops_per_token = 6 * n_params + 6 * attention_apps(cfg) * cfg.n_heads \
         * cfg.head_dim_ * S
     mfu = flops_per_token * tokens / step_s / PEAK_BF16_FLOPS
@@ -2734,10 +2848,12 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     rec.update(
         losses=losses, step_s=[steps[i][1] for i in range(TRAIN_STEPS)],
         step_median_s=step_s, tokens_per_s=tokens / step_s, train_mfu=mfu,
-        mfu_formula="(6 N + 6 A H D S) x tokens / step time / 989e12, A "
-                    "the attention applications a step (the layers of a "
-                    "dense model, a hybrid's groups, none in Mamba1), no "
-                    "remat counted",
+        mfu_formula="(6 N + 6 A H D S) x tokens / step time / 989e12, N "
+                    "the active parameters (an MoE token's top-k experts, "
+                    "not the capacity buffers' slack), A the attention "
+                    "applications a step (the layers of a dense or MoE "
+                    "model, a hybrid's groups, none in Mamba1), no remat "
+                    "counted",
         batch=B, seq_len=S,
         params=n_params, launches_per_step=per_step,
         snapshot_s=snap_s, write_s=write_s, file_bytes=spies["file_bytes"],
@@ -2871,8 +2987,8 @@ def main(argv=None) -> int:
     K = dict(k1=fa.flash_attention_cuda, k1_bwd=fa.flash_attention_bwd_cuda,
              k2=ss.ssm_scan_cuda, k2_fused=ss.ssm_scan_fused_cuda,
              k2_bwd=ss.ssm_scan_bwd_cuda)
-    qwen, falcon_train = get_config(QWEN), dataclasses.replace(
-        falcon, n_layers=FALCON_TRAIN_LAYERS)
+    qwen = dataclasses.replace(get_config(QWEN), n_layers=QWEN_TRAIN_LAYERS)
+    falcon_train = dataclasses.replace(falcon, n_layers=FALCON_TRAIN_LAYERS)
     tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
     try:
         with torch.inference_mode():
@@ -2897,11 +3013,17 @@ def main(argv=None) -> int:
                   f"{torch.cuda.memory_allocated()} B")
             phase(f"{GEMMA} serve path")
             gemma_launches, gemma_serve = gemma_path(torch, K, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # gemma3's weights are gone
+            print(f"device memory allocated before {GRANITE}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            phase(f"{GRANITE} serve path")
+            granite_launches, granite_serve = granite_path(torch, K, tmp)
         gc.collect()
-        torch.cuda.empty_cache()   # gemma3's weights are gone
+        torch.cuda.empty_cache()   # granite's weights are gone
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
-        phase(f"{QWEN} training path")
+        phase(f"{QWEN} training path ({QWEN_TRAIN_LAYERS} layers)")
         L = qwen.n_layers
         qwen_train_launches, qwen_train = train_path(
             torch, qwen, K, dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
@@ -2958,8 +3080,7 @@ def main(argv=None) -> int:
               f"{GEMMA_TRAIN_B} x {GEMMA_TRAIN_S} tokens)")
         L = gemma.n_layers
         # as qwen3's: K1's forward twice a layer, its backward's kernels
-        # once, each layer with its window (1024 keys, or none on layers 5
-        # and 11)
+        # once, each layer with its window (1024 keys, or none on layer 5)
         gemma_train_launches, gemma_trained = train_path(
             torch, gemma, K, dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
             {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
@@ -2967,6 +3088,25 @@ def main(argv=None) -> int:
                            ("wq", "wk", "wv", "q_norm", "k_norm")],
             plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS,
             B=GEMMA_TRAIN_B, S=GEMMA_TRAIN_S)
+        granite = dataclasses.replace(get_config(GRANITE),
+                                      n_layers=GRANITE_TRAIN_LAYERS)
+        check(not os.listdir(tmp), f"{tmp} holds {os.listdir(tmp)} before "
+              f"training {GRANITE}")
+        print(f"device memory allocated before training {GRANITE}: "
+              f"{torch.cuda.memory_allocated()} B; {tmp} has "
+              f"{shutil.disk_usage(tmp).free} B free")
+        phase(f"{GRANITE} training path ({GRANITE_TRAIN_LAYERS} layers)")
+        L = granite.n_layers
+        # as qwen3's: K1's forward twice a layer, its backward's kernels once
+        granite_train_launches, granite_trained = train_path(
+            torch, granite, K,
+            dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
+            {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
+            tmp, required=[f"layers/attn/{part}" for part in
+                           ("wq", "wk", "wv", "wo")]
+            + [f"layers/moe/{part}" for part in
+               ("router", "w_gate", "w_up", "w_down")],
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2977,23 +3117,28 @@ def main(argv=None) -> int:
     falcon_serve["train"] = falcon_trained
     zamba_serve["train"] = zamba_trained
     gemma_serve["train"] = gemma_trained
+    granite_serve["train"] = granite_trained
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
                      fa.KERNEL_NAMES,
                      k1_launches + zamba_launches + gemma_launches
-                     + qwen_train_launches["k1"] + zamba_train_launches["k1"]
-                     + gemma_train_launches["k1"],
+                     + granite_launches + qwen_train_launches["k1"]
+                     + zamba_train_launches["k1"]
+                     + gemma_train_launches["k1"]
+                     + granite_train_launches["k1"],
                      k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve,
-                                  GEMMA: gemma_serve}),
+                                  GEMMA: gemma_serve,
+                                  GRANITE: granite_serve}),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,
                      qwen_train_launches["k1_bwd"]
                      + zamba_train_launches["k1_bwd"]
-                     + gemma_train_launches["k1_bwd"], bwd_records,
+                     + gemma_train_launches["k1_bwd"]
+                     + granite_train_launches["k1_bwd"], bwd_records,
                      {QWEN: qwen_train, ZAMBA: zamba_trained,
-                      GEMMA: gemma_trained},
+                      GEMMA: gemma_trained, GRANITE: granite_trained},
                      extra=[f"{part}_ms" for part in BWD_PARTS]),
         kernel_entry("ssm_scan", ss.SOURCE,
                      "src/repro/kernels/ssm_scan.py:45", ss.KERNEL_NAMES,

@@ -3,7 +3,9 @@
 ``repro/launch/train.py``.
 
 Runs the fault-tolerant loop with scda checkpointing on one device: the
-GPU, unless ``--device cpu`` is given.  ``--data-par`` and ``--model-par``
+GPU, unless ``--device cpu`` is given.  Every arch of the dense, moe, ssm
+and hybrid families trains (``--arch granite-moe-3b-a800m`` adds its
+layers' load-balance loss at the reference's weight, 0.01).  ``--data-par`` and ``--model-par``
 other than 1 raise :class:`NotImplementedError`: the port has no mesh yet.
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Model definitions: layers, Mamba1 and Mamba2 blocks and the LM core
-(dense, ssm and hybrid families)."""
+(dense, moe, ssm and hybrid families)."""
 from repro_torch.models.lm import (cast_params, compute_dtype, forward,
                                    forward_hidden, init_cache, init_lm,
                                    lm_loss, param_bytes, serve_step, unembed)

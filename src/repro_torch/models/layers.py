@@ -1,5 +1,5 @@
-"""Building-block layers of the dense transformer: norms, RoPE, GQA
-attention (prefill and decode) and MLPs — the port of the dense subset of
+"""Building-block layers of the transformer: norms, RoPE, GQA attention
+(prefill and decode), MLPs and the token-choice MoE block — the port of
 ``repro/models/layers.py``.
 
 Plain functions over explicit parameter dicts with the reference's names,
@@ -14,7 +14,7 @@ the K1 CUDA kernel on the card, its plain torch version on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -176,16 +176,140 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str, *,
     return p
 
 
-def mlp_block(p: Params, x, mlp_type: str):
+def _hidden(mlp_type: str, up, gate=None):
+    """An MLP's hidden activation from its up projection (and, in the gated
+    types, its gate projection)."""
     if mlp_type in ("swiglu", "geglu"):
-        gate = x @ p["w_gate"]
         act = F.silu(gate) if mlp_type == "swiglu" else \
             F.gelu(gate, approximate="tanh")
-        h = act * (x @ p["w_up"])
-    elif mlp_type == "relu2":  # nemotron squared-ReLU
-        h = torch.square(F.relu(x @ p["w_up"]))
-    elif mlp_type == "gelu":
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    else:
-        raise ValueError(mlp_type)
-    return h @ p["w_down"]
+        return act * up
+    if mlp_type == "relu2":  # nemotron squared-ReLU
+        return torch.square(F.relu(up))
+    if mlp_type == "gelu":
+        return F.gelu(up, approximate="tanh")
+    raise ValueError(mlp_type)
+
+
+def mlp_block(p: Params, x, mlp_type: str):
+    gate = x @ p["w_gate"] if "w_gate" in p else None
+    return _hidden(mlp_type, x @ p["w_up"], gate) @ p["w_down"]
+
+
+# --------------------------------------------------------------------- moe --
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             mlp_type: str, shared_expert: bool, *, stack: int = 0,
+             dtype=torch.float32) -> Params:
+    """The reference's ``init_moe``: experts stacked on a leading axis, so
+    ``w_up`` and ``w_gate`` (n_experts, d_model, d_ff) take its scale
+    1/sqrt(n_experts) (``_init`` scales by the first axis of the unstacked
+    shape), ``w_down`` 1/sqrt(d_ff), the router 0.02."""
+    kw = dict(stack=stack, dtype=dtype)
+    p = {
+        "router": _init(gen, (d_model, n_experts), scale=0.02, **kw),
+        "w_up": _init(gen, (n_experts, d_model, d_ff), **kw),
+        "w_down": _init(gen, (n_experts, d_ff, d_model),
+                        scale=1.0 / math.sqrt(d_ff), **kw),
+    }
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = _init(gen, (n_experts, d_model, d_ff), **kw)
+    if shared_expert:
+        p["shared"] = init_mlp(gen, d_model, d_ff, mlp_type, **kw)
+    return p
+
+
+def stable_top_k(x, k: int):
+    """The ``k`` largest entries of each row of ``x`` and their indices,
+    largest first, ties to the lower index (``jax.lax.top_k``'s order;
+    ``torch.topk`` breaks ties in no fixed order)."""
+    values, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], ids[..., :k]
+
+
+def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert for a call over ``n_tokens`` tokens (the
+    reference's ``C``): a decode step of 4 tokens of granite gets 1."""
+    return max(1, int(capacity_factor * n_tokens * top_k / n_experts))
+
+
+class MoeRoute(NamedTuple):
+    """Where a call's tokens go: ``probs`` (T, E) f32, each token's ``ids``
+    (T, k) and normalized ``gates``, each assignment's slot ``pos`` and
+    whether it is kept (``keep``), in (token, choice) order, the
+    assignments to each expert (``counts``, dropped ones included) and the
+    slots per expert (``capacity``)."""
+    probs: torch.Tensor
+    gates: torch.Tensor
+    ids: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    counts: torch.Tensor
+    capacity: int
+
+
+def moe_route(router, xt, *, top_k: int, capacity_factor: float = 1.25) \
+        -> MoeRoute:
+    """The reference's routing of tokens ``xt`` (T, D): softmax of the
+    router's logits in f32, each token's ``top_k`` experts (ties to the
+    lower expert), gates normalized; each assignment's slot is the count of
+    earlier ones to its expert in (token, choice) order, and those past the
+    capacity (:func:`moe_capacity`) are dropped."""
+    T, E = xt.shape[0], router.shape[-1]
+    probs = torch.softmax((xt @ router).float(), dim=-1)
+    gates, ids = stable_top_k(probs, top_k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = moe_capacity(T, E, top_k, capacity_factor)
+    flat_ids = ids.reshape(-1)
+    # Each assignment's slot is the count of earlier assignments to its
+    # expert: a running count over the (E, T*k) one-hot, expert row after
+    # expert row (one 1-D scan), less the assignments to the experts
+    # before.  (The reference's scan down the (T*k, E) one-hot's token
+    # axis runs on E threads of the card.)
+    onehot = torch.arange(E, device=xt.device)[:, None] == flat_ids
+    running = onehot.reshape(-1).cumsum(0).view(E, -1)
+    ends = running[:, -1]
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    pos = running.gather(0, flat_ids[None])[0] - (ends - counts)[flat_ids] - 1
+    return MoeRoute(probs, gates, ids, pos, pos < C, counts, C)
+
+
+def moe_block(p: Params, x, *, n_experts: int, top_k: int, mlp_type: str,
+              capacity_factor: float = 1.25, shared_expert: bool = False):
+    """Token-choice top-k MoE with capacity buckets, as the reference's
+    ``moe_block``.  Returns ``(y, aux)``: y (B, S, D) in x's dtype, aux the
+    f32 load-balance loss.
+
+    The tokens are routed by :func:`moe_route`; a dropped assignment's
+    token keeps only the residual path.  Kept tokens are scattered,
+    adding, into an (E, C, D) buffer (a dropped assignment adds zeros into
+    slot 0, as in the reference), the expert FFNs run as batched matmuls
+    on it, and each token sums its experts' outputs scaled by its gates.
+    The scatter and the gather address the buffer's (E * C) rows by one
+    index (``index_add``, ``index_select``): no row receives two nonzero
+    rows, so the sums are exact in any order.  The reference pads the
+    expert axis for expert parallelism; on one device that padding is the
+    identity and is left out.  Nothing here reads a device value on the
+    host.
+    """
+    B, S, D = x.shape
+    T, E, k = B * S, n_experts, top_k
+    dtype = x.dtype
+    xt = x.reshape(T, D)
+    r = moe_route(p["router"], xt, top_k=k, capacity_factor=capacity_factor)
+    C = r.capacity
+    row = r.ids.reshape(-1) * C + torch.where(r.keep, r.pos, 0)
+
+    src = xt.repeat_interleave(k, 0) * r.keep[:, None].to(dtype)
+    buf = xt.new_zeros((E * C, D)).index_add(0, row, src).view(E, C, D)
+    gate = torch.bmm(buf, p["w_gate"]) if "w_gate" in p else None
+    h = _hidden(mlp_type, torch.bmm(buf, p["w_up"]), gate)
+    out = torch.bmm(h, p["w_down"]).view(E * C, D)
+
+    scale = (r.gates.reshape(-1) * r.keep.float()).to(dtype)
+    y = (out.index_select(0, row) * scale[:, None]).reshape(T, k, D).sum(1)
+
+    # load-balance aux loss (Switch/GShard)
+    aux = E * torch.sum(r.probs.mean(0) * (r.counts.float() / (T * k)))
+    if shared_expert:
+        y = y + mlp_block(p["shared"], xt, mlp_type)
+    return y.reshape(B, S, D), aux

@@ -1,6 +1,6 @@
 """The language model: init, prefill forward, cached decode and the
-training loss — the port of the dense, ssm (Mamba1 and Mamba2) and hybrid
-branches of ``repro/models/lm.py``.
+training loss — the port of the dense, moe, ssm (Mamba1 and Mamba2) and
+hybrid branches of ``repro/models/lm.py``.
 
 Parameters are the reference's nested dict with layers *stacked* on a
 leading axis (``params["layers"]["attn"]["wq"]`` is ``(n_layers, d_model,
@@ -23,7 +23,14 @@ layers, then one application of the single shared attention block
 (``params["shared_attn"]``), whose weights every group reuses and whose
 KV cache each application keeps apart (``cache["k"][g]``).
 
-The moe, encdec and vlm families raise :class:`NotImplementedError`.
+The moe family is the dense one with each layer's MLP replaced by
+:func:`layers.moe_block` (every layer: the reference ignores
+``moe_every``); the layers' load-balance losses are summed into the
+forward's aux, which :func:`lm_loss` adds with ``aux_weight``.  A decode
+step routes its B tokens with the capacity of B tokens, so it may drop
+assignments that a prefill of the same tokens keeps, as in the reference.
+
+The encdec and vlm families raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -45,11 +52,11 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "ssm", "hybrid"):
+    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
         return
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet (dense, "
-        f"ssm and hybrid only)")
+        f"moe, ssm and hybrid only)")
 
 
 def _groups(cfg: ModelConfig) -> int:
@@ -107,8 +114,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                                  cfg.n_kv_heads, cfg.head_dim_, cfg.qk_norm,
                                  **kw),
         "ln2": L.init_rms_norm(cfg.d_model, device=dev, **kw),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw),
     }
+    if cfg.family == "moe":
+        p["layers"]["moe"] = L.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.n_experts, cfg.mlp_type,
+                                        cfg.shared_expert, **kw)
+    else:
+        p["layers"]["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.mlp_type, **kw)
     return p
 
 
@@ -155,21 +168,33 @@ def _attn_kwargs(cfg: ModelConfig):
                 eps=cfg.norm_eps)
 
 
+def _ffn(cfg: ModelConfig, lp: Params, h):
+    """A layer's feed-forward on its normed input: (out, the MoE block's
+    aux loss, or None in a dense layer)."""
+    if cfg.family == "moe":
+        return L.moe_block(lp["moe"], h, n_experts=cfg.n_experts,
+                           top_k=cfg.experts_top_k, mlp_type=cfg.mlp_type,
+                           capacity_factor=cfg.capacity_factor,
+                           shared_expert=cfg.shared_expert)
+    return L.mlp_block(lp["mlp"], h, cfg.mlp_type), None
+
+
 def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
            kv_chunk: int, dtype: Optional[torch.dtype] = None):
-    """One layer's residual update of ``x``; with ``dtype`` the layer's
-    weights are cast to it first (the training path's per-layer cast)."""
+    """One layer's residual update of ``x``: (x, the layer's MoE aux loss,
+    or None outside the moe family).  With ``dtype`` the layer's weights
+    are cast to it first (the training path's per-layer cast)."""
     if dtype is not None:
         lp = cast_params(lp, dtype)
     eps = cfg.norm_eps
     if cfg.family in ("ssm", "hybrid"):
         return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
-                                 cfg)
+                                 cfg), None
     h = L.rms_norm(x, lp["ln1"], eps)
     x = x + L.attention_block(lp["attn"], h, window=window,
                               kv_chunk=kv_chunk, **_attn_kwargs(cfg))
-    h = L.rms_norm(x, lp["ln2"], eps)
-    return x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
+    h, aux = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))
+    return x + h, aux
 
 
 def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
@@ -177,7 +202,7 @@ def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
     """One hybrid group's residual updates of ``x``: its SSM layers, then
     the shared attention block ``sa`` (already in the compute dtype)."""
     for lp in group:
-        x = _layer(cfg, lp, x, None, kv_chunk, dtype)
+        x, _ = _layer(cfg, lp, x, None, kv_chunk, dtype)
     h = L.rms_norm(x, sa["ln"], cfg.norm_eps)
     return x + L.attention_block(sa["attn"], h, kv_chunk=kv_chunk,
                                  **_attn_kwargs(cfg))
@@ -187,7 +212,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
                    kv_chunk: int = 512, remat: bool = False) \
         -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids (B, S) → final hidden states (B, S, d). Returns (hidden,
-    moe_aux); the aux loss of the dense, ssm and hybrid families is 0.
+    moe_aux): the sum of the moe layers' load-balance losses, f32, 0 in
+    the other families.
 
     ``remat=False`` (serving) takes weights already cast to the compute
     dtype.  ``remat=True`` (training) takes master weights of any float
@@ -203,6 +229,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     if not remat:
         _check_dtype(params, dtype)
     x = params["embed"][tokens].to(dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family == "hybrid":
         E = cfg.shared_attn_every
@@ -219,12 +246,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
         for i, lp in enumerate(layers):
             window = None if windows is None else windows[i]
             if remat:
-                x = checkpoint(_layer, cfg, lp, x, window, kv_chunk, dtype,
-                               use_reentrant=False)
+                x, a = checkpoint(_layer, cfg, lp, x, window, kv_chunk,
+                                  dtype, use_reentrant=False)
             else:
-                x = _layer(cfg, lp, x, window, kv_chunk)
+                x, a = _layer(cfg, lp, x, window, kv_chunk)
+            if a is not None:
+                aux = aux + a
     x = L.rms_norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def unembed(cfg: ModelConfig, params: Params, hidden):
@@ -250,17 +279,19 @@ def _chunk_loss(h, w, y):
 
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
-            loss_chunk: int = 256, remat: bool = True):
+            loss_chunk: int = 256, aux_weight: float = 0.01,
+            remat: bool = True):
     """Mean next-token cross entropy of ``labels`` (B, S) (integer ids)
     given ``tokens`` (B, S), from master weights (see
-    :func:`forward_hidden`'s ``remat``).
+    :func:`forward_hidden`'s ``remat``), plus ``aux_weight`` times the
+    MoE layers' summed load-balance loss (0 outside the moe family).
 
     The head runs over ``loss_chunk``-token slices of the sequence, each
     under ``torch.utils.checkpoint``, so the (B, S, vocab) f32 logits never
     exist whole: a chunk's are recomputed in the backward pass.  The
     unembedding is cast to the compute dtype once per call.
     """
-    hidden, _ = forward_hidden(cfg, params, tokens, remat=remat)
+    hidden, aux = forward_hidden(cfg, params, tokens, remat=remat)
     B, S, _ = hidden.shape
     n = max(1, S // loss_chunk)
     chunk = S // n
@@ -274,7 +305,7 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
         part = slice(i * chunk, (i + 1) * chunk)
         total = total + checkpoint(_chunk_loss, hidden[:, part], w,
                                    labels[:, part], use_reentrant=False)
-    return total / (B * S)   # no family of the port has an aux loss
+    return total / (B * S) + aux_weight * aux
 
 
 # --------------------------------------------------------------------------
@@ -384,8 +415,8 @@ def _dense_decode_layers(cfg: ModelConfig, params: Params, cache: Params,
             window=None if windows is None else windows[i],
             pos_index=pos_index, **_attn_kwargs(cfg))
         x = x + h
-        h = L.rms_norm(x, lp["ln2"], eps)
-        x = x + L.mlp_block(lp["mlp"], h, cfg.mlp_type)
+        h, _ = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))   # aux dropped
+        x = x + h
     return x
 
 

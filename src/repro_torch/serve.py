@@ -1,7 +1,7 @@
 """Batched serving: restore weights from an scda checkpoint, decode tokens.
 
-The port of ``examples/serve_decode.py`` on the dense, ssm and hybrid
-families: the weights are saved with :func:`repro_torch.checkpoint.save`,
+The port of ``examples/serve_decode.py`` on the dense, moe, ssm and
+hybrid families: the weights are saved with :func:`repro_torch.checkpoint.save`,
 restored with ``restore(like=)`` onto the serving device (cast once to the
 compute dtype), and a batch of requests is fed token by token through
 ``serve_step``, then decoded greedily.  Token ids, the cache position and
@@ -9,7 +9,8 @@ the argmax stay on the device: the loop reads nothing back until it ends.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen3-1.7b]
       (``--arch falcon-mamba-7b`` serves the Mamba1 model, ``--arch
-      zamba2-2.7b`` the hybrid of Mamba2 layers and shared attention;
+      zamba2-2.7b`` the hybrid of Mamba2 layers and shared attention,
+      ``--arch granite-moe-3b-a800m`` the MoE model of 40 experts, top-8;
       ``--device cpu --smoke`` runs the reduced config on the host)
 """
 from __future__ import annotations

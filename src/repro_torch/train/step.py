@@ -3,9 +3,11 @@
 PyTorch runs eagerly, so each builder returns a plain function (no
 ``jit``).  ``make_train_step(cfg, opt)`` returns
     (params, opt_state, batch) → (params, opt_state, metrics)
-with the sequence-chunked loss head; unlike the reference's pure step it
-updates ``params`` and ``opt_state`` in place (AdamW in place, gradients
-freed as they are used) and returns the same objects.
+with the sequence-chunked loss head and, in the moe family, the
+load-balance aux loss at ``lm_loss``'s default weight, as the reference's
+step; unlike the reference's pure step it updates ``params`` and
+``opt_state`` in place (AdamW in place, gradients freed as they are used)
+and returns the same objects.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
 the backward) and the K2 kernels (the unfused scan, the fused scan and its
 backward) against their plain versions, the smoke models (qwen3,
-falcon-mamba, zamba2, gemma3) on CUDA against the same models on the CPU, the four
-training paths (loss, gradients, kill and resume), and checkpoint round trips of
-CUDA tensors.  Every
+falcon-mamba, zamba2, gemma3, granite-moe) on CUDA against the same models
+on the CPU, the five training paths (loss, gradients, kill and resume),
+and checkpoint round trips of CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -73,6 +73,9 @@ def _rand(rng, shape, dtype, device):
     (1, 8, 4, 200, 200, 256, True, 70, 0),      # head dim 256, window
     (2, 4, 2, 5, 40, 256, True, 8, 30),         # head dim 256, offset
     (2, 8, 4, 1, 300, 256, True, 100, 157),     # gemma3's decode, window
+    (1, 24, 8, 70, 70, 64, True, None, 0),      # granite's heads, ragged
+    (2, 24, 8, 130, 130, 64, True, None, 0),    # granite's heads, 3 tiles
+    (2, 24, 8, 1, 300, 64, True, None, 157),    # granite's decode heads
 ])
 def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
                               window, q_offset):
@@ -94,7 +97,7 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 50])
-@pytest.mark.parametrize("group", [1, 2, 16])
+@pytest.mark.parametrize("group", [1, 2, 3, 16])
 @pytest.mark.parametrize("pos", [0, 63, 64, 127, 128])
 @pytest.mark.parametrize("D", [64, 80, 256])
 def test_decode_kernel_at_split_boundaries(cuda, dtype, pos, group, window,
@@ -132,11 +135,11 @@ def test_decode_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (32, 32, 80),
-                                     (8, 4, 256)])
+                                     (8, 4, 256), (24, 8, 64)])
 def test_prefill_at_the_main_path_shape(cuda, H, Hkv, D):
     """The prefills of the served models, 4 x 512 in bf16: qwen3's 16 / 8
-    heads of head dim 128, zamba2's 32 / 32 of head dim 80 and gemma3's
-    8 / 4 of head dim 256."""
+    heads of head dim 128, zamba2's 32 / 32 of head dim 80, gemma3's 8 / 4
+    of head dim 256 and granite's 24 / 8 of head dim 64 (group 3)."""
     rng = np.random.default_rng(9)
     q = _rand(rng, (4, 512, H, D), torch.bfloat16, cuda)
     k = _rand(rng, (4, 512, Hkv, D), torch.bfloat16, cuda)
@@ -245,6 +248,87 @@ def test_gemma_attention_at_head_dim_256_on_cuda_matches_cpu(cuda):
         lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
         assert flash_attention_cuda.launches - before == cfg.n_layers
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def _granite_smoke():
+    """granite's smoke config at granite's attention shape (group 3 of
+    head dim 64: 6 / 2 heads) and its 4 experts, top-2."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    return dataclasses.replace(smoke(get_config("granite-moe-3b-a800m")),
+                               n_heads=6, n_kv_heads=2, head_dim=64)
+
+
+def test_granite_smoke_on_cuda_matches_cpu(cuda):
+    """The granite smoke model on the card (K1 at D 64, group 3; the MoE
+    block's routing, scatter and expert matmuls) against the CPU in f32:
+    the forward and 12 decode steps within 1e-4, and the same assignments
+    dropped in every MoE call (the decode steps route 2 tokens with 1 slot
+    an expert)."""
+    from unittest import mock
+    from repro_torch.models import forward, init_cache, init_lm, serve_step
+    from repro_torch.models import layers as L
+    cfg = _granite_smoke()
+    cpu = init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, cuda)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32))
+    real = L.moe_route
+    routes = {"cpu": [], "cuda": []}
+
+    def route(*a, **kw):
+        r = real(*a, **kw)
+        routes[r.keep.device.type].append((r.ids.cpu(), r.keep.cpu()))
+        return r
+
+    with mock.patch.object(L, "moe_route", route):
+        want = forward(cfg, cpu, tok)
+        before = flash_attention_cuda.launches
+        got = forward(cfg, gpu, tok.to(cuda))
+        assert flash_attention_cuda.launches - before == cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        c_cpu = init_cache(cfg, 2, 16, device="cpu")
+        c_gpu = init_cache(cfg, 2, 16, device=cuda)
+        for i in range(12):
+            lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
+            lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert len(routes["cuda"]) == len(routes["cpu"]) == 13 * cfg.n_layers
+    dropped = 0
+    for (ids_c, keep_c), (ids_g, keep_g) in zip(routes["cpu"],
+                                                routes["cuda"]):
+        assert torch.equal(ids_c, ids_g) and torch.equal(keep_c, keep_g)
+        dropped += int((~keep_c).sum())
+    assert dropped > 0
+
+
+def test_granite_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
+    """lm_loss with its aux term and every leaf's gradient of the granite
+    smoke model through K1's forward (twice a layer: remat) and its
+    backward at D 64, group 3, against the same on the CPU."""
+    from repro_torch.models import init_lm, lm_loss
+    cfg = _granite_smoke()
+    tok, lab = _smoke_batch(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16)
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            assert flash_attention_cuda.launches - f0 == 2 * cfg.n_layers
+            assert flash_attention_bwd_cuda.launches - b0 == \
+                BWD_LAUNCHES_PER_CALL * cfg.n_layers
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    assert "layers/moe/router" in names
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -414,6 +498,7 @@ BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
     (1, 4, 2, 20, 100, 256, False, None, 0),     # head dim 256, Sq != Skv
     (2, 8, 4, 129, 257, 256, True, None, 128),   # head dim 256, q_offset
     (1, 8, 4, 4096, 4096, 256, True, 1024, 0),   # gemma3's training length, window
+    (1, 24, 8, 140, 140, 64, True, None, 0),     # granite's heads, group 3
 ]
 
 
@@ -664,7 +749,8 @@ def _get(tree, name):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
-                                  "zamba2-2.7b", "gemma3-4b"])
+                                  "zamba2-2.7b", "gemma3-4b",
+                                  "granite-moe-3b-a800m"])
 def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
                                                                tmp_path,
                                                                arch):
@@ -692,11 +778,13 @@ def test_kill_and_resume_on_cuda_matches_an_uninterrupted_run(cuda,
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "falcon-mamba-7b",
-                                  "zamba2-2.7b", "gemma3-4b"])
+                                  "zamba2-2.7b", "gemma3-4b",
+                                  "granite-moe-3b-a800m"])
 def test_launcher_trains_on_the_card(cuda, tmp_path, capsys, arch):
     """python -m repro_torch.launch.train --arch <arch>: the card is the
     default device; falcon-mamba's steps go through the fused K2 and its
-    backward, qwen3's, zamba2's and gemma3's through K1's backward."""
+    backward, qwen3's, zamba2's, gemma3's and granite's through K1's
+    backward."""
     from repro_torch.launch import train as launch
     f0, b0 = ss.ssm_scan_fused_cuda.launches, ss.ssm_scan_bwd_cuda.launches
     a0 = flash_attention_bwd_cuda.launches

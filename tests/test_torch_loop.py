@@ -21,9 +21,10 @@ from repro_torch.configs import smoke as tsmoke  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import loop as tloop  # noqa: E402
 
-#: The dense, the Mamba1 (ssm) and the hybrid family: the loop runs for
-#: the three.
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b", "gemma3-4b")
+#: The dense, the Mamba1 (ssm), the hybrid and the moe family: the loop
+#: runs for each.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b", "gemma3-4b",
+         "granite-moe-3b-a800m")
 
 
 @pytest.fixture(autouse=True, scope="module")

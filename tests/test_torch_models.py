@@ -132,9 +132,14 @@ def test_weights_are_cast_once():
     assert tlm.forward(bf16_cfg, bf, tok).shape == (1, 4, cfg.vocab)
 
 
-def test_init_lm_is_seeded_and_shaped_like_the_reference():
-    cfg = smoke(get_config("qwen3-1.7b"))
-    tcfg = tsmoke(tget("qwen3-1.7b"))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e"])
+def test_init_lm_is_seeded_and_shaped_like_the_reference(arch):
+    """The tree's keys and shapes are the reference's (an moe model's
+    stacked experts and llama4-scout's shared expert too), and a seed
+    gives the same weights twice."""
+    cfg = smoke(get_config(arch))
+    tcfg = tsmoke(tget(arch))
     a = tlm.init_lm(tcfg, 3, device="cpu")
     b = tlm.init_lm(tcfg, 3, device="cpu")
     ref = jax.eval_shape(lambda: jlm.init_lm(cfg, jax.random.PRNGKey(0)))
@@ -146,10 +151,9 @@ def test_init_lm_is_seeded_and_shaped_like_the_reference():
     assert torch.equal(a["layers"]["attn"]["wq"], b["layers"]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-medium",
-                                  "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
 def test_other_families_not_ported(arch):
-    """Families not ported yet (moe, encdec, vlm) raise."""
+    """Families not ported yet (encdec, vlm) raise."""
     cfg = tsmoke(tget(arch))
     with pytest.raises(NotImplementedError):
         tlm.init_lm(cfg, 0, device="cpu")

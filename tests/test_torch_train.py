@@ -1,6 +1,6 @@
 """The port's training path against the JAX package's, on the CPU: the
 attention gradient, the loss and every parameter's gradient of the qwen3,
-falcon-mamba and zamba2 smoke configs, one train step (the loop is in
+falcon-mamba, zamba2, gemma3 and granite-moe smoke configs, one train step (the loop is in
 test_torch_loop.py; the Mamba1 scan's gradient in test_torch_ssm_train.py)."""
 import numpy as np
 import pytest
@@ -25,9 +25,10 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
-#: The dense, the Mamba1 (ssm) and the hybrid family: every model-level
-#: test runs on the three smoke configs.
-ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b", "gemma3-4b")
+#: The dense, the Mamba1 (ssm), the hybrid and the moe family: every
+#: model-level test runs on their smoke configs.
+ARCHS = ("qwen3-1.7b", "falcon-mamba-7b", "zamba2-2.7b", "gemma3-4b",
+         "granite-moe-3b-a800m")
 B, S, CHUNK = 2, 32, 16
 
 

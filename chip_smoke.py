@@ -9,7 +9,7 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one process per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1 at each served model's
 heads, and at gemma3's long-context shapes), then runs the port's
-serving path for five models at full width, random bf16 weights from a
+serving path for seven models at full width, random bf16 weights from a
 seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
@@ -43,18 +43,32 @@ prompt, then 32 greedy tokens).
   through K1 at head dim 64, group 3, and the MoE block (plain torch: the
   reference has no kernel there): its layers held as gemma3's, and each
   layer's share of dropped expert assignments printed for the prefill and
-  for a decode step, which runs with CUDA's sync debug mode raising.
+  for a decode step, which runs with CUDA's sync debug mode raising;
+- whisper-medium (24 encoder and 24 decoder layers, d_model 1024, 16 / 16
+  heads of head dim 64, GELU 4096, vocab 51 865; 1.52 GB of weights)
+  through K1 with and without the causal mask: 4 × 1500 seeded frame
+  embeddings encoded (its audio frontend is a stub, as in the
+  reference), a prefill of 4 × 448 decoder tokens on the same frames, and
+  the 4 requests served with the encoder's output in their cache (its
+  cross-attention through K1's decode kernel against all 1500 frames in
+  every step: 48 launches a step); each encoder layer's attention and
+  each decoder layer's self- and cross-attention held one by one;
+- llava-next-mistral-7b (32 layers, d_model 4096, 32 / 8 heads of head
+  dim 128, SwiGLU 14 336, vocab 32 000; 14.5 GB of weights) through K1: a
+  prefill of 4 × (2880 seeded patch embeddings, projected by mm_proj,
+  before 512 tokens) and 4 requests of text served (a decode step never
+  sees the image, as in the reference), its layers held as gemma3's.
 
-Then five models train at full width (8192 tokens a step, f32 master
+Then seven models train at full width (8192 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
-after step 3's save, run 2 resumes bit-exactly.  Each is cut in depth
-(``*_TRAIN_LAYERS``) to keep the run's time well under its limit and
-its disk footprint under 45 GiB.  qwen3-1.7b, cut to 14 of its 28
+after step 3's save, run 2 resumes bit-exactly.  All but whisper are cut
+in depth (``*_TRAIN_LAYERS``) to keep the run's time well under its limit
+and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 6 of its 28
 layers, trains through K1's forward and its backward (8 x 1024 tokens);
-falcon-mamba-7b, cut to 8 of its 64 layers, through the fused K2 forward
-and K2's backward kernel; zamba2-2.7b, cut to 12 of its 54 layers, through
-K1's forward and its
-backward at head dim 80 in each of its shared-attention applications
+falcon-mamba-7b, cut to 4 of its 64 layers, through the fused K2 forward
+and K2's backward kernel; zamba2-2.7b, cut to 6 of its 54 layers (one
+group), through K1's forward and its
+backward at head dim 80 in its shared-attention application
 (each held against the plain backward in step 0, and one group's output
 and gradients against the plain attention), its Mamba2 layers through
 autograd of plain torch; gemma3-4b, cut to 6 of its 34 layers (one 5:1
@@ -64,9 +78,14 @@ K1's forward and its backward at head dim 256 with each layer's window
 and gradient norm against the plain attention); granite-moe-3b-a800m, cut
 to 16 of its 32 layers, through K1's forward and its
 backward at head dim 64, group 3, and its MoE layers through autograd of
-plain torch (the loss with the reference's load-balance term).  The
-backward kernels are timed at each training shape and in a profiled
-training step.
+plain torch (the loss with the reference's load-balance term);
+whisper-medium, at its full depth, on 8 x (1500 frames + 448 tokens),
+through K1's forward and its backward without the causal mask in its
+encoder and cross-attention, from a data source that adds seeded frame
+embeddings to the tokens; llava-next-mistral-7b, cut to 4 of its 32
+layers, on 2 x (2880 patch embeddings + 1024 tokens), the loss over the
+text alone.  The backward kernels are timed at each training shape and in
+a profiled training step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Every phase asserts; any failure exits non-zero.  The
@@ -75,7 +94,8 @@ and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
 prints no result.  Needs about 52 GB free in the temporary directory
 (falcon-mamba's training state, twice, while its final save commits;
-gemma3's and zamba2's each need about 48 GB, granite's 45 GB).
+gemma3's and zamba2's each need about 48 GB, granite's 45 GB, llava's
+31 GB).
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
 """
@@ -100,6 +120,8 @@ FALCON = "falcon-mamba-7b"
 ZAMBA = "zamba2-2.7b"
 GEMMA = "gemma3-4b"
 GRANITE = "granite-moe-3b-a800m"
+WHISPER = "whisper-medium"
+LLAVA = "llava-next-mistral-7b"
 SEED = 0
 PREFILL_B, PREFILL_S = 4, 512
 SERVE_B, MAX_LEN, PROMPT_LEN, GEN_LEN = 4, 1024, 64, 32
@@ -107,7 +129,26 @@ DECODE_OFFSETS = (63, 95, 511, 1023)
 #: K1's heads on the served paths: (q heads, kv heads, head dim).
 K1_HEADS = {"qwen3-1.7b": (16, 8, 128), "zamba2-2.7b": (32, 32, 80),
             "gemma3-4b": (8, 4, 256),
-            "granite-moe-3b-a800m": (24, 8, 64)}
+            "granite-moe-3b-a800m": (24, 8, 64),
+            "whisper-medium": (16, 16, 64),
+            "llava-next-mistral-7b": (32, 8, 128)}
+#: whisper's and llava's shapes on the card.  whisper: its encoder over
+#: WHISPER_FRAMES frames (no causal mask), its decoder over WHISPER_TOKENS
+#: tokens (its 448-token limit), the cross-attention from those tokens, or
+#: from one in a decode step, to the frames.  llava: LLAVA_PATCHES image
+#: positions (5 anyres tiles of 576) before LLAVA_TEXT text tokens in a
+#: prefill.
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+LLAVA_PATCHES, LLAVA_TEXT = 2880, 512
+#: K1's prefill checks at each served model's heads: (Sq, Skv, causal),
+#: B = PREFILL_B; qwen3's prefill of 4 x 512 for the others.  whisper also
+#: has its cross-attention's decode (1 -> WHISPER_FRAMES keys) checked.
+K1_PREFILLS = {
+    WHISPER: ((WHISPER_FRAMES, WHISPER_FRAMES, False),
+              (WHISPER_TOKENS, WHISPER_FRAMES, False),
+              (WHISPER_TOKENS, WHISPER_TOKENS, True)),
+    LLAVA: ((LLAVA_PATCHES + LLAVA_TEXT,) * 2 + (True,),),
+}
 #: gemma3's window on the card: a prefill of 1 x LONG_S tokens, and
 #: LONG_STEPS decode steps of one request from a cache of LONG_CACHE keys
 #: whose position is set to LONG_POS (its K/V seeded random values: the
@@ -123,8 +164,8 @@ PEAK_F32_FLOPS = 67e12   # outside the tensor cores
 #: Exponentials a second: 16 a clock on each SM's special function units
 #: (Hopper's MUFU rate), 132 SMs, 1.98 GHz boost clock.
 PEAK_EXP_PER_S = 132 * 16 * 1.98e9
-#: falcon-mamba's bf16 checkpoint is 14.0 GB; the temporary directory
-#: must hold it.
+#: falcon-mamba's bf16 checkpoint is 14.0 GB, llava's 14.5 GB; the
+#: temporary directory must hold either.
 DISK_NEED = 16e9
 
 #: kernel vs plain version on the same inputs.  f32: the reference's own
@@ -190,21 +231,27 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: The training paths, at full width, f32 master weights and AdamW moments,
 #: bf16 compute, 8 × 1024 tokens a step, each cut in depth.  A path's time
 #: is mostly its state's I/O (two saves and a restore of 12 B a
-#: parameter), and with granite's paths and every model's training at the
-#: depths it had before (qwen3 28, falcon 16, zamba2 42 or 24, gemma3 12
-#: layers) the run took 938.9 and 1080.4 s to "done" on two H100 machines,
-#: against a 1200 s limit; at these depths it keeps a margin.  The disk
-#: bounds them too: two state files coexist while the final save commits,
-#: and the run keeps its footprint under 45 GiB (falcon's at 64 layers
-#: would also not fit the card: 112 GB at 16 B a parameter; zamba2's two at
-#: 54 layers are 54.3 GB, gemma3's at 34 are 93.1 GB).
+#: parameter).  With granite's paths and deeper training (qwen3 28,
+#: falcon 16, zamba2 42 or 24, gemma3 12 layers) the run took 938.9 and
+#: 1080.4 s to "done" on two H100 machines, against a 1200 s limit; at
+#: qwen3 14, falcon 8, zamba2 12 and granite 16 layers 701.5 s, and
+#: whisper's and llava's serve and train paths take about 210 s more, so
+#: the earlier paths are cut again (qwen3 6 layers: 613,182,976
+#: parameters; falcon 4: 687,591,424; zamba2 6, one group: 347,465,120).  granite keeps its 16: at 8 layers its step
+#: 0's gradient norm through K1 lay 0.066 from the plain attention's
+#: (4.932 vs 4.866), past TOL_TRAIN, where routing flips on near ties
+#: part the two paths (at 16, 8.238 vs 8.162, within it).  The disk bounds
+#: them too: two state files coexist while the final save commits, and the
+#: run keeps its footprint under 45 GiB (falcon's at 64 layers would also
+#: not fit the card: 112 GB at 16 B a parameter; zamba2's two at 54 layers
+#: are 54.3 GB, gemma3's at 34 are 93.1 GB).
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
-QWEN_TRAIN_LAYERS = 14
-FALCON_TRAIN_LAYERS = 8
-#: zamba2's cut is in whole groups (2 of its 9, so 2 shared-attention
-#: applications).  Its device memory fits at 54 layers (a 53.6 GB peak).
-ZAMBA_TRAIN_LAYERS = 12
+QWEN_TRAIN_LAYERS = 6
+FALCON_TRAIN_LAYERS = 4
+#: zamba2's cut is in whole groups (1 of its 9, so 1 shared-attention
+#: application).  Its device memory fits at 54 layers (a 53.6 GB peak).
+ZAMBA_TRAIN_LAYERS = 6
 #: gemma3-4b trains one whole 5:1 period (layers 0-4 local, 5 global), on
 #: GEMMA_TRAIN_B x GEMMA_TRAIN_S tokens a step, the 8192 of the other
 #: paths, so that its 1024-key window masks (at 1024 tokens it masks
@@ -215,6 +262,15 @@ GEMMA_TRAIN_B, GEMMA_TRAIN_S = 2, 4096
 #: layers; at 16, 20.2 GB (its state on the card 27.0 GB at 16 B a
 #: parameter).
 GRANITE_TRAIN_LAYERS = 16
+#: whisper-medium trains at its full depth (24 encoder and 24 decoder
+#: layers, 757,877,760 parameters: a 9.1 GB state file) on TRAIN_B x
+#: (WHISPER_FRAMES frames + WHISPER_TOKENS tokens) a step.
+#: llava-next-mistral-7b trains LLAVA_TRAIN_LAYERS of its 32 layers on
+#: LLAVA_TRAIN_B x (LLAVA_PATCHES image positions + LLAVA_TRAIN_TEXT text
+#: tokens) a step, the loss over the text (its state file at 4 layers,
+#: 1,151,373,312 parameters, 13.8 GB; at 32 layers 87.1 GB).
+LLAVA_TRAIN_LAYERS = 4
+LLAVA_TRAIN_B, LLAVA_TRAIN_TEXT = 2, 1024
 #: One falcon layer at the training shape, kernel path against plain path
 #: on the same inputs: its bf16 output as REL_LAYER_PLAIN, its bf16
 #: gradients (each rounded once from f32 sums taken in another order) by
@@ -388,11 +444,13 @@ def assert_close(a, b, tol, what: str) -> float:
 # ---------------------------------------------------------------- phase 2 --
 def kernel_checks(torch, fa):
     """K1 against its plain version: small f32 cases (prefill and decode,
-    the decode kernel's split boundaries among them, head dim 80), then
-    the main paths' bf16 shapes with times, for qwen3's heads (16 / 8 of
-    head dim 128) and zamba2's (32 / 32 of head dim 80): the prefill
-    kernel at 4 × 512, the decode kernel at four offsets.  Returns the
-    per-shape measurement records, qwen3's first."""
+    the decode kernel's split boundaries among them, head dims 64 to 256,
+    unmasked over 1500 keys), then the main paths' bf16 shapes with times
+    at each served model's heads (K1_HEADS): the prefill kernel at 4 × 512
+    or the model's own shapes (K1_PREFILLS), the decode kernel at four
+    offsets and whisper's cross-attention decode; then gemma3's
+    long-context shapes.  Returns the per-shape measurement records,
+    qwen3's first."""
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED)
 
@@ -440,6 +498,13 @@ def kernel_checks(torch, fa):
         # across a split boundary
         (1, 24, 8, 70, 70, 64, True, None, 0),
         (2, 24, 8, 1, 150, 64, True, None, off(95)),
+        # whisper's heads (group 1 of head dim 64) without the causal mask
+        # over its 1500 frames (the last tile and split hold 28 keys), the
+        # offset the host int 0 as its cross-attention passes it; llava's
+        # (group 4 of head dim 128) in a ragged prefill
+        (1, 16, 16, 37, 1500, 64, False, None, 0),
+        (2, 16, 16, 1, 1500, 64, False, None, 0),
+        (1, 32, 8, 70, 70, 128, True, None, 0),
     ]
     worst = 0.0
     for B, H, Hkv, Sq, Skv, D, causal, window, q_off in small:
@@ -456,7 +521,10 @@ def kernel_checks(torch, fa):
     print(f"K1 f32 cases: {len(small)} pass, max abs err {worst}")
     records = []
     for model, (H, Hkv, D) in K1_HEADS.items():
-        records += k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D)
+        records += k1_main_shapes(
+            torch, fa, rand, off, model, H, Hkv, D,
+            K1_PREFILLS.get(model, ((PREFILL_S, PREFILL_S, True),)),
+            cross_kv=WHISPER_FRAMES if model == WHISPER else 0)
     records += k1_long_shapes(torch, fa, rand, off, *K1_HEADS[GEMMA])
     for r in records:
         print(f"K1 {r['kernel']} {r['shape']} ({r['model']}): err "
@@ -470,75 +538,100 @@ def kernel_checks(torch, fa):
     return records
 
 
-def k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D):
-    """K1 at a served model's heads: the prefill kernel at 4 × 512 and the
-    decode kernel at DECODE_OFFSETS of a MAX_LEN cache, in bf16, each held
-    against its plain version and SDPA and timed beside them."""
+def k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D,
+                   prefills=((PREFILL_S, PREFILL_S, True),), cross_kv=0):
+    """K1 at a served model's heads, in bf16: the prefill kernel at each of
+    ``prefills`` (Sq, Skv, causal; B = PREFILL_B) and the decode kernel at
+    DECODE_OFFSETS of a MAX_LEN cache, and with ``cross_kv`` keys a
+    cross-attention's decode (1 -> cross_kv, no mask, the offset the host
+    int 0 as the model passes it), each held against its plain version and
+    SDPA and timed beside them."""
     bf16 = torch.bfloat16
+    sdpa = sdpa_gqa(torch)
     records = []
 
-    # prefill B=4, S=512: causal self-attention in the model's layout
-    q = rand(PREFILL_B, PREFILL_S, H, D, dtype=bf16)
-    k = rand(PREFILL_B, PREFILL_S, Hkv, D, dtype=bf16)
-    v = rand(PREFILL_B, PREFILL_S, Hkv, D, dtype=bf16)
-    got = fa.flash_attention_cuda(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True)
-    err = assert_close(got, want, TOL_BF16, "K1 bf16 prefill")
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = sdpa_gqa(torch)
-    lib = sdpa(qh, kh, vh, is_causal=True)
-    check(torch.allclose(lib.transpose(1, 2).float(), got.float(),
-                         **TOL_BF16), "SDPA yardstick disagrees (prefill)")
-    S = PREFILL_S
-    flops = 4 * PREFILL_B * H * D * (S * (S + 1) // 2)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-    records.append(dict(
-        shape=f"prefill B{PREFILL_B} S{S} H{H}/{Hkv} D{D} causal bf16",
-        kernel="flash_prefill_kernel", max_abs_err=err,
-        **timings(lambda: fa.flash_attention_cuda(q, k, v),
-                  lambda: fa.flash_attention_plain(q, k, v),
-                  lambda: sdpa(qh, kh, vh, is_causal=True), 50),
-        **bound(nbytes, flops, PEAK_BF16_FLOPS)))
-
-    # decode: Sq = 1 against an S_max = 1024 cache at several offsets.  The
-    # caches rotate over enough copies (> 50 MB L2) to be read cold, as a
-    # layer's cache is in the model's step.
-    copies = 16
-    caches = [(rand(SERVE_B, MAX_LEN, Hkv, D, dtype=bf16),
-               rand(SERVE_B, MAX_LEN, Hkv, D, dtype=bf16))
-              for _ in range(copies)]
-    qd = rand(SERVE_B, 1, H, D, dtype=bf16)
-    for pos in DECODE_OFFSETS:
-        p = off(pos)
-        kc, vc = caches[0]
-        got = fa.flash_attention_cuda(qd, kc, vc, q_offset=p)
-        want = fa.flash_attention_plain(qd, kc, vc, q_offset=p)
-        err = assert_close(got, want, TOL_BF16, f"K1 bf16 decode pos {pos}")
-        lib = sdpa(qd.transpose(1, 2), kc[:, :pos + 1].transpose(1, 2),
-                   vc[:, :pos + 1].transpose(1, 2))
+    # prefill: self-attention (causal) or attention to other positions
+    # (the encoder's and a cross-attention's, Sq != Skv) in the model's
+    # layout
+    for Sq, Skv, causal in prefills:
+        q = rand(PREFILL_B, Sq, H, D, dtype=bf16)
+        k = rand(PREFILL_B, Skv, Hkv, D, dtype=bf16)
+        v = rand(PREFILL_B, Skv, Hkv, D, dtype=bf16)
+        kw = dict(causal=causal)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        seq = f"S{Sq}" if Sq == Skv else f"S{Sq}->{Skv}"
+        what = f"{seq} {'causal' if causal else 'unmasked'}"
+        err = assert_close(got, want, TOL_BF16, f"K1 bf16 prefill {what}")
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib = sdpa(qh, kh, vh, is_causal=causal)
         check(torch.allclose(lib.transpose(1, 2).float(), got.float(),
-                             **TOL_BF16), f"SDPA disagrees (decode {pos})")
+                             **TOL_BF16), f"SDPA yardstick disagrees "
+              f"(prefill {what})")
+        pairs = attended_pairs(Sq) if causal else Sq * Skv
+        flops = 4 * PREFILL_B * H * D * pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        iters = 50 if pairs <= PREFILL_S * PREFILL_S else 20
+        records.append(dict(
+            shape=f"prefill B{PREFILL_B} {seq} H{H}/{Hkv} D{D} "
+                  f"{'causal' if causal else 'unmasked'} bf16",
+            kernel="flash_prefill_kernel", max_abs_err=err,
+            **timings(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                      lambda: fa.flash_attention_plain(q, k, v, **kw),
+                      lambda: sdpa(qh, kh, vh, is_causal=causal), iters),
+            **bound(nbytes, flops, PEAK_BF16_FLOPS)))
+
+    # decode: Sq = 1 against an S_max = 1024 cache at several offsets, and
+    # a cross-attention's decode against all of cross_kv keys.  The caches
+    # rotate over enough copies (> 50 MB L2) to be read cold, as a layer's
+    # cache is in the model's step.
+    copies = 16
+    qd = rand(SERVE_B, 1, H, D, dtype=bf16)
+    cases = [(MAX_LEN, pos) for pos in DECODE_OFFSETS]
+    cases += [(cross_kv, None)] if cross_kv else []
+    by_len = {}
+    for Skv, pos in cases:
+        if Skv not in by_len:
+            by_len[Skv] = [(rand(SERVE_B, Skv, Hkv, D, dtype=bf16),
+                            rand(SERVE_B, Skv, Hkv, D, dtype=bf16))
+                           for _ in range(copies)]
+        caches = by_len[Skv]
+        # the self-attention's offset lives on the device; a
+        # cross-attention passes the host int 0 and no mask
+        kw = (dict(q_offset=off(pos)) if pos is not None
+              else dict(causal=False, q_offset=0))
+        live = Skv if pos is None else pos + 1
+        kc, vc = caches[0]
+        got = fa.flash_attention_cuda(qd, kc, vc, **kw)
+        want = fa.flash_attention_plain(qd, kc, vc, **kw)
+        what = f"pos{pos}" if pos is not None else f"cross Skv{Skv}"
+        err = assert_close(got, want, TOL_BF16, f"K1 bf16 decode {what}")
+        lib = sdpa(qd.transpose(1, 2), kc[:, :live].transpose(1, 2),
+                   vc[:, :live].transpose(1, 2))
+        check(torch.allclose(lib.transpose(1, 2).float(), got.float(),
+                             **TOL_BF16), f"SDPA disagrees (decode {what})")
         it = iter(range(1 << 30))
 
         def kern():
             kc_, vc_ = caches[next(it) % copies]
-            fa.flash_attention_cuda(qd, kc_, vc_, q_offset=p)
+            fa.flash_attention_cuda(qd, kc_, vc_, **kw)
 
         def plain():
             kc_, vc_ = caches[next(it) % copies]
-            fa.flash_attention_plain(qd, kc_, vc_, q_offset=p)
+            fa.flash_attention_plain(qd, kc_, vc_, **kw)
 
         def library():
             kc_, vc_ = caches[next(it) % copies]
-            sdpa(qd.transpose(1, 2), kc_[:, :pos + 1].transpose(1, 2),
-                 vc_[:, :pos + 1].transpose(1, 2))
+            sdpa(qd.transpose(1, 2), kc_[:, :live].transpose(1, 2),
+                 vc_[:, :live].transpose(1, 2))
 
-        live = pos + 1
         flops = 4 * SERVE_B * H * D * live
         nbytes = 2 * (2 * qd.numel() + 2 * SERVE_B * live * Hkv * D)
         records.append(dict(
-            shape=f"decode B{SERVE_B} Smax{MAX_LEN} pos{pos} H{H}/{Hkv} "
-                  f"D{D} bf16", kernel="flash_decode_kernel",
+            shape=(f"decode B{SERVE_B} Smax{MAX_LEN} pos{pos}"
+                   if pos is not None else f"decode B{SERVE_B} cross "
+                   f"Skv{Skv} unmasked") + f" H{H}/{Hkv} D{D} bf16",
+            kernel="flash_decode_kernel",
             max_abs_err=err, **timings(kern, plain, library, 200),
             **bound(nbytes, flops, PEAK_BF16_FLOPS)))
     for r in records:
@@ -1106,7 +1199,9 @@ def bwd_checks(torch, fa):
     bit-equal, then the backward at each training path's shape
     (bwd_train_shape): qwen3's record first, then zamba2's, then gemma3's
     at 2 x 4096 with its 1024-key window (its local layers) and without
-    (its global ones), then granite's (24 / 8 heads of 64)."""
+    (its global ones), then granite's (24 / 8 heads of 64), whisper's
+    three (8 x 1500 and 8 x 448 -> 1500 unmasked, 8 x 448 causal) and
+    llava's (2 x 3904, 32 / 8 heads of 128)."""
     from repro_torch.configs import get_config
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 3)
@@ -1138,6 +1233,8 @@ def bwd_checks(torch, fa):
         (1, 4, 2, 20, 100, 256, False, None, 0),    # head dim 256, Sq != Skv
         (2, 8, 4, 129, 257, 256, True, None, 128),  # head dim 256, q_offset
         (1, 24, 8, 140, 140, 64, True, None, 0),    # granite's heads, group 3
+        (1, 16, 16, 100, 1500, 64, False, None, 0),  # whisper's cross-attention
+        (1, 32, 8, 140, 140, 128, True, None, 0),   # llava's heads, group 4
     ]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     lse_worst = 0.0
@@ -1174,23 +1271,38 @@ def bwd_checks(torch, fa):
                 for window in (get_config(GEMMA).attn_window, None)]
     records.append(bwd_train_shape(torch, fa, rand, GRANITE,
                                    *K1_HEADS[GRANITE]))
+    # whisper's training: the encoder (frames to frames), the
+    # cross-attention (tokens to frames), both unmasked, and the decoder's
+    # self-attention; llava's over its image and text positions
+    for S, Skv, causal in ((WHISPER_FRAMES, WHISPER_FRAMES, False),
+                           (WHISPER_TOKENS, WHISPER_FRAMES, False),
+                           (WHISPER_TOKENS, WHISPER_TOKENS, True)):
+        records.append(bwd_train_shape(torch, fa, rand, WHISPER,
+                                       *K1_HEADS[WHISPER], S=S, Skv=Skv,
+                                       causal=causal))
+    records.append(bwd_train_shape(torch, fa, rand, LLAVA, *K1_HEADS[LLAVA],
+                                   B=LLAVA_TRAIN_B,
+                                   S=LLAVA_PATCHES + LLAVA_TRAIN_TEXT))
     return records + [dict(shape="checks", max_abs_err=worst[torch.float32],
                            bf16_rel_err=worst[torch.bfloat16],
                            lse_max_abs_err=lse_worst)]
 
 
 def bwd_train_shape(torch, fa, rand, model, H, Hkv, D, B=TRAIN_B, S=TRAIN_S,
-                    window=None):
-    """K1's backward at a training path's shape (B x S, causal, with
-    ``window`` or none, bf16, ``model``'s heads): held against the plain
-    version and SDPA's backward (the window as a boolean mask), two calls
-    bit-equal, then timed beside the plain version, SDPA's backward and
-    the bound, whole and by part; and K1's forward there."""
+                    window=None, Skv=None, causal=True):
+    """K1's backward at a training path's shape (B x S queries against Skv
+    keys, S unless given, causal or unmasked, with ``window`` or none,
+    bf16, ``model``'s heads): held against the plain version and SDPA's
+    backward (the window as a boolean mask), two calls bit-equal, then
+    timed beside the plain version, SDPA's backward and the bound, whole
+    and by part; and K1's forward there."""
     bf16 = torch.bfloat16
-    kw = dict(window=window)
-    label = f"{model}{'' if window is None else f', window {window}'}"
+    Skv = S if Skv is None else Skv
+    kw = dict(window=window, causal=causal)
+    label = (f"{model}{'' if window is None else f', window {window}'}"
+             f"{'' if causal else f', unmasked, {S} -> {Skv}'}")
     q, dout = (rand(B, S, H, D, dtype=bf16) for _ in range(2))
-    k, v = (rand(B, S, Hkv, D, dtype=bf16) for _ in range(2))
+    k, v = (rand(B, Skv, Hkv, D, dtype=bf16) for _ in range(2))
     out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
     assert_close(lse, fa.lse_plain(q, k, v, **kw), LSE_TOL,
                  f"K1 lse, train shape ({label})")
@@ -1205,7 +1317,7 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D, B=TRAIN_B, S=TRAIN_S,
     errs = [max_err(g, w) for g, w in zip(got, want)]
     del want, again
     sdpa = sdpa_gqa(torch)
-    masks = sdpa_masks(torch, S, S, window=window)
+    masks = sdpa_masks(torch, S, Skv, causal, window)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     lib_out = sdpa(qh, kh, vh, **masks)
@@ -1217,7 +1329,8 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D, B=TRAIN_B, S=TRAIN_S,
     backend = library_backend(torch, lambda: torch.autograd.grad(
         lib_out, (qh, kh, vh), doh, retain_graph=True))
     # one product over the pairs the masks leave
-    product = 2 * B * H * D * attended_pairs(S, window)
+    pairs = attended_pairs(S, window) if causal else S * Skv
+    product = 2 * B * H * D * pairs
     flops = 5 * product
     nbytes = (2 * (3 * q.numel() + 2 * k.numel())   # q, o, dO, k, v read
               + 4 * lse.numel()                       # lse read
@@ -1239,7 +1352,8 @@ def bwd_train_shape(torch, fa, rand, model, H, Hkv, D, B=TRAIN_B, S=TRAIN_S,
     with torch.no_grad():
         fwd_library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, **masks), 50)
     rec = dict(
-        shape=f"train B{B} S{S} H{H}/{Hkv} D{D} causal"
+        shape=f"train B{B} S{S}{'' if Skv == S else f'->{Skv}'} H{H}/{Hkv} "
+              f"D{D} {'causal' if causal else 'unmasked'}"
               f"{'' if window is None else f' window {window}'} bf16",
         model=model,
         kernel=" + ".join(
@@ -1343,12 +1457,17 @@ def checkpoint_phase(torch, cfg, tmp):
 
 
 # ------------------------------------------------------------ phases 4, 5 --
-def attention_apps(cfg) -> int:
-    """Applications of attention in one forward or decode step: a K1
-    launch each (a hybrid model applies its one shared block once a group
-    of ``shared_attn_every`` layers; a Mamba1 model has none)."""
+def attention_apps(cfg, decode: bool = False) -> int:
+    """Applications of attention in one forward, or with ``decode`` in one
+    decode step: a K1 launch each (a hybrid model applies its one shared
+    block once a group of ``shared_attn_every`` layers; a Mamba1 model has
+    none; an encdec forward runs its encoder layers and its decoder
+    layers' self- and cross-attention, a decode step the decoder's
+    two)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers + (0 if decode else cfg.encoder_layers)
     return cfg.n_layers if cfg.has_attention else 0
 
 
@@ -1365,24 +1484,28 @@ def hold_logits(got, want, hold: bool, what: str) -> float:
     return err
 
 
-def prefill_phase(torch, cfg, weights, k1, hold: bool = True):
-    """One prefill of 4 × 512 (first call): a K1 launch per attention
-    application, logits against the plain attention path (held within
-    TOL_LOGITS, or reported where ``hold`` is false)."""
+def prefill_phase(torch, cfg, weights, k1, hold: bool = True,
+                  S: int = PREFILL_S, extra=None):
+    """One prefill of 4 × S tokens (first call), with the batch's
+    ``extra`` inputs (a vlm's image, an encdec model's frames): a K1
+    launch per attention application, logits against the plain attention
+    path (held within TOL_LOGITS, or reported where ``hold`` is false).
+    Returns (record, tokens)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.train.step import make_prefill_step
     cuda = torch.device("cuda")
     gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, S),
                            generator=gen, device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens, **(extra or {})}
     prefill = make_prefill_step(cfg)
     apps = attention_apps(cfg)
     before = k1.launches
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = prefill(weights, {"tokens": tokens})
+    logits = prefill(weights, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1393,10 +1516,10 @@ def prefill_phase(torch, cfg, weights, k1, hold: bool = True):
           and bool(torch.isfinite(logits).all()), "prefill logits")
     with mock.patch.object(ops, "flash_attention",
                            _plain_attention(fa_mod)):
-        plain = prefill(weights, {"tokens": tokens})
+        plain = prefill(weights, batch)
     err = hold_logits(logits, plain, hold,
                       f"{cfg.name} prefill logits, kernel vs plain attention")
-    print(f"prefill {cfg.name}: B{PREFILL_B} S{PREFILL_S} in "
+    print(f"prefill {cfg.name}: B{PREFILL_B} S{S} in "
           f"{dt * 1e3:.3f} ms (first call), {apps} K1 launches, peak memory "
           f"{peak} B, logits vs plain attention max abs err {err}")
     return dict(first_call_ms=dt * 1e3, peak_bytes=peak,
@@ -1413,12 +1536,15 @@ def _plain_attention(fa_mod):
     return plain
 
 
-def serve_phase(torch, cfg, weights, k1, hold: bool = True):
-    """4 requests of 64 + 32 tokens: a K1 decode launch per attention
+def serve_phase(torch, cfg, weights, k1, hold: bool = True, enc_out=None,
+                prefill_extra=None):
+    """4 requests of 64 + 32 tokens (an encdec model's with the encoder's
+    output ``enc_out`` in its cache): a K1 decode launch per attention
     application and step; the logits after the prompt against a prefill
-    of it, and those of the prompt's last step and 4 decode steps against
-    the plain attention path, held within TOL_LOGITS (or reported where
-    ``hold`` is false)."""
+    of it (with ``prefill_extra`` in its batch), and those of the
+    prompt's last step and 4 decode steps against the plain attention
+    path, held within TOL_LOGITS (or reported where ``hold`` is
+    false)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.serve import generate
@@ -1440,12 +1566,12 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = generate(cfg, weights, prompts, GEN_LEN, max_len=MAX_LEN,
-                   on_step=on_step)
+                   enc_out=enc_out, on_step=on_step)
     tokens = out["tokens"].cpu()
     t_total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT_LEN + GEN_LEN
-    apps = attention_apps(cfg)
+    apps = attention_apps(cfg, decode=True)
     per_step = [b - a for a, b in zip([before] + counts[:-1], counts)]
     check(per_step == [apps] * steps,
           f"K1 launches per step {sorted(set(per_step))}, expected {apps}")
@@ -1460,7 +1586,8 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True):
     # with the capacity of SERVE_B tokens (1 slot an expert for granite)
     # and drops assignments that a prefill's capacity keeps, as the
     # reference's step does: there they are reported
-    pre = make_prefill_step(cfg)(weights, {"tokens": prompts})
+    pre = make_prefill_step(cfg)(weights, {"tokens": prompts,
+                                           **(prefill_extra or {})})
     err_pre = hold_logits(out["prompt_logits"], pre,
                           hold and cfg.family != "moe",
                           f"{cfg.name} serve logits after the prompt vs "
@@ -1470,6 +1597,8 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True):
     step_fn = make_serve_step(cfg)
     from repro_torch.models import init_cache
     cache = init_cache(cfg, SERVE_B, MAX_LEN, device=cuda)
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
     seq = torch.cat([prompts, out["tokens"][:, :4].to(cuda)], dim=1)
     err_plain = 0.0
     with mock.patch.object(ops, "flash_attention",
@@ -1806,13 +1935,13 @@ def qwen_path(torch, K, tmp):
     return launches["k1"], serve
 
 
-def k1_prefill_profile(torch, cfg, weights, tokens, k1_names):
-    """A warm prefill of 4 × 512 beside the first call: its time
-    unprofiled, then one profiled run split into K1, the matmuls and the
-    rest."""
+def k1_prefill_profile(torch, cfg, weights, tokens, k1_names, extra=None):
+    """A warm prefill of ``tokens`` (with the batch's ``extra`` inputs)
+    beside the first call: its time unprofiled, then one profiled run
+    split into K1, the matmuls and the rest."""
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **(extra or {})}
     warm_ms = cuda_time_ms(lambda: prefill(weights, batch), 5, warmup=2)
     prof_rows, wall = profiled(torch, lambda: prefill(weights, batch))
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1878,25 +2007,28 @@ def falcon_path(torch, K, tmp):
 
 
 # ------------------------------------------------------ the zamba2 path --
-def hold_attention_block(torch, p, u, positions, window, kw, what: str):
-    """One attention block at full width on input ``u``: K1's prefill
-    kernel on the block's q, k, v held against the plain version
-    (TOL_BF16), and the block through K1 against the block through the
-    plain attention (REL_APP).  Returns (the block's output through K1,
-    the kernel's max abs err, the block's relative L2 error)."""
+def hold_attention_block(torch, p, u, positions, window, kw, what: str,
+                         causal: bool = True):
+    """One attention block at full width on input ``u`` (causal, or an
+    encoder's without the mask): K1's prefill kernel on the block's q, k,
+    v held against the plain version (TOL_BF16), and the block through K1
+    against the block through the plain attention (REL_APP).  Returns (the
+    block's output through K1, the kernel's max abs err, the block's
+    relative L2 error)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     q, k, v = L._project_qkv(p, u, kw["n_heads"], kw["n_kv"],
                              kw["head_dim"], positions, kw["rope_base"],
                              kw["eps"])
+    masks = dict(causal=causal, window=window)
     core = assert_close(
-        fa_mod.flash_attention_cuda(q, k, v, window=window),
-        fa_mod.flash_attention_plain(q, k, v, window=window), TOL_BF16,
+        fa_mod.flash_attention_cuda(q, k, v, **masks),
+        fa_mod.flash_attention_plain(q, k, v, **masks), TOL_BF16,
         f"{what}: K1 vs plain on its q, k, v")
-    h = L.attention_block(p, u, window=window, **kw)
+    h = L.attention_block(p, u, **masks, **kw)
     with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
-        hp = L.attention_block(p, u, window=window, **kw)
+        hp = L.attention_block(p, u, **masks, **kw)
     r = rel_err(h, hp)
     check(r <= REL_APP, f"{what}: block through K1 vs plain attention, "
           f"relative L2 {r} > {REL_APP}")
@@ -2097,7 +2229,8 @@ def gemma_path(torch, K, tmp):
     return launches, serve
 
 
-def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
+def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True,
+                       x0=None):
     """Each layer of a dense or moe model at full width, K1 and the plain
     attention fed the same input.  The residual stream walks the layers on
     ``tokens``; at each layer the K1 prefill kernel's output on the layer's
@@ -2110,18 +2243,20 @@ def dense_layer_checks(torch, cfg, weights, tokens, decode: bool = True):
     decode step routes with another capacity than its prefill.  Beside
     them a second residual stream runs on the plain attention alone; how
     far it is from the kernel stream after each layer shows what the
-    layers make of rounding differences end to end."""
+    layers make of rounding differences end to end.  ``x0`` starts the
+    residual stream instead of the embedded tokens (a vlm's: the image
+    prefix before them)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
     eps, kw = cfg.norm_eps, LM._attn_kwargs(cfg)
     plain = _plain_attention(fa_mod)
-    B, S = tokens.shape
+    x = xq = weights["embed"][tokens] if x0 is None else x0
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     windows = LM._windows_per_layer(cfg, S)
     dec_windows = LM._windows_per_layer(cfg, MAX_LEN)
-    x = xq = weights["embed"][tokens]
     prompts = serve_prompts(torch, cfg)
     xp = weights["embed"][prompts]
     worst_core = worst_block = worst_dec = max_dec = 0.0
@@ -2404,6 +2539,243 @@ def moe_drop_shares(torch, cfg, weights, tokens, out):
                 capacity={str(n): c for n, c in caps.items()})
 
 
+# ------------------------------------------------ the whisper path --
+def seeded_embeds(torch, cfg, n: int, seed: int):
+    """(PREFILL_B, n, d_model) seeded random embeddings in the compute
+    dtype: whisper's frames or llava's patches (both models' frontends
+    are stubs, as in the reference)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((PREFILL_B, n, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def hold_cross_attention(torch, cfg, p, u, enc_out, what: str):
+    """One decoder layer's cross-attention at full width on input ``u``
+    against the encoder's output: K1's prefill kernel on its q, k, v
+    (no mask) held against the plain version (TOL_BF16), and the block
+    through K1 against the block through the plain attention (REL_APP).
+    Returns (the block's output through K1, the kernel's max abs err, the
+    block's relative L2 error)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    q = L._heads(u, p["wq"])
+    k, v = L._heads(enc_out, p["wk"]), L._heads(enc_out, p["wv"])
+    core = assert_close(
+        fa_mod.flash_attention_cuda(q, k, v, causal=False),
+        fa_mod.flash_attention_plain(q, k, v, causal=False), TOL_BF16,
+        f"{what}: K1 vs plain on its q, k, v")
+    h = LM._cross_attention(cfg, p, u, enc_out)
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        hp = LM._cross_attention(cfg, p, u, enc_out)
+    r = rel_err(h, hp)
+    check(r <= REL_APP, f"{what}: block through K1 vs plain attention, "
+          f"relative L2 {r} > {REL_APP}")
+    return h, core, r
+
+
+def hold_cross_decode(torch, cfg, p, up, enc_out, what: str):
+    """A cross-attention's PROMPT_LEN decode steps on ``up`` (K1's decode
+    kernel, one query against every frame, as a serve step runs it) held
+    against the block over all of ``up`` (REL_LAYER_DECODE).  Returns (the
+    block's output, the relative L2 error, the max abs err)."""
+    from repro_torch.models import lm as LM
+    hb = LM._cross_attention(cfg, p, up, enc_out)
+    hd = torch.cat([LM._cross_attention(cfg, p, up[:, t:t + 1], enc_out)
+                    for t in range(up.shape[1])], 1)
+    r = rel_err(hd, hb)
+    check(r <= REL_LAYER_DECODE, f"{what}: {up.shape[1]} decode steps vs "
+          f"its prefill, relative L2 {r} > {REL_LAYER_DECODE}")
+    return hb, r, max_err(hd, hb)
+
+
+def encdec_layer_checks(torch, cfg, weights, frames, tokens):
+    """Each attention of the encoder-decoder at full width, K1 and the
+    plain attention fed the same input.  The encoder's residual stream
+    walks its layers on ``frames``: each layer's attention (no mask) held
+    as a dense layer's (hold_attention_block).  The decoder's stream walks
+    its layers on ``tokens`` against the encoder's output: each layer's
+    self-attention held so, and its cross-attention by
+    hold_cross_attention.  On the prompts' stream (4 × 64, against the
+    same frames) each decoder layer's self-attention (K1's decode kernel
+    into a MAX_LEN cache) and cross-attention (the decode kernel against
+    every frame), decoded token by token, are held against their
+    prefill (REL_LAYER_DECODE)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    eps, kw = cfg.norm_eps, LM._attn_kwargs(cfg)
+    worst = dict(core=0.0, block=0.0, decode=0.0, decode_max_abs=0.0)
+
+    def held(out):
+        h, core, r = out
+        worst["core"] = max(worst["core"], core)
+        worst["block"] = max(worst["block"], r)
+        return h
+
+    def decoded(out):
+        hb, r, m = out
+        worst["decode"] = max(worst["decode"], r)
+        worst["decode_max_abs"] = max(worst["decode_max_abs"], m)
+        return hb
+
+    def positions(x):
+        B, S = x.shape[:2]
+        return torch.arange(S, device=x.device).expand(B, S)
+
+    e = frames
+    for i in range(cfg.encoder_layers):
+        lp = _layer(weights["enc_layers"], i)
+        u = L.rms_norm(e, lp["ln1"], eps)
+        e = e + held(hold_attention_block(
+            torch, lp["attn"], u, positions(u), None, kw,
+            f"encoder layer {i}", causal=False))
+        e = e + L.mlp_block(lp["mlp"], L.rms_norm(e, lp["ln2"], eps),
+                            cfg.mlp_type)
+    enc_out = L.rms_norm(e, weights["enc_norm"], eps)
+    x = weights["embed"][tokens]
+    xp = weights["embed"][serve_prompts(torch, cfg)]
+    for i in range(cfg.n_layers):
+        lp = _layer(weights["layers"], i)
+        u = L.rms_norm(x, lp["ln1"], eps)
+        x = x + held(hold_attention_block(
+            torch, lp["attn"], u, positions(u), None, kw,
+            f"decoder layer {i} self-attention"))
+        xp = xp + decoded(hold_attention_decode(
+            torch, lp["attn"], L.rms_norm(xp, lp["ln1"], eps), None, kw,
+            f"decoder layer {i} self-attention"))
+        what = f"decoder layer {i} cross-attention"
+        x = x + held(hold_cross_attention(
+            torch, cfg, lp["cross"], L.rms_norm(x, lp["ln_x"], eps), enc_out,
+            what))
+        xp = xp + decoded(hold_cross_decode(
+            torch, cfg, lp["cross"], L.rms_norm(xp, lp["ln_x"], eps),
+            enc_out, what))
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], eps),
+                            cfg.mlp_type)
+        xp = xp + L.mlp_block(lp["mlp"], L.rms_norm(xp, lp["ln2"], eps),
+                              cfg.mlp_type)
+    print(f"{cfg.name} layers: all {cfg.encoder_layers} encoder layers' "
+          f"attention (unmasked, {tuple(frames.shape[:2])}) and all "
+          f"{cfg.n_layers} decoder layers' self- and cross-attention "
+          f"({tuple(tokens.shape)} tokens) held at full width; K1 vs plain on "
+          f"each one's q, k, v max abs err {worst['core']} (tol {TOL_BF16}); "
+          f"block through K1 vs plain attention relative L2 <= "
+          f"{worst['block']} (limit {REL_APP}); {PROMPT_LEN} decode steps vs "
+          f"prefill (self- and cross-attention) relative L2 <= "
+          f"{worst['decode']} (limit {REL_LAYER_DECODE}), max abs err "
+          f"{worst['decode_max_abs']}")
+    return dict(encoder_layers=cfg.encoder_layers, layers=cfg.n_layers,
+                core_max_abs_err=worst["core"], block_rel_err=worst["block"],
+                decode_rel_err=worst["decode"],
+                decode_max_abs_err=worst["decode_max_abs"])
+
+
+def whisper_path(torch, K, tmp):
+    """whisper-medium through K1 at head dim 64, group 1, with and without
+    the causal mask: seeded frames encoded (a K1 launch an encoder layer),
+    a prefill of 4 × WHISPER_TOKENS decoder tokens on the same frames, 4
+    requests served with the encoder's output in their cache, decode held
+    against prefill; then each attention held one by one
+    (encdec_layer_checks).  Returns (K1 launches, serve record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    from repro_torch.models import encode
+    cfg = get_config(WHISPER)
+    apps, dec_apps = attention_apps(cfg), attention_apps(cfg, decode=True)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    frames = seeded_embeds(torch, cfg, cfg.max_source_len, SEED + 4)
+    extra = {"enc_embeds": frames}
+    zero_counts(K)                            # the main path starts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_out = encode(cfg, weights, frames)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    check(K["k1"].launches == cfg.encoder_layers and tuple(enc_out.shape)
+          == (PREFILL_B, cfg.max_source_len, cfg.d_model)
+          and bool(torch.isfinite(enc_out).all()),
+          f"encode: {K['k1'].launches} K1 launches, {tuple(enc_out.shape)}")
+    print(f"encode {cfg.name}: {tuple(frames.shape)} frames in "
+          f"{encode_ms:.3f} ms (first call), {cfg.encoder_layers} K1 "
+          f"launches")
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"],
+                                    S=WHISPER_TOKENS, extra=extra)
+    serve, out = serve_phase(torch, cfg, weights, K["k1"], enc_out=enc_out,
+                             prefill_extra=extra)
+    # the encoder, the prefill, the served steps and the prefill of the
+    # prompts that the served logits are held against
+    launches = check_counts(
+        K, dict(k1=cfg.encoder_layers + apps + dec_apps
+                * (PROMPT_LEN + GEN_LEN) + apps), f"the {cfg.name} path")
+    zero_counts(K)                            # the layer checks start
+    serve["layers"] = encdec_layer_checks(torch, cfg, weights, frames,
+                                          tokens)
+    # each encoder layer: the kernel alone and the block; each decoder
+    # layer's self- and cross-attention: the kernel alone, the block, and
+    # on the prompts' stream the block and its decode steps
+    check_counts(K, dict(k1=cfg.encoder_layers * 2
+                         + cfg.n_layers * 2 * (2 + 1 + PROMPT_LEN)),
+                 f"the {cfg.name} layer checks")
+    prefill.update(encode_first_call_ms=encode_ms,
+                   **k1_prefill_profile(torch, cfg, weights, tokens,
+                                        KERNEL_NAMES, extra))
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
+    return launches["k1"], serve
+
+
+# --------------------------------------------------- the llava path --
+def llava_path(torch, K, tmp):
+    """llava-next-mistral-7b through K1 at head dim 128, group 4: a
+    prefill of 4 × (LLAVA_PATCHES seeded patch embeddings, projected by
+    mm_proj, + LLAVA_TEXT tokens), 4 requests of text served (a decode
+    step never sees the image, as in the reference: the logits after the
+    prompt are held against a prefill of the prompt with an empty image),
+    then each layer held one by one on the prefill's image and text, as
+    gemma3's.  Returns (K1 launches, serve record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL_NAMES
+    cfg = get_config(LLAVA)
+    check(cfg.num_patches == LLAVA_PATCHES, f"{cfg.name}: {cfg.num_patches} "
+          f"patches")
+    apps = attention_apps(cfg)
+    free = shutil.disk_usage(tmp).free
+    check(free >= DISK_NEED, f"{tmp} has {free} B free; the {cfg.name} "
+          f"checkpoint needs about {DISK_NEED:.0f} B")
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    patches = seeded_embeds(torch, cfg, cfg.num_patches, SEED + 5)
+    extra = {"patch_embeds": patches}
+    zero_counts(K)                            # the main path starts
+    # over 4 x 3392 positions the plain version rounds p per 512-key chunk
+    # and the kernel per 64 keys; through 32 random bf16 layers the two
+    # prefills' logits part past TOL_LOGITS (0.166 max abs, relative L2
+    # 0.035, in a run of these phases alone), so they are reported and
+    # each layer held, as gemma3's; the served steps' logits, over 64 to
+    # 68 text positions, are held
+    prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"],
+                                    hold=False, S=LLAVA_TEXT, extra=extra)
+    serve, out = serve_phase(torch, cfg, weights, K["k1"], prefill_extra={
+        "patch_embeds": patches[:, :0]})
+    launches = check_counts(K, dict(k1=apps * (1 + 1 + PROMPT_LEN + GEN_LEN)),
+                            f"the {cfg.name} path")["k1"]
+    zero_counts(K)                            # the layer checks start
+    x0 = torch.cat([patches @ weights["mm_proj"], weights["embed"][tokens]],
+                   dim=1)
+    serve["layers"] = dense_layer_checks(torch, cfg, weights, tokens, x0=x0)
+    # each layer: the kernel alone and the block on the prefill's inputs,
+    # the block on the prompts' and their decode steps
+    check_counts(K, dict(k1=apps * (2 + 1 + PROMPT_LEN)),
+                 f"the {cfg.name} layer checks")
+    prefill.update(k1_prefill_profile(torch, cfg, weights, tokens,
+                                      KERNEL_NAMES, extra))
+    serve.update(checkpoint=ckpt, prefill=prefill,
+                 breakdown=decode_breakdown(torch, cfg, weights, out,
+                                            KERNEL_NAMES, "K1"))
+    return launches, serve
+
+
 # ------------------------------------------------------ the training path --
 def checksums(torch, tree):
     """An exact checksum of every leaf: the int64 sum of its bits read as
@@ -2437,6 +2809,7 @@ def train_step0_check(torch, cfg, data, required, plain=None):
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.models import init_lm, lm
+    from repro_torch.train.step import EMBEDS
     cuda = torch.device("cuda")
     params = init_lm(cfg, SEED, device=cuda)
     batch = data.sharded_batch(0, cuda)
@@ -2469,10 +2842,12 @@ def train_step0_check(torch, cfg, data, required, plain=None):
         windows.append(kw["window"])
         return got
 
+    embeds = {k: batch[k] for k in EMBEDS if k in batch}
+
     def loss_and_norms():
         leaves = [p.requires_grad_() for _, p in named]
         loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
-                          loss_chunk=TRAIN_CHUNK)
+                          loss_chunk=TRAIN_CHUNK, **embeds)
         grads = torch.autograd.grad(loss, leaves)
         norms = torch.stack([g.float().norm() for g in grads]).tolist()
         return loss.item(), norms
@@ -2652,9 +3027,78 @@ def train_group_check(torch, cfg, K):
     return dict(out_rel_err=r_out, grad_rel_err=rels)
 
 
-def train_run(torch, cfg, loop, opt, spies, hooks, B, S):
-    """One ``repro_torch.train.loop.train`` call on the card, B x S tokens
-    a step, with the checkpoint manager's snapshot, background write and
+def training_data(torch, cfg, B, S):
+    """A training path's batches: the synthetic tokens, B x S a step, and
+    for an encdec or vlm model seeded random frame or patch embeddings
+    made on the card for each step (its frontend is a stub, and the
+    token pipeline, as the reference's, yields tokens alone)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                          seed=SEED)
+    extra = {"encdec": ("enc_embeds", cfg.max_source_len),
+             "vlm": ("patch_embeds", cfg.num_patches)}.get(cfg.family)
+    if extra is None:
+        return SyntheticTokens(data_cfg)
+    key, n = extra
+
+    class WithEmbeds(SyntheticTokens):
+        def sharded_batch(self, step, device):
+            batch = super().sharded_batch(step, device)
+            gen = torch.Generator(device=device).manual_seed(
+                SEED * 1000 + step)
+            batch[key] = torch.randn((B, n, cfg.d_model), generator=gen,
+                                     device=device)
+            return batch
+    return WithEmbeds(data_cfg)
+
+
+def train_flops(cfg, B, S):
+    """One training step's FLOPs (forward and backward, no remat) on B
+    sequences of S tokens, and the formula's text.  Attention counts
+    6 H D per (query, key) pair of a causal layer, whose pairs are half of
+    S^2, and 12 H D per pair of an unmasked one.  An encdec step runs its
+    encoder (and its decoder's cross-attention keys and values) over the
+    frames, the rest of the decoder over the tokens; a vlm step runs its
+    layers over the image and the text, mm_proj over the image and the
+    head over the text alone."""
+    H, D, L = cfg.n_heads, cfg.head_dim_, cfg.n_layers
+    if cfg.family not in ("encdec", "vlm"):
+        return (B * S * (6 * cfg.active_param_count()
+                         + 6 * attention_apps(cfg) * H * D * S),
+                "(6 N + 6 A H D S) x tokens, N the active parameters (an "
+                "MoE token's top-k experts, not the capacity buffers' "
+                "slack), A the attention applications a step (the layers "
+                "of a dense or MoE model, a hybrid's groups, none in "
+                "Mamba1)")
+    from repro_torch.models import init_lm, param_bytes
+    meta = init_lm(cfg, device="meta")
+
+    def n(tree):   # parameters of a subtree (f32 leaves)
+        return param_bytes(tree) // 4
+    if cfg.family == "vlm":
+        P = cfg.num_patches
+        return (B * (6 * n(meta["layers"]) * (P + S)
+                     + 6 * n(meta["mm_proj"]) * P + 6 * n(meta["lm_head"]) * S
+                     + 6 * L * H * D * (P + S) ** 2),
+                "B (6 N_layers (P + S) + 6 N_mm_proj P + 6 N_head S + 6 L H "
+                "D (P + S)^2), P image positions, S text tokens (the "
+                "embedding gather not counted)")
+    F = cfg.max_source_len
+    cross = meta["layers"]["cross"]
+    n_enc = (n(meta["enc_layers"]) + n(meta["enc_norm"]) + n(cross["wk"])
+             + n(cross["wv"]))
+    return (B * (6 * n_enc * F + 6 * (n(meta) - n_enc) * S
+                 + 12 * cfg.encoder_layers * H * D * F * F
+                 + 6 * L * H * D * S * S + 12 * L * H * D * S * F),
+            "B (6 N_enc F + 6 N_dec S + 12 L_enc H D F^2 + 6 L H D S^2 + 12 "
+            "L H D S F), F frames, S tokens, N_enc the encoder's and the "
+            "cross-attention's key and value projections, N_dec the rest "
+            "(the tied embedding as the head)")
+
+
+def train_run(torch, cfg, loop, opt, spies, hooks, data):
+    """One ``repro_torch.train.loop.train`` call on the card, on ``data``'s
+    batches, with the checkpoint manager's snapshot, background write and
     restore timed."""
     from repro_torch.checkpoint import manager as mgr_mod
     from repro_torch.train.loop import train
@@ -2691,8 +3135,7 @@ def train_run(torch, cfg, loop, opt, spies, hooks, B, S):
                               write), \
             mock.patch.object(mgr_mod.CheckpointManager, "restore_or_init",
                               restore_or_init):
-        return train(cfg, loop, opt, seq_len=S, global_batch=B, hooks=hooks,
-                     device="cuda")
+        return train(cfg, loop, opt, data=data, hooks=hooks, device="cuda")
 
 
 def train_profile(torch, cfg, state, opt, data, parts, split=None):
@@ -2751,7 +3194,6 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     (train_layer_check, train_group_check).  Returns (launches of each
     kernel on the path, record)."""
     import statistics
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import TrainLoopConfig
     # f32 master weights and two f32 moments: 12 B a parameter in a state
@@ -2760,8 +3202,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     free = shutil.disk_usage(tmp).free
     check(free >= need, f"{tmp} has {free} B free; two state checkpoints "
           f"of {cfg.name} ({cfg.n_layers} layers) need about {need:.0f} B")
-    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=S,
-                                      global_batch=B, seed=SEED))
+    data = training_data(torch, cfg, B, S)
     rec = dict(layers=cfg.n_layers)
     if part_check is not None:
         phase(f"{cfg.name} {part_check.__name__}")
@@ -2796,7 +3237,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     zero_counts(K)                                   # the main path starts
     died = False
     try:
-        train_run(torch, cfg, loop, opt, spies, hooks, B, S)
+        train_run(torch, cfg, loop, opt, spies, hooks, data)
     except SystemExit as e:
         died = str(e) == f"injected failure at step {TRAIN_DIE_AT}"
     check(died, f"run 1 did not die at step {TRAIN_DIE_AT}")
@@ -2805,7 +3246,8 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
           f"run 1 left {run1_files}")
     phase(f"{cfg.name} run 2")
-    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step), B, S)
+    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step),
+                    data)
     want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in K}
     launches = check_counts(K, want, f"the {cfg.name} training path")  # ends
     peak = torch.cuda.max_memory_allocated()
@@ -2840,21 +3282,15 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     step_s = statistics.median(steps[i][1] for i in range(1, TRAIN_STEPS))
     tokens = B * S
     n_params = cfg.active_param_count()   # param_count() outside moe
-    flops_per_token = 6 * n_params + 6 * attention_apps(cfg) * cfg.n_heads \
-        * cfg.head_dim_ * S
-    mfu = flops_per_token * tokens / step_s / PEAK_BF16_FLOPS
+    flops, formula = train_flops(cfg, B, S)
+    mfu = flops / step_s / PEAK_BF16_FLOPS
     state_bytes = spies["file_bytes"][0]
     snap_s, write_s = spies["snapshot_s"], spies["write_s"]
     rec.update(
         losses=losses, step_s=[steps[i][1] for i in range(TRAIN_STEPS)],
         step_median_s=step_s, tokens_per_s=tokens / step_s, train_mfu=mfu,
-        mfu_formula="(6 N + 6 A H D S) x tokens / step time / 989e12, N "
-                    "the active parameters (an MoE token's top-k experts, "
-                    "not the capacity buffers' slack), A the attention "
-                    "applications a step (the layers of a dense or MoE "
-                    "model, a hybrid's groups, none in Mamba1), no remat "
-                    "counted",
-        batch=B, seq_len=S,
+        mfu_formula=f"{formula} / step time / 989e12, no remat counted",
+        train_flops=flops, batch=B, seq_len=S,
         params=n_params, launches_per_step=per_step,
         snapshot_s=snap_s, write_s=write_s, file_bytes=spies["file_bytes"],
         write_mb_s=[b / s / 1e6 for b, s in zip(spies["file_bytes"],
@@ -3019,8 +3455,20 @@ def main(argv=None) -> int:
                   f"{torch.cuda.memory_allocated()} B")
             phase(f"{GRANITE} serve path")
             granite_launches, granite_serve = granite_path(torch, K, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # granite's weights are gone
+            print(f"device memory allocated before {WHISPER}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            phase(f"{WHISPER} serve path")
+            whisper_launches, whisper_serve = whisper_path(torch, K, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()   # whisper's weights are gone
+            print(f"device memory allocated before {LLAVA}: "
+                  f"{torch.cuda.memory_allocated()} B")
+            phase(f"{LLAVA} serve path")
+            llava_launches, llava_serve = llava_path(torch, K, tmp)
         gc.collect()
-        torch.cuda.empty_cache()   # granite's weights are gone
+        torch.cuda.empty_cache()   # llava's weights are gone
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
         phase(f"{QWEN} training path ({QWEN_TRAIN_LAYERS} layers)")
@@ -3107,6 +3555,48 @@ def main(argv=None) -> int:
             + [f"layers/moe/{part}" for part in
                ("router", "w_gate", "w_up", "w_down")],
             plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS)
+        whisper = get_config(WHISPER)
+        check(not os.listdir(tmp), f"{tmp} holds {os.listdir(tmp)} before "
+              f"training {WHISPER}")
+        print(f"device memory allocated before training {WHISPER}: "
+              f"{torch.cuda.memory_allocated()} B; {tmp} has "
+              f"{shutil.disk_usage(tmp).free} B free")
+        phase(f"{WHISPER} training path ({whisper.encoder_layers} + "
+              f"{whisper.n_layers} layers, {TRAIN_B} x ({WHISPER_FRAMES} "
+              f"frames + {WHISPER_TOKENS} tokens))")
+        A = attention_apps(whisper)
+        # K1's forward twice a call (the forward and the remat recompute
+        # of its layer), its backward's kernels once: each encoder layer's
+        # attention, each decoder layer's self- and cross-attention
+        whisper_train_launches, whisper_trained = train_path(
+            torch, whisper, K,
+            dict(k1=2 * A, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * A),
+            {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
+            tmp, required=[f"{stack}/{part}" for stack in
+                           ("enc_layers/attn", "layers/attn", "layers/cross")
+                           for part in ("wq", "wk", "wv", "wo")]
+            + ["enc_norm", "layers/ln_x"],
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS,
+            S=WHISPER_TOKENS)
+        llava = dataclasses.replace(get_config(LLAVA),
+                                    n_layers=LLAVA_TRAIN_LAYERS)
+        check(not os.listdir(tmp), f"{tmp} holds {os.listdir(tmp)} before "
+              f"training {LLAVA}")
+        print(f"device memory allocated before training {LLAVA}: "
+              f"{torch.cuda.memory_allocated()} B; {tmp} has "
+              f"{shutil.disk_usage(tmp).free} B free")
+        phase(f"{LLAVA} training path ({LLAVA_TRAIN_LAYERS} layers, "
+              f"{LLAVA_TRAIN_B} x ({LLAVA_PATCHES} + {LLAVA_TRAIN_TEXT}) "
+              f"positions)")
+        L = llava.n_layers
+        llava_train_launches, llava_trained = train_path(
+            torch, llava, K,
+            dict(k1=2 * L, k1_bwd=fa.BWD_LAUNCHES_PER_CALL * L),
+            {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
+            tmp, required=["mm_proj", "lm_head"]
+            + [f"layers/attn/{part}" for part in ("wq", "wk", "wv", "wo")],
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS,
+            B=LLAVA_TRAIN_B, S=LLAVA_TRAIN_TEXT)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3118,27 +3608,30 @@ def main(argv=None) -> int:
     zamba_serve["train"] = zamba_trained
     gemma_serve["train"] = gemma_trained
     granite_serve["train"] = granite_trained
+    whisper_serve["train"] = whisper_trained
+    llava_serve["train"] = llava_trained
+    trained = (qwen_train_launches, zamba_train_launches,
+               gemma_train_launches, granite_train_launches,
+               whisper_train_launches, llava_train_launches)
     kernels = [
         kernel_entry("flash_attention", fa.SOURCE,
                      "src/repro/kernels/flash_attention.py:82",
                      fa.KERNEL_NAMES,
                      k1_launches + zamba_launches + gemma_launches
-                     + granite_launches + qwen_train_launches["k1"]
-                     + zamba_train_launches["k1"]
-                     + gemma_train_launches["k1"]
-                     + granite_train_launches["k1"],
+                     + granite_launches + whisper_launches + llava_launches
+                     + sum(t["k1"] for t in trained),
                      k1_records, {QWEN: qwen_serve, ZAMBA: zamba_serve,
                                   GEMMA: gemma_serve,
-                                  GRANITE: granite_serve}),
+                                  GRANITE: granite_serve,
+                                  WHISPER: whisper_serve,
+                                  LLAVA: llava_serve}),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,
-                     qwen_train_launches["k1_bwd"]
-                     + zamba_train_launches["k1_bwd"]
-                     + gemma_train_launches["k1_bwd"]
-                     + granite_train_launches["k1_bwd"], bwd_records,
+                     sum(t["k1_bwd"] for t in trained), bwd_records,
                      {QWEN: qwen_train, ZAMBA: zamba_trained,
-                      GEMMA: gemma_trained, GRANITE: granite_trained},
+                      GEMMA: gemma_trained, GRANITE: granite_trained,
+                      WHISPER: whisper_trained, LLAVA: llava_trained},
                      extra=[f"{part}_ms" for part in BWD_PARTS]),
         kernel_entry("ssm_scan", ss.SOURCE,
                      "src/repro/kernels/ssm_scan.py:45", ss.KERNEL_NAMES,

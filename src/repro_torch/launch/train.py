@@ -5,8 +5,12 @@
 Runs the fault-tolerant loop with scda checkpointing on one device: the
 GPU, unless ``--device cpu`` is given.  Every arch of the dense, moe, ssm
 and hybrid families trains (``--arch granite-moe-3b-a800m`` adds its
-layers' load-balance loss at the reference's weight, 0.01).  ``--data-par`` and ``--model-par``
-other than 1 raise :class:`NotImplementedError`: the port has no mesh yet.
+layers' load-balance loss at the reference's weight, 0.01).  The encdec
+and vlm families are refused: they train on frame or patch embeddings
+that the synthetic token pipeline does not yield (nor does the
+reference's); ``train.loop.train`` trains them from a data source that
+adds those inputs.  ``--data-par`` and ``--model-par`` other than 1 raise
+:class:`NotImplementedError`: the port has no mesh yet.
 """
 from __future__ import annotations
 
@@ -50,6 +54,13 @@ def main(argv: Optional[List[str]] = None) -> None:
             f"port trains on one device until the distributed slice")
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = get_config(args.arch)
+    missing = {"encdec": "enc_embeds (the encoder's frame embeddings)",
+               "vlm": "patch_embeds (the image's patch embeddings)"}
+    if cfg.family in missing:
+        ap.error(f"--arch {args.arch}: the {cfg.family} family trains on "
+                 f"{missing[cfg.family]}, which the synthetic token "
+                 f"pipeline does not yield; call train.loop.train with a "
+                 f"data source that adds them")
     if args.smoke:
         cfg = smoke(cfg)
     loop = TrainLoopConfig(

@@ -1,6 +1,6 @@
 """The language model: init, prefill forward, cached decode and the
-training loss — the port of the dense, moe, ssm (Mamba1 and Mamba2) and
-hybrid branches of ``repro/models/lm.py``.
+training loss — the port of ``repro/models/lm.py``: the dense, moe, ssm
+(Mamba1 and Mamba2), hybrid, encdec and vlm families.
 
 Parameters are the reference's nested dict with layers *stacked* on a
 leading axis (``params["layers"]["attn"]["wq"]`` is ``(n_layers, d_model,
@@ -30,7 +30,16 @@ forward's aux, which :func:`lm_loss` adds with ``aux_weight``.  A decode
 step routes its B tokens with the capacity of B tokens, so it may drop
 assignments that a prefill of the same tokens keeps, as in the reference.
 
-The encdec and vlm families raise :class:`NotImplementedError`.
+The encdec family (whisper) runs an encoder of dense layers without the
+causal mask over frame embeddings (:func:`encode`), then decoder layers
+that add cross-attention to the encoder's output between their
+self-attention and their MLP.  A serving caller encodes once and writes
+``cache["enc_out"]``; each decode step recomputes the cross-attention's
+keys and values from it, as the reference does.  The vlm family (llava)
+is the dense one with an image prefix: patch embeddings projected by
+``mm_proj`` are put before the text, and the loss covers the text alone.
+A decode step never sees the image, as in the reference: its cache holds
+text positions only.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.runtime import resolve_device
@@ -51,12 +61,13 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported yet (dense, "
-        f"moe, ssm and hybrid only)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (takes "
+                         f"{FAMILIES})")
 
 
 def _groups(cfg: ModelConfig) -> int:
@@ -108,20 +119,40 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                                          cfg.qk_norm, dtype=dtype),
             }
         return p
-    p["layers"] = {
-        "ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
-        "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.head_dim_, cfg.qk_norm,
-                                 **kw),
-        "ln2": L.init_rms_norm(cfg.d_model, device=dev, **kw),
-    }
+    if cfg.family == "encdec":
+        p["enc_layers"] = _init_layers(cfg, gen, dev, cfg.encoder_layers,
+                                       dtype)
+        p["enc_norm"] = L.init_rms_norm(cfg.d_model, device=dev, dtype=dtype)
+    p["layers"] = _init_layers(cfg, gen, dev, n, dtype,
+                               cross=cfg.family == "encdec")
+    if cfg.family == "vlm":
+        p["mm_proj"] = L._init(gen, (cfg.d_model, cfg.d_model), dtype=dtype)
+    return p
+
+
+def _init_layers(cfg: ModelConfig, gen, dev, n: int, dtype,
+                 cross: bool = False) -> Params:
+    """``n`` stacked attention layers: norms, self-attention, (with
+    ``cross``, a norm and the cross-attention of a decoder layer,) and the
+    MLP or, in the moe family, the MoE block."""
+    kw = dict(stack=n, dtype=dtype)
+
+    def attention():
+        return L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim_, cfg.qk_norm,
+                                **kw)
+
+    p = {"ln1": L.init_rms_norm(cfg.d_model, device=dev, **kw),
+         "attn": attention()}
+    if cross:
+        p["ln_x"] = L.init_rms_norm(cfg.d_model, device=dev, **kw)
+        p["cross"] = attention()
+    p["ln2"] = L.init_rms_norm(cfg.d_model, device=dev, **kw)
     if cfg.family == "moe":
-        p["layers"]["moe"] = L.init_moe(gen, cfg.d_model, cfg.d_ff,
-                                        cfg.n_experts, cfg.mlp_type,
-                                        cfg.shared_expert, **kw)
+        p["moe"] = L.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                              cfg.mlp_type, cfg.shared_expert, **kw)
     else:
-        p["layers"]["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                        cfg.mlp_type, **kw)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
     return p
 
 
@@ -180,10 +211,13 @@ def _ffn(cfg: ModelConfig, lp: Params, h):
 
 
 def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
-           kv_chunk: int, dtype: Optional[torch.dtype] = None):
+           kv_chunk: int, dtype: Optional[torch.dtype] = None,
+           causal: bool = True, enc_out: Optional[torch.Tensor] = None):
     """One layer's residual update of ``x``: (x, the layer's MoE aux loss,
     or None outside the moe family).  With ``dtype`` the layer's weights
-    are cast to it first (the training path's per-layer cast)."""
+    are cast to it first (the training path's per-layer cast).  An
+    encoder layer attends with ``causal=False``; a decoder layer of the
+    encdec family attends to ``enc_out`` after its self-attention."""
     if dtype is not None:
         lp = cast_params(lp, dtype)
     eps = cfg.norm_eps
@@ -191,10 +225,25 @@ def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
         return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
                                  cfg), None
     h = L.rms_norm(x, lp["ln1"], eps)
-    x = x + L.attention_block(lp["attn"], h, window=window,
+    x = x + L.attention_block(lp["attn"], h, causal=causal, window=window,
                               kv_chunk=kv_chunk, **_attn_kwargs(cfg))
+    if enc_out is not None:
+        x = x + _cross_attention(cfg, lp["cross"],
+                                 L.rms_norm(x, lp["ln_x"], eps), enc_out)
     h, aux = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))
     return x + h, aux
+
+
+def _cross_attention(cfg: ModelConfig, p: Params, x, enc_out):
+    """Decoder-to-encoder attention: queries from ``x``, keys and values
+    from ``enc_out``, no causal mask, no RoPE and no qk-norm (the
+    reference's ``_cross_attention``).  The keys and values are computed
+    from ``enc_out`` in every call, a decode step's too."""
+    q = L._heads(x, p["wq"])
+    k = L._heads(enc_out, p["wk"])
+    v = L._heads(enc_out, p["wv"])
+    out = ops.flash_attention(q, k, v, causal=False)
+    return L._output_proj(p, out, cfg.n_heads, x.shape[-1])
 
 
 def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
@@ -208,12 +257,42 @@ def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
                                  **_attn_kwargs(cfg))
 
 
+def encode(cfg: ModelConfig, params: Params, enc_embeds,
+           kv_chunk: int = 512, remat: bool = False) -> torch.Tensor:
+    """The encdec family's encoder: frame embeddings (B, S_src, d) through
+    the encoder layers (self-attention without the causal mask, then the
+    MLP) and ``enc_norm`` → (B, S_src, d) in the compute dtype.  A serving
+    caller writes its output into ``cache["enc_out"]``.  ``remat`` as in
+    :func:`forward_hidden`, each encoder layer a checkpointed body."""
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: the encdec family needs encoder "
+                         f"embeddings (enc_embeds)")
+    dtype = compute_dtype(cfg)
+    if not remat:
+        _check_dtype(params, dtype)
+    e = enc_embeds.to(dtype)
+    for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
+        if remat:
+            e, _ = checkpoint(_layer, cfg, lp, e, None, kv_chunk, dtype,
+                              False, use_reentrant=False)
+        else:
+            e, _ = _layer(cfg, lp, e, None, kv_chunk, causal=False)
+    return L.rms_norm(e, params["enc_norm"].to(dtype), cfg.norm_eps)
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,
-                   kv_chunk: int = 512, remat: bool = False) \
+                   patch_embeds=None, enc_embeds=None, kv_chunk: int = 512,
+                   remat: bool = False) \
         -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token ids (B, S) → final hidden states (B, S, d). Returns (hidden,
-    moe_aux): the sum of the moe layers' load-balance losses, f32, 0 in
-    the other families.
+    """Token ids (B, S) → final hidden states (B, S, d), or (B, P + S, d)
+    in the vlm family. Returns (hidden, moe_aux): the sum of the moe
+    layers' load-balance losses, f32, 0 in the other families.
+
+    The vlm family needs ``patch_embeds`` (B, P, d): projected by
+    ``mm_proj``, they are put before the text, and RoPE positions run over
+    the whole sequence.  The encdec family needs ``enc_embeds`` (B, S_src,
+    d): :func:`encode` runs first, and every decoder layer attends to its
+    output.
 
     ``remat=False`` (serving) takes weights already cast to the compute
     dtype.  ``remat=True`` (training) takes master weights of any float
@@ -222,13 +301,22 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     ``torch.utils.checkpoint``, so the backward pass recomputes a layer's
     internals instead of keeping them (the reference's remat'd scan).  A
     hybrid model's body is a whole group, as the reference remats its
-    group scan; its shared attention weights are cast once, outside.
+    group scan; its shared attention weights are cast once, outside.  An
+    encdec model's bodies are its encoder layers and its decoder layers.
     """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     if not remat:
         _check_dtype(params, dtype)
     x = params["embed"][tokens].to(dtype)
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name}: the vlm family needs patch "
+                             f"embeddings (patch_embeds)")
+        prefix = patch_embeds.to(dtype) @ params["mm_proj"].to(dtype)
+        x = torch.cat([prefix, x], dim=1)
+    enc_out = (encode(cfg, params, enc_embeds, kv_chunk, remat)
+               if cfg.family == "encdec" else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family == "hybrid":
@@ -247,9 +335,9 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
             window = None if windows is None else windows[i]
             if remat:
                 x, a = checkpoint(_layer, cfg, lp, x, window, kv_chunk,
-                                  dtype, use_reentrant=False)
+                                  dtype, True, enc_out, use_reentrant=False)
             else:
-                x, a = _layer(cfg, lp, x, window, kv_chunk)
+                x, a = _layer(cfg, lp, x, window, kv_chunk, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
     x = L.rms_norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
@@ -280,18 +368,24 @@ def _chunk_loss(h, w, y):
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
             loss_chunk: int = 256, aux_weight: float = 0.01,
-            remat: bool = True):
+            remat: bool = True, patch_embeds=None, enc_embeds=None,
+            kv_chunk: int = 512):
     """Mean next-token cross entropy of ``labels`` (B, S) (integer ids)
     given ``tokens`` (B, S), from master weights (see
     :func:`forward_hidden`'s ``remat``), plus ``aux_weight`` times the
     MoE layers' summed load-balance loss (0 outside the moe family).
+    ``patch_embeds`` and ``enc_embeds`` go to :func:`forward_hidden`; a
+    vlm model's image prefix carries no loss.
 
     The head runs over ``loss_chunk``-token slices of the sequence, each
     under ``torch.utils.checkpoint``, so the (B, S, vocab) f32 logits never
     exist whole: a chunk's are recomputed in the backward pass.  The
     unembedding is cast to the compute dtype once per call.
     """
-    hidden, aux = forward_hidden(cfg, params, tokens, remat=remat)
+    hidden, aux = forward_hidden(cfg, params, tokens, patch_embeds,
+                                 enc_embeds, kv_chunk, remat)
+    if cfg.family == "vlm":
+        hidden = hidden[:, -tokens.shape[1]:]
     B, S, _ = hidden.shape
     n = max(1, S // loss_chunk)
     chunk = S // n
@@ -320,7 +414,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     (L, B, K-1, d_inner) in the compute dtype (ssm; its size does not
     depend on ``max_len``).  A hybrid model has both: the SSM state of its
     layers and a KV cache of ``max_len`` for each of its G shared-attention
-    applications, (G, B, max_len, Hkv, D)."""
+    applications, (G, B, max_len, Hkv, D).  An encdec model also holds
+    ``enc_out`` (B, max_source_len, d) in the compute dtype, zeros until
+    the caller writes :func:`encode`'s output there."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
@@ -334,6 +430,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
     cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
     cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family == "encdec":
+        cache["enc_out"] = torch.zeros((batch, cfg.max_source_len,
+                                        cfg.d_model), dtype=dtype, device=dev)
     return cache
 
 
@@ -346,6 +445,8 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     each ssm layer copies its new h and conv window over its slice of the
     stacked ``cache["ssm"]``.  ``cache["pos"]`` is replaced by ``pos + 1``
     on the device.  Nothing in the step reads a device value on the host.
+    An encdec decoder layer attends to ``cache["enc_out"]`` after its
+    self-attention; a vlm step is a dense one (it never sees the image).
     """
     _check_family(cfg)
     dtype = compute_dtype(cfg)
@@ -408,6 +509,7 @@ def _dense_decode_layers(cfg: ModelConfig, params: Params, cache: Params,
     pos = cache["pos"]
     pos_index = pos.reshape(1).long()
     windows = _windows_per_layer(cfg, cache["k"].shape[2])
+    enc_out = cache.get("enc_out")
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h = L.rms_norm(x, lp["ln1"], eps)
         h, _, _ = L.attention_decode(
@@ -415,6 +517,9 @@ def _dense_decode_layers(cfg: ModelConfig, params: Params, cache: Params,
             window=None if windows is None else windows[i],
             pos_index=pos_index, **_attn_kwargs(cfg))
         x = x + h
+        if enc_out is not None:
+            x = x + _cross_attention(cfg, lp["cross"],
+                                     L.rms_norm(x, lp["ln_x"], eps), enc_out)
         h, _ = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))   # aux dropped
         x = x + h
     return x
@@ -427,6 +532,6 @@ def param_bytes(params: Params) -> int:
     return params.numel() * params.element_size()
 
 
-__all__ = ["compute_dtype", "init_lm", "cast_params", "forward_hidden",
-           "unembed", "forward", "lm_loss", "init_cache", "serve_step",
-           "param_bytes"]
+__all__ = ["FAMILIES", "compute_dtype", "init_lm", "cast_params",
+           "encode", "forward_hidden", "unembed", "forward", "lm_loss",
+           "init_cache", "serve_step", "param_bytes"]

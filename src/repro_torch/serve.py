@@ -1,17 +1,23 @@
 """Batched serving: restore weights from an scda checkpoint, decode tokens.
 
-The port of ``examples/serve_decode.py`` on the dense, moe, ssm and
-hybrid families: the weights are saved with :func:`repro_torch.checkpoint.save`,
-restored with ``restore(like=)`` onto the serving device (cast once to the
-compute dtype), and a batch of requests is fed token by token through
+The port of ``examples/serve_decode.py`` on every family: the weights are
+saved with :func:`repro_torch.checkpoint.save`, restored with
+``restore(like=)`` onto the serving device (cast once to the compute
+dtype), and a batch of requests is fed token by token through
 ``serve_step``, then decoded greedily.  Token ids, the cache position and
 the argmax stay on the device: the loop reads nothing back until it ends.
+An encdec model (whisper) first encodes seeded random frame embeddings
+(its audio frontend is a stub, as in the reference) into
+``cache["enc_out"]``; a vlm model (llava) serves text, as the
+reference's ``serve_step`` does.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch qwen3-1.7b]
       (``--arch falcon-mamba-7b`` serves the Mamba1 model, ``--arch
       zamba2-2.7b`` the hybrid of Mamba2 layers and shared attention,
-      ``--arch granite-moe-3b-a800m`` the MoE model of 40 experts, top-8;
-      ``--device cpu --smoke`` runs the reduced config on the host)
+      ``--arch granite-moe-3b-a800m`` the MoE model of 40 experts, top-8,
+      ``--arch whisper-medium`` the encoder-decoder, ``--arch
+      llava-next-mistral-7b`` the VLM's text decoder; ``--device cpu
+      --smoke`` runs the reduced config on the host)
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_config, smoke
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cast_params, compute_dtype, init_cache, init_lm
+from repro_torch.models import (cast_params, compute_dtype, encode,
+                                init_cache, init_lm)
 from repro_torch.runtime import resolve_device
 from repro_torch.train.step import make_serve_step
 
@@ -40,11 +47,13 @@ def load_weights(cfg: ModelConfig, path: str, like, *, device="cuda"):
 
 
 def generate(cfg: ModelConfig, params, prompts: torch.Tensor, gen_len: int,
-             *, max_len: int,
+             *, max_len: int, enc_out: Optional[torch.Tensor] = None,
              on_step: Optional[Callable[[int, torch.Tensor], None]] = None) \
         -> Dict[str, object]:
     """Feed ``prompts`` (B, P) token by token through ``serve_step``, then
-    decode ``gen_len`` tokens greedily.
+    decode ``gen_len`` tokens greedily.  An encdec model takes the
+    encoder's output ``enc_out`` (B, max_source_len, d; :func:`encode`),
+    which every decode step's cross-attention reads from the cache.
 
     Returns ``{"tokens": (B, gen_len) int32, "prompt_logits": logits after
     the last prompt token, "cache": the cache}``.  ``on_step(i, logits)``
@@ -56,6 +65,11 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor, gen_len: int,
         raise ValueError(f"prompt {prompt_len} + {gen_len} new tokens do "
                          f"not fit a cache of {max_len}")
     cache = init_cache(cfg, batch, max_len, device=prompts.device)
+    if (enc_out is None) != (cfg.family != "encdec"):
+        raise ValueError(f"{cfg.name}: enc_out is for the encdec family's "
+                         f"decoder, and that family needs it")
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
     logits = None
     for i in range(prompt_len):
         logits, cache = step_fn(params, cache, prompts[:, i:i + 1])
@@ -108,8 +122,13 @@ def main(argv=None) -> Dict[str, object]:
                             generator=gen, device=dev, dtype=torch.int32)
     t0 = time.perf_counter()
     with torch.inference_mode():
+        enc_out = None
+        if cfg.family == "encdec":   # the audio frontend is a stub
+            frames = torch.randn((args.batch, cfg.max_source_len,
+                                  cfg.d_model), generator=gen, device=dev)
+            enc_out = encode(cfg, weights, frames)
         out = generate(cfg, weights, prompts, args.gen_len,
-                       max_len=args.max_len)
+                       max_len=args.max_len, enc_out=enc_out)
     tokens = out["tokens"].cpu()  # the loop's one host read
     dt = time.perf_counter() - t0
     total = args.batch * (args.prompt_len + args.gen_len)

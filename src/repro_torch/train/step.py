@@ -7,7 +7,9 @@ with the sequence-chunked loss head and, in the moe family, the
 load-balance aux loss at ``lm_loss``'s default weight, as the reference's
 step; unlike the reference's pure step it updates ``params`` and
 ``opt_state`` in place (AdamW in place, gradients freed as they are used)
-and returns the same objects.
+and returns the same objects.  Every builder passes a batch's
+``patch_embeds`` and ``enc_embeds`` on to the model, as the reference's
+do.
 """
 from __future__ import annotations
 
@@ -20,6 +22,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
+#: Batch keys beside tokens and labels that go to the model: the vlm
+#: family's image prefix and the encdec family's encoder input.
+EMBEDS = ("patch_embeds", "enc_embeds")
+
+
+def _embeds(batch):
+    return {k: batch[k] for k in EMBEDS if k in batch}
+
 
 def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
                     loss_chunk: int = 256,
@@ -30,7 +40,7 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
         named, rebuild = flatten_named(params)
         leaves = [p.requires_grad_(True) for _, p in named]
         loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
-                          loss_chunk=loss_chunk)
+                          loss_chunk=loss_chunk, **_embeds(batch))
         grads = rebuild(list(torch.autograd.grad(loss, leaves)))
         if grad_transform is not None:
             grads = grad_transform(grads)
@@ -46,7 +56,7 @@ def make_eval_step(cfg: ModelConfig, loss_chunk: int = 256):
     def step(params, batch):
         with torch.no_grad():
             return lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
-                              loss_chunk=loss_chunk)
+                              loss_chunk=loss_chunk, **_embeds(batch))
     return step
 
 
@@ -54,7 +64,8 @@ def make_prefill_step(cfg: ModelConfig):
     """Full-sequence forward (prompt ingestion): tokens → last-token
     logits, in the compute dtype."""
     def step(params, batch):
-        hidden, _ = lm.forward_hidden(cfg, params, batch["tokens"])
+        hidden, _ = lm.forward_hidden(cfg, params, batch["tokens"],
+                                      **_embeds(batch))
         return lm.unembed(cfg, params, hidden[:, -1:, :])[:, 0, :]
     return step
 

@@ -1,8 +1,9 @@
 """The port on the card: the K1 kernels (prefill and split-KV decode, and
 the backward) and the K2 kernels (the unfused scan, the fused scan and its
 backward) against their plain versions, the smoke models (qwen3,
-falcon-mamba, zamba2, gemma3, granite-moe) on CUDA against the same models
-on the CPU, the five training paths (loss, gradients, kill and resume),
+falcon-mamba, zamba2, gemma3, granite-moe, whisper, llava) on CUDA against
+the same models on the CPU, their training paths (loss, gradients; kill
+and resume for the first five),
 and checkpoint round trips of CUDA tensors.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
@@ -93,6 +94,29 @@ def test_kernel_matches_plain(cuda, dtype, B, H, Hkv, Sq, Skv, D, causal,
                                  q_offset=off)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq", [(1, 1500), (1, 448), (2, 1)])
+def test_kernel_at_whispers_unmasked_shapes(cuda, dtype, B, Sq):
+    """whisper's attention without the causal mask, shrunk in batch, at
+    its 16 / 16 heads of 64 over its 1500 source frames (the last 64-key
+    tile or split ragged, 28 keys): the encoder's 1500 → 1500, the
+    cross-attention's 448 → 1500 in a prefill and 1 → 1500 in a decode
+    step, the query offset a host int as the model passes it."""
+    rng = np.random.default_rng(Sq)
+    q = _rand(rng, (B, Sq, 16, 64), dtype, cuda)
+    k = _rand(rng, (B, 1500, 16, 64), dtype, cuda)
+    v = _rand(rng, (B, 1500, 16, 64), dtype, cuda)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if Sq == 1:
+        want = flash_attention_split_plain(q, k, v, causal=False)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -499,6 +523,9 @@ BWD_CASES = [  # B, H, Hkv, Sq, Skv, D, causal, window, q_offset
     (2, 8, 4, 129, 257, 256, True, None, 128),   # head dim 256, q_offset
     (1, 8, 4, 4096, 4096, 256, True, 1024, 0),   # gemma3's training length, window
     (1, 24, 8, 140, 140, 64, True, None, 0),     # granite's heads, group 3
+    (1, 16, 16, 448, 1500, 64, False, None, 0),  # whisper's cross-attention
+    (1, 16, 16, 1500, 1500, 64, False, None, 0),  # whisper's encoder
+    (1, 32, 8, 300, 300, 128, True, None, 0),    # llava's heads, group 4
 ]
 
 
@@ -729,6 +756,117 @@ def test_gemma_smoke_loss_and_gradients_at_head_dim_256_on_cuda_match_cpu(
         out.append((loss.item(), [g.cpu() for g in grads], names))
     (lc, gc, names), (lg, gg, _) = out
     assert abs(lc - lg) <= 1e-5
+    for name, a, b in zip(names, gg, gc):
+        assert b.norm() > 0, name
+        torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
+
+
+def _whisper_smoke():
+    """whisper's smoke config at its own heads shrunk (2 / 2 heads of 64,
+    group 1) over 23 source frames: the last key tile ragged in the
+    encoder and in the cross-attention."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    return dataclasses.replace(smoke(get_config("whisper-medium")),
+                               n_heads=2, n_kv_heads=2, head_dim=64,
+                               max_source_len=23)
+
+
+def _llava_smoke():
+    """llava's smoke config at its head dim and group (4 / 1 heads of
+    128, group 4), with its 8 patch embeddings."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke
+    return dataclasses.replace(smoke(get_config("llava-next-mistral-7b")),
+                               n_heads=4, n_kv_heads=1, head_dim=128)
+
+
+def _embeds(cfg, B=2, seed=7):
+    """The family's other input from a numpy seed (CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        shape, key = (B, cfg.max_source_len, cfg.d_model), "enc_embeds"
+    else:
+        shape, key = (B, cfg.num_patches, cfg.d_model), "patch_embeds"
+    return {key: torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32))}
+
+
+@pytest.mark.parametrize("make", [_whisper_smoke, _llava_smoke])
+def test_encdec_and_vlm_smoke_on_cuda_match_cpu(cuda, make):
+    """The whisper and llava smoke models on the card against the CPU in
+    f32: the forward (whisper: K1 in each encoder layer and twice in each
+    decoder layer, self- and cross-attention; llava: once a layer over the
+    image and the text) and 8 decode steps (whisper's decode kernel twice
+    a layer, the cross-attention's against the cached encoder output;
+    llava's once a layer), every launch counted."""
+    from repro_torch.models import (encode, forward, init_cache, init_lm,
+                                    serve_step)
+    cfg = make()
+    encdec = cfg.family == "encdec"
+    cpu = init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, cuda)
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    kw = _embeds(cfg)
+    want = forward(cfg, cpu, tok, **kw)
+    before = flash_attention_cuda.launches
+    got = forward(cfg, gpu, tok.to(cuda),
+                  **{k: v.to(cuda) for k, v in kw.items()})
+    per_forward = (cfg.encoder_layers + 2 * cfg.n_layers if encdec
+                   else cfg.n_layers)
+    assert flash_attention_cuda.launches - before == per_forward
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    c_cpu = init_cache(cfg, 2, 16, device="cpu")
+    c_gpu = init_cache(cfg, 2, 16, device=cuda)
+    if encdec:
+        before = flash_attention_cuda.launches
+        enc = encode(cfg, gpu, kw["enc_embeds"].to(cuda))
+        assert flash_attention_cuda.launches - before == cfg.encoder_layers
+        c_gpu["enc_out"].copy_(enc)
+        c_cpu["enc_out"].copy_(encode(cfg, cpu, kw["enc_embeds"]))
+    for i in range(8):
+        before = flash_attention_cuda.launches
+        lc, c_cpu = serve_step(cfg, cpu, c_cpu, tok[:, i:i + 1])
+        lg, c_gpu = serve_step(cfg, gpu, c_gpu, tok[:, i:i + 1].to(cuda))
+        assert flash_attention_cuda.launches - before == \
+            (2 if encdec else 1) * cfg.n_layers
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("make", [_whisper_smoke, _llava_smoke])
+def test_encdec_and_vlm_smoke_loss_and_gradients_on_cuda_match_cpu(cuda,
+                                                                   make):
+    """lm_loss and every leaf's gradient of the whisper and llava smoke
+    models through K1's forward (twice a call: remat) and its backward
+    (whisper's without the causal mask in the encoder and the
+    cross-attention, 32 positions against 23 frames; llava's over the
+    image and the text), against the same on the CPU."""
+    from repro_torch.models import init_lm, lm_loss
+    cfg = make()
+    calls = (cfg.encoder_layers + 2 * cfg.n_layers
+             if cfg.family == "encdec" else cfg.n_layers)
+    tok, lab = _smoke_batch(cfg)
+    kw = _embeds(cfg)
+    out = []
+    for device in ("cpu", cuda):
+        params = _to(init_lm(cfg, 0, device="cpu"), device)
+        names = sorted(_leaf_names(params))
+        leaves = [_get(params, n).requires_grad_() for n in names]
+        f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+        loss = lm_loss(cfg, params, tok.to(device), lab.to(device),
+                       loss_chunk=16,
+                       **{k: v.to(device) for k, v in kw.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        if device == cuda:
+            assert flash_attention_cuda.launches - f0 == 2 * calls
+            assert flash_attention_bwd_cuda.launches - b0 == \
+                BWD_LAUNCHES_PER_CALL * calls
+        out.append((loss.item(), [g.cpu() for g in grads], names))
+    (lc, gc, names), (lg, gg, _) = out
+    assert abs(lc - lg) <= 1e-5
+    assert ("layers/cross/wk" if cfg.family == "encdec" else "mm_proj") \
+        in names
     for name, a, b in zip(names, gg, gc):
         assert b.norm() > 0, name
         torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)

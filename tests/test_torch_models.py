@@ -2,7 +2,10 @@
 configs (f32, CPU): the same weights (JAX ``init_lm`` → numpy →
 ``params_from_numpy``) and the same token ids give the same logits
 within 1e-4, for the full forward, for cached decode steps and for the
-prefill step."""
+prefill step.  Every arch of the registry, each family, passes the port
+of ``tests/test_archs.py``'s three checks."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,6 +19,8 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 
+from repro_torch.checkpoint.pytree_io import flatten_named  # noqa: E402
+from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs import smoke as tsmoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -133,11 +138,13 @@ def test_weights_are_cast_once():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "whisper-medium",
+                                  "llava-next-mistral-7b"])
 def test_init_lm_is_seeded_and_shaped_like_the_reference(arch):
     """The tree's keys and shapes are the reference's (an moe model's
-    stacked experts and llama4-scout's shared expert too), and a seed
-    gives the same weights twice."""
+    stacked experts and llama4-scout's shared expert, whisper's encoder
+    and cross-attention, llava's mm_proj too), and a seed gives the same
+    weights twice."""
     cfg = smoke(get_config(arch))
     tcfg = tsmoke(tget(arch))
     a = tlm.init_lm(tcfg, 3, device="cpu")
@@ -151,9 +158,82 @@ def test_init_lm_is_seeded_and_shaped_like_the_reference(arch):
     assert torch.equal(a["layers"]["attn"]["wq"], b["layers"]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
-def test_other_families_not_ported(arch):
-    """Families not ported yet (encdec, vlm) raise."""
-    cfg = tsmoke(tget(arch))
-    with pytest.raises(NotImplementedError):
-        tlm.init_lm(cfg, 0, device="cpu")
+# ------------------------------------------- every arch (tests/test_archs.py) --
+ARCHS = sorted(REGISTRY)
+
+
+def _inputs(tcfg, S, seed=0):
+    """Tokens (B, S) and the family's other inputs, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, tcfg.vocab, (B, S))
+                           .astype(np.int32))
+    kw = {}
+    if tcfg.family == "vlm":
+        kw["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, tcfg.num_patches, tcfg.d_model)).astype(np.float32))
+    if tcfg.family == "encdec":
+        kw["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, tcfg.max_source_len, tcfg.d_model)).astype(np.float32))
+    return tok, kw
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_forward_shapes_and_finite(arch):
+    """The port of tests/test_archs.py's forward check: every arch's smoke
+    config gives finite logits of the right shape (a vlm's over its image
+    prefix and its text)."""
+    tcfg = tsmoke(tget(arch))
+    params = tlm.init_lm(tcfg, 0, device="cpu")
+    tok, kw = _inputs(tcfg, 16)
+    with torch.no_grad():
+        logits = tlm.forward(tcfg, params, tok, **kw)
+    S_out = 16 + (tcfg.num_patches if tcfg.family == "vlm" else 0)
+    assert tuple(logits.shape) == (B, S_out, tcfg.vocab)
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_train_gradient_step(arch):
+    """The port of tests/test_archs.py's gradient check: a finite loss
+    near a uniform guess's, finite gradients, a nonzero gradient norm."""
+    tcfg = tsmoke(tget(arch))
+    params = tlm.init_lm(tcfg, 0, device="cpu")
+    tok, kw = _inputs(tcfg, 16, seed=1)
+    labels = torch.roll(tok, -1, dims=1)
+    named = flatten_named(params)[0]
+    leaves = [p.requires_grad_() for _, p in named]
+    loss = tlm.lm_loss(tcfg, params, tok, labels, loss_chunk=8, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    assert 0.0 < loss.item() < 3 * np.log(tcfg.vocab)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert sum(g.square().sum() for g in grads).item() > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_arch_decode_steps(arch):
+    """The port of tests/test_archs.py's decode check: 3 greedy steps give
+    finite logits and advance the position (an encdec model's cache holds
+    random encoder output, as the reference's check fills it)."""
+    tcfg = tsmoke(tget(arch))
+    params = tlm.init_lm(tcfg, 0, device="cpu")
+    cache = tlm.init_cache(tcfg, B, 32, device="cpu")
+    if tcfg.family == "encdec":
+        cache["enc_out"].copy_(torch.randn(cache["enc_out"].shape,
+                                           generator=torch.Generator()
+                                           .manual_seed(0)))
+    tok = torch.zeros((B, 1), dtype=torch.int32)
+    with torch.inference_mode():
+        for i in range(3):
+            logits, cache = tlm.serve_step(tcfg, params, cache, tok)
+            assert tuple(logits.shape) == (B, tcfg.vocab)
+            assert torch.isfinite(logits).all()
+            assert int(cache["pos"]) == i + 1
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+
+
+def test_every_family_is_ported():
+    families = {tget(arch).family for arch in ARCHS}
+    assert families == set(tlm.FAMILIES)
+    with pytest.raises(ValueError, match="unknown family"):
+        tlm.init_lm(dataclasses.replace(tsmoke(tget(ARCHS[0])),
+                                        family="rnn"), 0, device="cpu")

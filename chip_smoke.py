@@ -17,7 +17,13 @@ prompt, then 32 greedy tokens).
 - qwen3-1.7b (28 layers, d_model 2048, vocab 151 936) through K1, flash
   attention: its prefill kernel in every prefill layer, its split-KV
   decode kernel in every decode step; a warm prefill is timed after the
-  path;
+  path.  Before it, its weights are also saved as a sharded scda set of 4
+  shards and 2 parity files with chunk digests: restored onto the card
+  bit-equal, restored again through the parity after two data shards are
+  deleted, those two rebuilt to their original SHA-256; then the
+  attention weights of 2 of the 28 layers are changed on the card and
+  saved as a delta of the set, whose stored chunks must be the 1 MiB
+  chunks that changed, and the chain restored bit-equal;
 - falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
   16, vocab 65 024; 14.0 GB of weights) through the fused K2 selective
   scan, which every prefill layer launches and no decode step does; then
@@ -61,11 +67,17 @@ prompt, then 32 greedy tokens).
 
 Then seven models train at full width (8192 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
-after step 3's save, run 2 resumes bit-exactly.  All but whisper are cut
+after step 3's save, run 2 resumes bit-exactly.  All are cut
 in depth (``*_TRAIN_LAYERS``) to keep the run's time well under its limit
 and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 6 of its 28
-layers, trains through K1's forward and its backward (8 x 1024 tokens);
-falcon-mamba-7b, cut to 4 of its 64 layers, through the fused K2 forward
+layers, trains through K1's forward and its backward (8 x 1024 tokens),
+saving its state through the reference launcher's knobs
+(REPRO_SCDA_SHARDS=4, REPRO_SCDA_PARITY=2, REPRO_SCDA_DELTA=1): step 3's
+set loses a data shard after run 1, ``restore_latest`` reconstructs it
+onto the card with run 1's checksums, the shard is rebuilt byte for
+byte, and run 2's step-5 save is a sharded delta over step 3's set,
+restored through its chain with run 2's checksums;
+falcon-mamba-7b, cut to 2 of its 64 layers, through the fused K2 forward
 and K2's backward kernel; zamba2-2.7b, cut to 6 of its 54 layers (one
 group), through K1's forward and its
 backward at head dim 80 in its shared-attention application
@@ -79,10 +91,11 @@ and gradient norm against the plain attention); granite-moe-3b-a800m, cut
 to 16 of its 32 layers, through K1's forward and its
 backward at head dim 64, group 3, and its MoE layers through autograd of
 plain torch (the loss with the reference's load-balance term);
-whisper-medium, at its full depth, on 8 x (1500 frames + 448 tokens),
+whisper-medium, cut to 6 of its 24 encoder and 6 of its 24 decoder
+layers, on 8 x (1500 frames + 448 tokens),
 through K1's forward and its backward without the causal mask in its
 encoder and cross-attention, from a data source that adds seeded frame
-embeddings to the tokens; llava-next-mistral-7b, cut to 4 of its 32
+embeddings to the tokens; llava-next-mistral-7b, cut to 2 of its 32
 layers, on 2 x (2880 patch embeddings + 1024 tokens), the loss over the
 text alone.  The backward kernels are timed at each training shape and in
 a profiled training step.
@@ -92,10 +105,11 @@ read just after.  Every phase asserts; any failure exits non-zero.  The
 line before the last is a JSON object with each kernel's launches, error
 and times; the last line is ``{"ok": true, "device": {...}}``.  No
 fallback: without a GPU, or outside a checkout, it exits non-zero and
-prints no result.  Needs about 52 GB free in the temporary directory
-(falcon-mamba's training state, twice, while its final save commits;
-gemma3's and zamba2's each need about 48 GB, granite's 45 GB, llava's
-31 GB).
+prints no result.  Needs about 45 GB free in the temporary directory
+(granite-moe's training state, twice, while its final save commits;
+gemma3's needs 33 GB, qwen3's two parity-protected sets 24 GB, llava's
+18 GB; each path checks its own need first; qwen3's weights' set, 5.3
+GB, and its delta are deleted before its serve path goes on).
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
 """
@@ -237,7 +251,12 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: qwen3 14, falcon 8, zamba2 12 and granite 16 layers 701.5 s, and
 #: whisper's and llava's serve and train paths take about 210 s more, so
 #: the earlier paths are cut again (qwen3 6 layers: 613,182,976
-#: parameters; falcon 4: 687,591,424; zamba2 6, one group: 347,465,120).  granite keeps its 16: at 8 layers its step
+#: parameters; falcon 4: 687,591,424; zamba2 6, one group: 347,465,120).
+#: qwen3's weights as a set and its training state as sets and deltas
+#: (SET_KNOBS) took the run from 928.1 to 1053.2 s to "done" on an H100,
+#: so falcon is cut to 2 layers (476,938,240), whisper to 6 + 6
+#: (229,270,528) and llava to 2 (698,351,616): 825.6 s.  granite keeps
+#: its 16: at 8 layers its step
 #: 0's gradient norm through K1 lay 0.066 from the plain attention's
 #: (4.932 vs 4.866), past TOL_TRAIN, where routing flips on near ties
 #: part the two paths (at 16, 8.238 vs 8.162, within it).  The disk bounds
@@ -248,7 +267,7 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
 QWEN_TRAIN_LAYERS = 6
-FALCON_TRAIN_LAYERS = 4
+FALCON_TRAIN_LAYERS = 2
 #: zamba2's cut is in whole groups (1 of its 9, so 1 shared-attention
 #: application).  Its device memory fits at 54 layers (a 53.6 GB peak).
 ZAMBA_TRAIN_LAYERS = 6
@@ -262,14 +281,15 @@ GEMMA_TRAIN_B, GEMMA_TRAIN_S = 2, 4096
 #: layers; at 16, 20.2 GB (its state on the card 27.0 GB at 16 B a
 #: parameter).
 GRANITE_TRAIN_LAYERS = 16
-#: whisper-medium trains at its full depth (24 encoder and 24 decoder
-#: layers, 757,877,760 parameters: a 9.1 GB state file) on TRAIN_B x
-#: (WHISPER_FRAMES frames + WHISPER_TOKENS tokens) a step.
+#: whisper-medium trains WHISPER_TRAIN_LAYERS of its 24 encoder and of its
+#: 24 decoder layers (a 2.75 GB state file; 9.1 GB at its full depth) on
+#: TRAIN_B x (WHISPER_FRAMES frames + WHISPER_TOKENS tokens) a step.
+WHISPER_TRAIN_LAYERS = 6
 #: llava-next-mistral-7b trains LLAVA_TRAIN_LAYERS of its 32 layers on
 #: LLAVA_TRAIN_B x (LLAVA_PATCHES image positions + LLAVA_TRAIN_TEXT text
-#: tokens) a step, the loss over the text (its state file at 4 layers,
-#: 1,151,373,312 parameters, 13.8 GB; at 32 layers 87.1 GB).
-LLAVA_TRAIN_LAYERS = 4
+#: tokens) a step, the loss over the text (its state file at 2 layers,
+#: 698,351,616 parameters, 8.4 GB; at 4, 13.8 GB; at 32 layers 87.1 GB).
+LLAVA_TRAIN_LAYERS = 2
 LLAVA_TRAIN_B, LLAVA_TRAIN_TEXT = 2, 1024
 #: One falcon layer at the training shape, kernel path against plain path
 #: on the same inputs: its bf16 output as REL_LAYER_PLAIN, its bf16
@@ -292,6 +312,19 @@ GROUP_F32_RATIO = 1.1
 #: version's rounding of p per 512-key chunk against the kernel's per 64
 #: keys).
 TOL_TRAIN = dict(rtol=1e-2, atol=1e-2)
+#: qwen3-1.7b's weights and its training state as parity-protected scda
+#: sets of SET_SHARDS data shards and SET_PARITY parity files.  The
+#: weights' set loses the data shards SET_LOST, restores through the
+#: parity and has them rebuilt; then the attention weights of DELTA_LAYERS
+#: change, as a deploy of partly retrained weights would, and are saved as
+#: a delta of the set.  The training path takes the layout through the
+#: reference launcher's knobs, SET_KNOBS, and loses data shard
+#: SET_LOST[0] of its step-3 set before run 2.
+SET_SHARDS, SET_PARITY = 4, 2
+SET_LOST = (1, 3)
+DELTA_LAYERS = (5, 17)
+SET_KNOBS = {"REPRO_SCDA_SHARDS": str(SET_SHARDS),
+             "REPRO_SCDA_PARITY": str(SET_PARITY), "REPRO_SCDA_DELTA": "1"}
 
 
 _START = time.perf_counter()
@@ -1427,24 +1460,7 @@ def checkpoint_phase(torch, cfg, tmp):
     torch.cuda.synchronize()
     t_restore = time.perf_counter() - t0
     check(step == 1000, f"restored step {step}")
-
-    def leaves(tree, prefix=""):
-        for k_, v_ in sorted(tree.items()):
-            if isinstance(v_, dict):
-                yield from leaves(v_, f"{prefix}{k_}/")
-            else:
-                yield f"{prefix}{k_}", v_
-
-    got = dict(leaves(weights))
-    n = 0
-    for name, want in leaves(params):
-        t = got[name]
-        check(t.device.type == "cuda" and t.dtype == want.dtype
-              and t.shape == want.shape, f"leaf {name}: {t.dtype} "
-              f"{tuple(t.shape)} on {t.device}")
-        check(torch.equal(t.view(torch.int16), want.view(torch.int16)),
-              f"leaf {name} is not bit-equal after restore")
-        n += 1
+    n = hold_leaves(torch, weights, params, "the restore")
     os.remove(path)
     print(f"checkpoint {cfg.name}: {n} leaves bit-equal, {nbytes} B of "
           f"weights, file {size} B, save {size / t_save / 1e6:.1f} MB/s "
@@ -1454,6 +1470,341 @@ def checkpoint_phase(torch, cfg, tmp):
     return weights, dict(weight_bytes=nbytes, file_bytes=size,
                          save_mb_s=size / t_save / 1e6,
                          restore_mb_s=size / t_restore / 1e6)
+
+
+def sha256_file(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        while True:
+            block = fh.read(1 << 24)
+            if not block:
+                return h.hexdigest()
+            h.update(block)
+
+
+def set_files(path: str):
+    """(data shard paths, parity file paths) of the set at ``path``."""
+    from repro_torch.checkpoint.sharding import read_sharded_manifest
+    doc = read_sharded_manifest(path)
+    d = os.path.dirname(path)
+    return ([os.path.join(d, s["file"]) for s in doc["shards"]],
+            [os.path.join(d, p["file"])
+             for p in (doc.get("parity") or {}).get("files", [])])
+
+
+def ckpt_bytes(path: str) -> int:
+    """A checkpoint's bytes on disk: a flat file's, or a set's manifest,
+    data shards and parity files together."""
+    from repro_torch.checkpoint import manifest, read_manifest
+    if read_manifest(path).get("format") != manifest.SHARDED_FORMAT:
+        return os.path.getsize(path)
+    data, parity = set_files(path)
+    return sum(os.path.getsize(p) for p in [path] + data + parity)
+
+
+def changed_chunks(torch, old, new, chunk: int):
+    """The indices of the ``chunk``-byte chunks whose bytes differ between
+    two tensors of one shape and dtype, compared on the card."""
+    a = old.reshape(-1).view(torch.uint8)
+    b = new.reshape(-1).view(torch.uint8)
+    full = a.numel() // chunk
+    out = (a[:full * chunk].view(full, chunk)
+           != b[:full * chunk].view(full, chunk)).any(dim=1)
+    idx = out.nonzero().flatten().tolist()
+    if a.numel() > full * chunk and not torch.equal(a[full * chunk:],
+                                                    b[full * chunk:]):
+        idx.append(full)
+    return idx
+
+
+def hold_leaves(torch, got, want, what: str) -> int:
+    """Every tensor leaf of ``got`` on the card and bit-equal to
+    ``want``'s; returns the number of leaves."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    g, w = flatten_named(got)[0], flatten_named(want)[0]
+    check([n for n, _ in g] == [n for n, _ in w], f"{what}: leaf names")
+    for (name, a), (_, b) in zip(g, w):
+        check(a.device.type == "cuda" and a.dtype == b.dtype
+              and a.shape == b.shape, f"{what}: leaf {name} {a.dtype} "
+              f"{tuple(a.shape)} on {a.device}")
+        check(torch.equal(a.reshape(-1).view(torch.uint8),
+                          b.reshape(-1).view(torch.uint8)),
+              f"{what}: leaf {name} is not bit-equal")
+    return len(w)
+
+
+class _Spy:
+    """Wraps ``owner.name`` while active: records each call's seconds and
+    its positional arguments."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.calls = []
+
+    def __enter__(self):
+        real = getattr(self.owner, self.name)
+
+        def spy(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            self.calls.append((time.perf_counter() - t0, args))
+            return out
+        self._patch = mock.patch.object(self.owner, self.name, spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def weights_set_phase(torch, cfg, weights, tmp):
+    """qwen3's weights (on the card, bit-equal to the saved ones) as a set
+    of SET_SHARDS shards and SET_PARITY parity files with chunk digests:
+    restored onto the card; restored again, through the parity, after the
+    data shards SET_LOST are deleted; those rebuilt to their original
+    SHA-256; then the attention weights of DELTA_LAYERS changed on the card
+    by a seeded update and saved as a delta of the set, whose stored chunks
+    must be the 1 MiB chunks that changed, and the chain restored."""
+    from repro_torch.checkpoint import layout, redundancy, restore, save
+    from repro_torch.checkpoint import sharding
+    from repro_torch.checkpoint.pytree_io import (DEFAULT_CHUNK_BYTES,
+                                                  flatten_named)
+    from repro_torch.models import param_bytes
+    cuda = torch.device("cuda")
+    nbytes = param_bytes(weights)
+    d = os.path.join(tmp, "weights-set")
+    os.makedirs(d)
+    path = os.path.join(d, f"{cfg.name}.scda")
+    rec = dict(shards=SET_SHARDS, parity=SET_PARITY, weight_bytes=nbytes)
+
+    with _Spy(redundancy, "write_parity_files") as parity_spy:
+        t0 = time.perf_counter()
+        save(path, weights, step=1000, shards=SET_SHARDS, parity=SET_PARITY,
+             record_hashes=True)
+        t_save = time.perf_counter() - t0
+    data, parity = set_files(path)
+    data_b = sum(os.path.getsize(p) for p in data)
+    parity_b = sum(os.path.getsize(p) for p in parity)
+    set_b = data_b + parity_b + os.path.getsize(path)
+    t_parity = sum(s for s, _ in parity_spy.calls)
+    rec.update(set_bytes=set_b, parity_bytes=parity_b,
+               parity_share=parity_b / set_b, save_s=t_save,
+               save_mb_s=set_b / t_save / 1e6, parity_s=t_parity,
+               parity_mb_s=data_b / t_parity / 1e6)
+
+    def timed_restore(p, like):
+        t0 = time.perf_counter()
+        got, step = restore(p, like=like, device=cuda)
+        torch.cuda.synchronize()
+        return got, step, time.perf_counter() - t0
+
+    got, step, t = timed_restore(path, weights)
+    check(step == 1000, f"the set restored step {step}")
+    n = hold_leaves(torch, got, weights, "the set's restore")
+    del got
+    rec.update(restore_s=t, restore_mb_s=nbytes / t / 1e6)
+
+    lost = [data[k] for k in SET_LOST]
+    digests = {p: sha256_file(p) for p in lost}
+    for p in lost:
+        os.remove(p)
+    health = redundancy.set_health(path)
+    check(health[0] == "degraded-recoverable" and sorted(health[1])
+          == sorted(map(os.path.basename, lost)), f"set health {health}")
+    with _Spy(redundancy, "degraded_reader") as degraded:
+        got, step, t = timed_restore(path, weights)
+    rebuilt_from = sorted({args[2] for _, args in degraded.calls})
+    check(rebuilt_from == sorted(map(os.path.basename, lost)),
+          f"the degraded restore reconstructed {rebuilt_from}")
+    hold_leaves(torch, got, weights, "the degraded restore")
+    del got
+    rec.update(degraded_restore_s=t, degraded_restore_mb_s=nbytes / t / 1e6)
+
+    doc = sharding.read_sharded_manifest(path)
+    rec["rebuild_s"] = []
+    for p in lost:
+        t0 = time.perf_counter()
+        redundancy.rebuild_shard(path, doc, os.path.basename(p))
+        rec["rebuild_s"].append(time.perf_counter() - t0)
+        check(sha256_file(p) == digests[p],
+              f"rebuilt {os.path.basename(p)} differs from the lost file")
+    check(redundancy.set_health(path)[0] == "clean", "the rebuilt set")
+    rec["rebuild_mb_s"] = [os.path.getsize(p) / s / 1e6
+                           for p, s in zip(lost, rec["rebuild_s"])]
+
+    # a partial retrain: the attention weights of two layers move
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 24)
+    attn = dict(weights["layers"]["attn"])
+    for part in ("wq", "wk", "wv", "wo"):
+        t_ = attn[part].clone()
+        for layer in DELTA_LAYERS:
+            noise = torch.randn(t_[layer].shape, generator=gen, device=cuda)
+            t_[layer] = (t_[layer].float() + 0.01 * noise).to(t_.dtype)
+        attn[part] = t_
+    new = dict(weights, layers=dict(weights["layers"], attn=attn))
+    cb = DEFAULT_CHUNK_BYTES
+    want = {name: changed_chunks(torch, a, b, cb) for (name, a), (_, b) in
+            zip(flatten_named(weights)[0], flatten_named(new)[0])}
+    dpath = os.path.join(d, f"{cfg.name}-delta.scda")
+    t0 = time.perf_counter()
+    ddoc = save(dpath, new, step=1001, shards=SET_SHARDS, parity=SET_PARITY,
+                delta_base=(sharding.load_set(path), os.path.basename(path)))
+    t_delta = time.perf_counter() - t0
+    stored = {leaf["name"]: leaf["present"]
+              for sd in ddoc["shard_docs"] for leaf in sd["leaves"]}
+    check(stored == want, "the delta's stored chunks are not the changed "
+          "ones: " + ", ".join(f"{k} {stored.get(k)} vs {v}"
+                               for k, v in want.items()
+                               if stored.get(k) != v)[:400])
+    sizes = {leaf["name"]: layout.chunk_sizes(leaf["nbytes"], cb)
+             for sd in ddoc["shard_docs"] for leaf in sd["leaves"]}
+    stored_b = sum(sizes[k][c] for k, cs in stored.items() for c in cs)
+    got, step, t = timed_restore(dpath, new)
+    check(step == 1001, f"the delta restored step {step}")
+    hold_leaves(torch, got, new, "the delta's chained restore")
+    del got, new, attn
+    rec.update(delta_s=t_delta, delta_mb_s=nbytes / t_delta / 1e6,
+               delta_chunks=sum(map(len, stored.values())),
+               delta_stored_bytes=stored_b, delta_stored_share=stored_b
+               / nbytes, delta_set_bytes=ckpt_bytes(dpath),
+               chain_restore_s=t, chain_restore_mb_s=nbytes / t / 1e6)
+    shutil.rmtree(d)
+    print(f"checkpoint set {cfg.name}: {n} leaves, {SET_SHARDS} shards + "
+          f"{SET_PARITY} parity, {set_b} B (parity {parity_b} B, share "
+          f"{rec['parity_share']:.4f}); save with digests "
+          f"{rec['save_mb_s']:.1f} MB/s ({t_save:.3f} s, the parity pass "
+          f"{t_parity:.3f} s, {rec['parity_mb_s']:.1f} MB/s of shards); "
+          f"restore {rec['restore_mb_s']:.1f} MB/s ({rec['restore_s']:.3f} "
+          f"s); without {len(lost)} data shards, degraded restore "
+          f"{rec['degraded_restore_mb_s']:.1f} MB/s "
+          f"({rec['degraded_restore_s']:.3f} s), bit-equal; rebuilt at "
+          f"{[round(x, 1) for x in rec['rebuild_mb_s']]} MB/s "
+          f"({[round(x, 3) for x in rec['rebuild_s']]} s), SHA-256 equal")
+    print(f"checkpoint delta {cfg.name}: attention of layers {DELTA_LAYERS} "
+          f"changed; {rec['delta_chunks']} chunks stored, the changed ones "
+          f"({stored_b} B, stored share {rec['delta_stored_share']:.6f}; the "
+          f"delta set {rec['delta_set_bytes']} B); save {t_delta:.3f} s "
+          f"({rec['delta_mb_s']:.1f} MB/s of weights); chained restore "
+          f"{rec['chain_restore_mb_s']:.1f} MB/s ({t:.3f} s), bit-equal")
+    return rec
+
+
+def lost_shard_check(torch, cfg, ckpt_dir, want_sums):
+    """Run 1's step-3 set loses data shard SET_LOST[0] (moved aside):
+    ``restore_latest`` onto the card must reconstruct it through the
+    parity and give run 1's checksums; then the shard is rebuilt, byte for
+    byte the file moved aside."""
+    import filecmp
+    from repro_torch.checkpoint import redundancy, sharding
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.train.loop import init_state
+    path = os.path.join(ckpt_dir, f"step_{TRAIN_DIE_AT:010d}.scda")
+    doc = sharding.read_sharded_manifest(path)
+    check(len(doc["shards"]) == SET_SHARDS
+          and (doc.get("parity") or {}).get("m") == SET_PARITY,
+          f"step {TRAIN_DIE_AT} was saved as {len(doc['shards'])} shards, "
+          f"parity {doc.get('parity')}")
+    name = doc["shards"][SET_LOST[0]]["file"]
+    lost = os.path.join(ckpt_dir, name)
+    aside = os.path.join(os.path.dirname(ckpt_dir), name + ".moved")
+    os.replace(lost, aside)
+    with _Spy(redundancy, "degraded_reader") as degraded:
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(ckpt_dir, keep=1)
+        tree, step = mgr.restore_latest(like=init_state(cfg, SEED, "meta"),
+                                        device="cuda")
+        mgr.close()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    check(step == TRAIN_DIE_AT and {args[2] for _, args in degraded.calls}
+          == {name}, f"restore_latest gave step {step}, reconstructing "
+          f"{[args[2] for _, args in degraded.calls]}")
+    check(checksums(torch, tree) == want_sums,
+          "the degraded restore is not bit-equal to step 3's state")
+    state_b = sum(t.numel() * t.element_size()
+                  for _, t in flatten_named(tree)[0])
+    del tree
+    t0 = time.perf_counter()
+    redundancy.rebuild_shard(path, doc, name)
+    t_rebuild = time.perf_counter() - t0
+    check(filecmp.cmp(lost, aside, shallow=False),
+          f"the rebuilt {name} differs from the lost file")
+    size = os.path.getsize(aside)
+    os.remove(aside)
+    rec = dict(lost=name, degraded_restore_s=t_restore,
+               degraded_restore_mb_s=state_b / t_restore / 1e6,
+               rebuild_s=t_rebuild, rebuild_mb_s=size / t_rebuild / 1e6)
+    print(f"train {cfg.name} set: without {name}, restore_latest through "
+          f"the parity {t_restore:.3f} s ({rec['degraded_restore_mb_s']:.1f} "
+          f"MB/s), checksums equal to run 1's; rebuilt {size} B in "
+          f"{t_rebuild:.3f} s ({rec['rebuild_mb_s']:.1f} MB/s), byte-"
+          f"identical")
+    return rec
+
+
+def delta_chain_check(torch, cfg, ckpt_dir, final_state):
+    """Run 2's step-5 save: a set whose shards are deltas of depth 1
+    planned over step 3's set, each chunk stored or referenced into step
+    3's shards; retention (keep=1) keeps step 3's set exactly when a chunk
+    is referenced; and a restore through the chain gives run 2's final
+    checksums."""
+    from repro_torch.checkpoint import layout, sharding
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train.loop import init_state
+    path = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS - 1:010d}.scda")
+    doc = sharding.load_set(path)
+    bases = {b["file"] for sd in doc["shard_docs"]
+             for b in (sd.get("delta") or {}).get("bases", [])}
+    depth = sharding.chain_depth(doc)
+    step3 = f"step_{TRAIN_DIE_AT:010d}"
+    names = set(os.listdir(ckpt_dir))
+    kept = sorted(n for n in names if n.startswith(step3))
+    check(depth == 1 and all(sharding.is_shard_name(b) is not None
+                             and b.startswith(step3) for b in bases),
+          f"step {TRAIN_STEPS - 1}: depth {depth}, bases {sorted(bases)}")
+    if bases:
+        base_files = {os.path.basename(p) for p in sum(set_files(
+            os.path.join(ckpt_dir, f"{step3}.scda")), [])}
+        check(bases <= base_files and base_files <= names,
+              f"retention dropped step {TRAIN_DIE_AT}'s set, which step "
+              f"{TRAIN_STEPS - 1} references: {sorted(names)}")
+    else:
+        check(not kept, f"step {TRAIN_DIE_AT}'s set was kept, though no "
+              f"chunk of step {TRAIN_STEPS - 1} references it: {kept}")
+    total = stored = 0
+    for sd in doc["shard_docs"]:
+        for leaf in sd["leaves"]:
+            sizes = layout.chunk_sizes(leaf["nbytes"],
+                                       leaf["chunks"]["bytes"])
+            total += leaf["nbytes"]
+            stored += sum(sizes[c] for c in leaf["present"])
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    tree, step = mgr.restore(TRAIN_STEPS - 1,
+                             like=init_state(cfg, SEED, "meta"),
+                             device="cuda")
+    mgr.close()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    check(step == TRAIN_STEPS - 1
+          and checksums(torch, tree) == checksums(torch, final_state),
+          "the chained restore is not bit-equal to run 2's final state")
+    del tree
+    rec = dict(depth=depth, bases=sorted(bases), stored_bytes=stored,
+               state_bytes=total, stored_share=stored / total,
+               set_bytes=ckpt_bytes(path), base_kept=bool(kept),
+               chain_restore_s=t, chain_restore_mb_s=total / t / 1e6)
+    print(f"train {cfg.name} set: step {TRAIN_STEPS - 1} is a delta of "
+          f"depth {depth} planned over step {TRAIN_DIE_AT}'s set, "
+          f"referencing {sorted(bases) or 'none of its chunks'}; stored "
+          f"{stored} of {total} B (share {stored / total:.6f}), its set "
+          f"{rec['set_bytes']} B; step {TRAIN_DIE_AT}'s set "
+          f"{'kept' if kept else 'dropped'} by retention (keep=1); restored "
+          f"through the chain in {t:.3f} s ({rec['chain_restore_mb_s']:.1f} "
+          f"MB/s), checksums equal to run 2's final state")
+    return rec
 
 
 # ------------------------------------------------------------ phases 4, 5 --
@@ -1922,6 +2273,8 @@ def qwen_path(torch, K, tmp):
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     cfg = get_config(QWEN)
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    phase(f"{QWEN} weights as a set")
+    ckpt["set"] = weights_set_phase(torch, cfg, weights, tmp)
     zero_counts(K)                            # the main path starts
     prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"])
     serve, out = serve_phase(torch, cfg, weights, K["k1"])
@@ -3112,11 +3465,11 @@ def train_run(torch, cfg, loop, opt, spies, hooks, data):
         spies["snapshot_s"].append(time.perf_counter() - t0)
         return out
 
-    def write(self, step, host_tree, aux_extra):
+    def write(self, step, host_tree, aux_extra, use_delta=False):
         t0 = time.perf_counter()
-        real_write(self, step, host_tree, aux_extra)
+        real_write(self, step, host_tree, aux_extra, use_delta)
         spies["write_s"].append(time.perf_counter() - t0)
-        spies["file_bytes"].append(os.path.getsize(self.path_for(step)))
+        spies["file_bytes"].append(ckpt_bytes(self.path_for(step)))
 
     def restore_or_init(self, init_fn, like=None, *, device=None):
         t0 = time.perf_counter()
@@ -3126,7 +3479,7 @@ def train_run(torch, cfg, loop, opt, spies, hooks, data):
         if step >= 0:
             spies["restored"] = dict(
                 step=step, s=dt, sums=checksums(torch, tree),
-                file_bytes=os.path.getsize(self.path_for(step)))
+                file_bytes=ckpt_bytes(self.path_for(step)))
         spies["t_mark"] = time.perf_counter()
         return tree, step
 
@@ -3184,21 +3537,27 @@ def train_profile(torch, cfg, state, opt, data, parts, split=None):
 
 
 def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
-               split=None, part_check=None, B=TRAIN_B, S=TRAIN_S):
+               split=None, part_check=None, B=TRAIN_B, S=TRAIN_S,
+               sets=False):
     """``cfg`` trained at full width through ``train()`` on B x S tokens a
     step: run 1 dies after step 3's save commits, run 2 resumes from it
     bit-exactly and finishes steps 4 and 5 with a blocking save.
     ``per_step``: each kernel's launches a step (every other kernel
     launches none); ``required`` and ``plain``: train_step0_check's;
     ``part_check``: a check of one layer or group run before them
-    (train_layer_check, train_group_check).  Returns (launches of each
-    kernel on the path, record)."""
+    (train_layer_check, train_group_check).  With ``sets`` both runs save
+    parity-protected sets and deltas (SET_KNOBS): run 1's set loses a
+    shard before run 2 (lost_shard_check), and step 5 is a delta of step
+    3 (delta_chain_check).  Returns (launches of each kernel on the path,
+    record)."""
     import statistics
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import TrainLoopConfig
     # f32 master weights and two f32 moments: 12 B a parameter in a state
-    # file, and while the final save commits two of them are on disk
-    need = 2.2 * 12 * cfg.param_count()
+    # file, and while the final save commits two of them are on disk (as
+    # sets, each with its parity: SET_PARITY / SET_SHARDS more)
+    need = 2.2 * 12 * cfg.param_count() * (
+        1 + SET_PARITY / SET_SHARDS if sets else 1)
     free = shutil.disk_usage(tmp).free
     check(free >= need, f"{tmp} has {free} B free; two state checkpoints "
           f"of {cfg.name} ({cfg.n_layers} layers) need about {need:.0f} B")
@@ -3233,21 +3592,28 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
 
     hooks = dict(on_step=on_step, should_die=lambda s: s == TRAIN_DIE_AT)
     torch.cuda.reset_peak_memory_stats()
-    phase(f"{cfg.name} run 1")
-    zero_counts(K)                                   # the main path starts
-    died = False
-    try:
-        train_run(torch, cfg, loop, opt, spies, hooks, data)
-    except SystemExit as e:
-        died = str(e) == f"injected failure at step {TRAIN_DIE_AT}"
-    check(died, f"run 1 did not die at step {TRAIN_DIE_AT}")
-    gc.collect()   # run 1's manager and state
-    run1_files = sorted(os.listdir(ckpt_dir))
-    check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
-          f"run 1 left {run1_files}")
-    phase(f"{cfg.name} run 2")
-    out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step),
-                    data)
+    # the reference launcher's layout knobs, read by the manager
+    with mock.patch.dict(os.environ, SET_KNOBS if sets else {}):
+        phase(f"{cfg.name} run 1")
+        zero_counts(K)                                   # the main path starts
+        died = False
+        try:
+            train_run(torch, cfg, loop, opt, spies, hooks, data)
+        except SystemExit as e:
+            died = str(e) == f"injected failure at step {TRAIN_DIE_AT}"
+        check(died, f"run 1 did not die at step {TRAIN_DIE_AT}")
+        gc.collect()   # run 1's manager and state
+        run1_files = sorted(os.listdir(ckpt_dir))
+        check(f"step_{TRAIN_DIE_AT:010d}.scda" in run1_files,
+              f"run 1 left {run1_files}")
+        if sets:
+            phase(f"{cfg.name} set without a shard")
+            rec["lost_shard"] = lost_shard_check(torch, cfg, ckpt_dir, at_die)
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase(f"{cfg.name} run 2")
+        out = train_run(torch, cfg, loop, opt, spies, dict(on_step=on_step),
+                        data)
     want = {name: TRAIN_STEPS * per_step.get(name, 0) for name in K}
     launches = check_counts(K, want, f"the {cfg.name} training path")  # ends
     peak = torch.cuda.max_memory_allocated()
@@ -3274,8 +3640,13 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
         prev = steps[i][2]
     final = sorted(os.listdir(ckpt_dir))
     check(f"step_{TRAIN_STEPS - 1:010d}.scda" in final
-          and f"step_{TRAIN_DIE_AT:010d}.scda" not in final,
+          and (sets or f"step_{TRAIN_DIE_AT:010d}.scda" not in final),
           f"after the final save: {final}")
+    if sets:
+        phase(f"{cfg.name} step {TRAIN_STEPS - 1} through its chain")
+        rec["delta"] = delta_chain_check(torch, cfg, ckpt_dir, out["state"])
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # times: steps 1 to 5 (step 0 is the first call; no step's interval
     # holds a save: step 3's comes after its on_step)
@@ -3478,7 +3849,8 @@ def main(argv=None) -> int:
             {"K1 forward": fa.KERNEL_NAMES, "K1 backward": fa.BWD_KERNEL_NAMES},
             tmp, required=[f"layers/attn/{part}" for part in
                            ("wq", "wk", "wv", "q_norm", "k_norm")],
-            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS)
+            plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS,
+            sets=True)
         print(f"device memory allocated before training {FALCON}: "
               f"{torch.cuda.memory_allocated()} B")
         phase(f"{FALCON} training path ({FALCON_TRAIN_LAYERS} layers)")
@@ -3555,7 +3927,9 @@ def main(argv=None) -> int:
             + [f"layers/moe/{part}" for part in
                ("router", "w_gate", "w_up", "w_down")],
             plain=("flash_attention", _plain_attention(fa)), split=BWD_PARTS)
-        whisper = get_config(WHISPER)
+        whisper = dataclasses.replace(get_config(WHISPER),
+                                      encoder_layers=WHISPER_TRAIN_LAYERS,
+                                      n_layers=WHISPER_TRAIN_LAYERS)
         check(not os.listdir(tmp), f"{tmp} holds {os.listdir(tmp)} before "
               f"training {WHISPER}")
         print(f"device memory allocated before training {WHISPER}: "

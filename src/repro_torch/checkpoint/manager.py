@@ -1,5 +1,5 @@
 """Checkpoint lifecycle management for long-running training jobs — the
-flat-save subset of ``repro/checkpoint/manager.py``.
+port of ``repro/checkpoint/manager.py``, single-process.
 
 The reference's properties, on torch state:
 
@@ -11,15 +11,24 @@ The reference's properties, on torch state:
   * **Non-fatal**: an error in a background save is recorded and raised
     by the *next* call (or ``wait()``).
   * **Retention**: the newest ``keep`` checkpoints stay (always ≥ 1), so a
-    corrupted newest file can fall back to an older one.
+    corrupted newest file can fall back to an older one.  Retention is
+    chain-aware (a base a kept delta references stays) and drops a set's
+    shards and parity with its manifest.
+  * **Incremental**: with ``delta=True`` (or ``REPRO_SCDA_DELTA=1``) a
+    save stores only the chunks that changed since the newest committed
+    checkpoint, up to ``delta_chain`` (``REPRO_SCDA_DELTA_CHAIN``) saves
+    in a chain before a full one.
+  * **Sharded and parity-protected**: ``shards=N`` (``REPRO_SCDA_SHARDS``)
+    writes each checkpoint as N archives and a manifest, committed
+    manifest last; ``parity=m`` (``REPRO_SCDA_PARITY``) adds m erasure-code
+    shards, so a set that lost up to m files restores through the
+    survivors.
   * **Journaled**: :meth:`CheckpointManager.journal` buffers telemetry
     and flushes it into the newest committed file after every commit.
 
 A file written here (with ``vendor=REFERENCE_VENDOR``) is the one the JAX
 package's manager writes for the same arrays, and each package restores
-the other's directories.  Delta, sharded and parity saves are not ported:
-asking for them (by argument or by the reference's environment knobs)
-raises :class:`NotImplementedError`.
+the other's directories.
 
 The snapshot is a copy.  The port updates its training state in place, so
 ``save`` must not hand the writer views of live tensors: CUDA tensors are
@@ -39,7 +48,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint import delta as _delta
+from repro_torch.checkpoint import manifest as _mf
 from repro_torch.checkpoint import pytree_io
+from repro_torch.checkpoint import redundancy as _red
+from repro_torch.checkpoint import sharding as _sharding
 from repro_torch.core import ScdaError
 from repro_torch.core import trace as _trace
 from repro_torch.core.errors import ScdaErrorCode
@@ -56,16 +69,9 @@ LOCK_NAME = ".scda-lock"
 #: signal-probe across hosts); same-host locks are probed by pid.
 LOCK_TTL_SECONDS = 3600.0
 
-#: The reference's knobs for the layouts this port does not carry.
-DELTA_ENV = "REPRO_SCDA_DELTA"
-
 
 def _ckpt_name(step: int) -> str:
     return f"step_{step:010d}.scda"
-
-
-def _env_on(name: str) -> bool:
-    return os.environ.get(name, "0") not in ("0", "", "no")
 
 
 def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
@@ -104,19 +110,33 @@ def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
                  compressed: bool = False,
+                 chunk_bytes: int = pytree_io.DEFAULT_CHUNK_BYTES,
                  delta: Optional[bool] = None,
+                 delta_chain: Optional[int] = None,
                  shards: Optional[int] = None,
                  parity: Optional[int] = None,
                  vendor: bytes = pytree_io.DEFAULT_VENDOR) -> None:
-        use_delta = _env_on(DELTA_ENV) if delta is None else bool(delta)
-        if use_delta or shards or parity:
-            raise NotImplementedError(
-                f"delta, sharded and parity checkpoints are not ported yet "
-                f"(delta={use_delta}, shards={shards}, parity={parity})")
         self.directory = directory
         self.keep = max(1, keep)
         self.compressed = compressed
+        self.chunk_bytes = chunk_bytes
         self.vendor = vendor
+        # None defers each to its knob; parity without sharding has
+        # nothing to code over, so it collapses to 0 for flat saves.
+        self.shards = (_sharding.shards_default()
+                       if shards is None else max(0, int(shards)))
+        self.parity = (_red.parity_default()
+                       if parity is None else max(0, int(parity)))
+        if not self.shards:
+            self.parity = 0
+        _red.check_geometry(self.shards, self.parity)
+        # The chain depth cap forces a periodic full save, so restore
+        # fan-in stays bounded and retention can drop old bases.
+        self.delta = (_delta.delta_enabled_default()
+                      if delta is None else bool(delta))
+        self.delta_chain = (_delta.chain_limit()
+                            if delta_chain is None else max(1, delta_chain))
+        self._last_doc: Optional[Tuple[Dict[str, Any], str]] = None
         self._pinned: Dict[str, torch.Tensor] = {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -243,19 +263,25 @@ class CheckpointManager:
 
     # -- saving ----------------------------------------------------------------
     def save(self, step: int, tree, *, blocking: bool = False,
-             aux_extra: Optional[Dict[str, Any]] = None) -> None:
+             aux_extra: Optional[Dict[str, Any]] = None,
+             delta: Optional[bool] = None) -> None:
         """Snapshot now; serialize and write in the background.
 
+        ``delta=True`` saves incrementally against the newest committed
+        checkpoint (``None``: the manager's default); it falls back to a
+        full save when no usable base exists or the chain cap is reached.
         Raises any error from the *previous* async save (so failures are
         observed, but off the hot path).
         """
         self.wait()  # one in-flight save at a time; surfaces prior errors
         with _trace.span("snapshot", "ckpt", step=step):
             host_tree = snapshot_to_host(tree, self._pinned)
+        use_delta = self.delta if delta is None else bool(delta)
 
         def _write() -> None:
             try:
-                self._write_and_commit(step, host_tree, aux_extra)
+                self._write_and_commit(step, host_tree, aux_extra,
+                                       use_delta)
             except BaseException as e:  # noqa: BLE001 - stored, not raised
                 self._error = e
 
@@ -267,26 +293,92 @@ class CheckpointManager:
                                             name=f"ckpt-save-{step}")
             self._thread.start()
 
+    def _delta_base(self, step: int) \
+            -> Optional[Tuple[Dict[str, Any], str]]:
+        """The ``(manifest_doc, file_name)`` the next delta references, or
+        ``None`` for a full save: no prior checkpoint, one without chunk
+        digests, a re-save of ``step`` itself, a newest set that cannot
+        be opened whole, or the chain cap reached."""
+        target = _ckpt_name(step)
+        cand: Optional[Tuple[Dict[str, Any], str]] = None
+        if self._last_doc is not None and self._last_doc[1] != target:
+            cand = self._last_doc
+        else:
+            for s in reversed(self.all_steps()):
+                name = _ckpt_name(s)
+                if name == target:
+                    continue  # never self-reference on a same-step re-save
+                try:
+                    doc = pytree_io.read_manifest(self.path_for(s))
+                    if doc.get("format") == _mf.SHARDED_FORMAT:
+                        # A set's digest tables are in its shards' docs,
+                        # each content-id-verified: a set with a lost or
+                        # rewritten shard falls back to a full save.
+                        doc = _sharding.load_set(self.path_for(s))
+                except (ScdaError, OSError, ValueError):
+                    continue  # unreadable base: fall further back
+                cand = (doc, name)
+                break
+        if cand is None or not _sharding.base_usable_any(cand[0]):
+            return None
+        if _sharding.chain_depth(cand[0]) + 1 > self.delta_chain:
+            return None
+        return cand
+
     def _write_and_commit(self, step: int, host_tree,
-                          aux_extra: Optional[Dict[str, Any]]) -> None:
+                          aux_extra: Optional[Dict[str, Any]],
+                          use_delta: bool = False) -> None:
         final = self.path_for(step)
         tmp = final + ".tmp"
+        with _trace.span("plan", "ckpt", step=step, delta=use_delta,
+                         shards=self.shards, parity=self.parity):
+            base = self._delta_base(step) if use_delta else None
         try:
-            pytree_io.save(tmp, host_tree, step=step,
-                           compressed=self.compressed, aux_extra=aux_extra,
-                           vendor=self.vendor)
+            if self.shards:
+                # Every file of the set is written as <name>.tmp while the
+                # manifest records the final names; commit_sharded renames
+                # shards and parity first and the manifest last.
+                doc = _sharding.save_sharded(
+                    final, host_tree, shards=self.shards, step=step,
+                    compressed=self.compressed,
+                    chunk_bytes=self.chunk_bytes, aux_extra=aux_extra,
+                    record_hashes=use_delta or self.delta,
+                    delta_base=base, parity=self.parity,
+                    tmp_suffix=".tmp", vendor=self.vendor)
+            else:
+                doc = pytree_io.save(tmp, host_tree, step=step,
+                                     compressed=self.compressed,
+                                     chunk_bytes=self.chunk_bytes,
+                                     aux_extra=aux_extra,
+                                     vendor=self.vendor,
+                                     record_hashes=use_delta or self.delta,
+                                     delta_base=base, shards=0)
         except BaseException:
-            # A failed save must not leave its half-written tmp around.
-            try:
-                os.remove(tmp)
-            except OSError:
-                pass
+            # A failed save must not leave its half-written files around.
+            stale = (_sharding.set_paths(final, self.shards, ".tmp",
+                                         parity=self.parity)
+                     if self.shards else [tmp])
+            for p in stale:
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
             raise
         with _trace.span("commit", "ckpt", path=final, step=step):
-            # Atomic commit: rename + parent-dir fsync.
-            replace_durable(tmp, final)
+            if self.shards:
+                _sharding.commit_sharded(final, doc, ".tmp")
+                committed = [os.path.join(self.directory, s["file"])
+                             for s in doc["shards"]]
+                committed += [os.path.join(self.directory, p["file"])
+                              for p in (doc.get("parity") or {})
+                              .get("files", [])]
+                committed.append(final)
+            else:
+                # Atomic commit: rename + parent-dir fsync.
+                replace_durable(tmp, final)
+                committed = [final]
             # Best-effort: readers fall back to a header scan.
-            ScdaIndex.write_sidecars([final])
+            ScdaIndex.write_sidecars(committed)
         c = _trace.collector()
         if c is not None:
             # The I/O counters since the last commit ride into the
@@ -304,23 +396,88 @@ class CheckpointManager:
                 pass
         with _trace.span("retention", "ckpt", keep=self.keep):
             self._apply_retention()
+        # The doc a re-read of the fresh checkpoint would parse: the next
+        # delta references it without touching the disk.
+        self._last_doc = (doc, _ckpt_name(step))
+
+    def _shard_files(self, name: str) -> List[str]:
+        """Shard and parity file names of checkpoint ``name`` (empty for
+        a flat archive or anything unreadable): retention treats a set
+        as one unit."""
+        try:
+            doc = pytree_io.read_manifest(
+                os.path.join(self.directory, name))
+        except (ScdaError, OSError, ValueError):
+            return []
+        if doc.get("format") != _mf.SHARDED_FORMAT:
+            return []
+        return [s.get("file") for s in doc.get("shards", [])
+                if s.get("file")] \
+            + [p.get("file")
+               for p in (doc.get("parity") or {}).get("files", [])
+               if p.get("file")]
+
+    def _referenced_files(self, kept_steps: List[int]) -> set:
+        """The delta-base files the kept checkpoints still reference,
+        transitively.  A set's manifest is traversed through its shards
+        (whose docs hold the references), so protection lands on shard
+        file names and the sweep keeps their whole set."""
+        protected: set = set()
+        queue = [_ckpt_name(s) for s in kept_steps]
+        seen = set(queue)
+        while queue:
+            name = queue.pop()
+            try:
+                doc = pytree_io.read_manifest(
+                    os.path.join(self.directory, name))
+            except (ScdaError, OSError, ValueError):
+                continue  # unreadable: nothing to protect through it
+            if doc.get("format") == _mf.SHARDED_FORMAT:
+                for s in doc.get("shards", []):
+                    f = s.get("file")
+                    if f and f not in seen:
+                        seen.add(f)
+                        queue.append(f)  # traverse, don't protect
+                continue
+            for b in (doc.get("delta") or {}).get("bases", []):
+                f = b.get("file")
+                if f and f not in seen:
+                    seen.add(f)
+                    protected.add(f)
+                    queue.append(f)
+        return protected
 
     def _apply_retention(self) -> None:
-        """Drop all but the newest ``keep`` checkpoints (and their
-        sidecars), then stale tmp files and orphaned sidecars."""
+        """Drop all but the newest ``keep`` checkpoints (each with its
+        shards, parity and sidecars) unless a kept delta references one,
+        then stale tmp files, orphaned sidecars and shard or parity files
+        whose manifest is gone."""
         steps = self.all_steps()
+        protected = self._referenced_files(steps[-self.keep:])
         for s in steps[:-self.keep]:
-            p = self.path_for(s)
-            for path in (p, p + SIDECAR_SUFFIX):
-                try:
-                    os.remove(path)
-                except OSError:
-                    pass  # retention is best-effort
-        kept = {_ckpt_name(s) for s in self.all_steps()}
+            files = [_ckpt_name(s)] + self._shard_files(_ckpt_name(s))
+            if any(f in protected for f in files):
+                continue  # a kept delta chain still needs this base
+            for f in files:
+                p = os.path.join(self.directory, f)
+                for path in (p, p + SIDECAR_SUFFIX):
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass  # retention is best-effort
+        keep_names = set(protected)
+        for s in self.all_steps():
+            n = _ckpt_name(s)
+            keep_names.add(n)
+            keep_names.update(self._shard_files(n))
         for n in os.listdir(self.directory):
             stale = (n.endswith(".scda.tmp") or n.endswith(".scdax.tmp")
                      or (n.endswith(".scda" + SIDECAR_SUFFIX)
-                         and n[:-len(SIDECAR_SUFFIX)] not in kept))
+                         and n[:-len(SIDECAR_SUFFIX)] not in keep_names)
+                     or (_sharding.is_shard_name(n) is not None
+                         and n not in keep_names)
+                     or (_red.is_parity_name(n) is not None
+                         and n not in keep_names))
             if stale:
                 try:
                     os.remove(os.path.join(self.directory, n))

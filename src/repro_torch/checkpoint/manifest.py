@@ -15,7 +15,7 @@ import hashlib
 import json
 import sys
 import zlib
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +115,29 @@ class LeafSpec(Dict[str, Any]):
         return out
 
 
+def host_map(fn: Callable[[Any], Any], items: Sequence[Any]) -> List[Any]:
+    """``[fn(x) for x in items]``, on up to the codec pool's width of
+    threads (``REPRO_CODEC_THREADS``) when there is more than one item.
+    hashlib, zlib and numpy's table lookups release the GIL, so chunk
+    digests and the parity code of a set scale with the host's cores;
+    the results, in ``items``' order, are the serial loop's."""
+    from repro_torch.core import codec
+    width = min(codec.pool_width(), len(items))
+    if width <= 1:
+        return [fn(x) for x in items]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(width, thread_name_prefix="scda-host") as ex:
+        return list(ex.map(fn, items))
+
+
+def _spans(sizes: Sequence[int]) -> List[Tuple[int, int]]:
+    out, pos = [], 0
+    for s in sizes:
+        out.append((pos, s))
+        pos += s
+    return out
+
+
 def chunk_hash(chunk) -> str:
     """The per-chunk strong content hash: a 128-bit SHA-256 prefix, hex."""
     return hashlib.sha256(chunk).hexdigest()[:2 * CHUNK_HASH_BYTES]
@@ -129,15 +152,12 @@ def chunk_digests(view, sizes: Sequence[int]) \
     so raw and compressed archives hash identically and a chunk's identity
     survives a compression-setting change.
     """
-    crcs: List[int] = []
-    hashes: List[str] = []
-    pos = 0
-    for s in sizes:
-        chunk = view[pos:pos + s]
-        crcs.append(zlib.crc32(chunk) & 0xFFFFFFFF)
-        hashes.append(chunk_hash(chunk))
-        pos += s
-    return crcs, hashes
+    def digest(span):
+        chunk = view[span[0]:span[0] + span[1]]
+        return zlib.crc32(chunk) & 0xFFFFFFFF, chunk_hash(chunk)
+
+    pairs = host_map(digest, _spans(sizes))
+    return [c for c, _ in pairs], [h for _, h in pairs]
 
 
 def chunk_strong_hashes(view, sizes: Sequence[int]) -> List[str]:
@@ -150,12 +170,8 @@ def chunk_strong_hashes(view, sizes: Sequence[int]) -> List[str]:
     identical).  Keeping CRC32 out of this pass roughly halves the
     fixed per-save digest cost on hosts with hardware SHA.
     """
-    hashes: List[str] = []
-    pos = 0
-    for s in sizes:
-        hashes.append(chunk_hash(view[pos:pos + s]))
-        pos += s
-    return hashes
+    return host_map(lambda span: chunk_hash(view[span[0]:span[0] + span[1]]),
+                    _spans(sizes))
 
 
 def content_id(doc: Dict[str, Any]) -> str:

@@ -18,8 +18,14 @@ the pipelines are tested against.  CUDA tensors are snapshotted to host
 memory one leaf ahead of the writer; restored leaves land on the device
 of their ``like`` leaf (or ``device=``).
 
-Only the flat layout is ported: sharded sets, parity shards and delta
-checkpoints raise :class:`NotImplementedError`.
+``shards`` splits a save into a set of independent archives
+(:mod:`repro_torch.checkpoint.sharding`), ``parity`` adds erasure-code
+shards over them (:mod:`repro_torch.checkpoint.redundancy`), and
+``record_hashes`` / ``delta_base`` write content digests and incremental
+saves (:mod:`repro_torch.checkpoint.delta`).  ``restore`` resolves a set's
+manifest and a delta's chain, as the reference's does.  All three are
+single-process (one rank, or ``ThreadComm`` ranks where a flat save takes
+them).
 
 File layout:
     F  header (vendor ``DEFAULT_VENDOR``, or the reference's
@@ -57,11 +63,6 @@ DEFAULT_CHUNK_BYTES = 1 << 20  # 1 MiB deflate chunks for encoded leaves
 DEFAULT_VENDOR = b"repro scda-torch 0.1"
 REFERENCE_VENDOR = b"repro scda-jax 0.1"
 
-#: The reference's knobs for the layouts this port does not carry.
-SHARDS_ENV = "REPRO_SCDA_SHARDS"
-PARITY_ENV = "REPRO_SCDA_PARITY"
-
-
 def _effective_prefetch(prefetch_bytes: Optional[int]) -> int:
     """Resolve the prefetch window: explicit argument wins, else the
     ``REPRO_SCDA_PREFETCH`` environment knob (0 = serial restore)."""
@@ -87,13 +88,6 @@ def _effective_verify(verify: Optional[bool]) -> bool:
     if verify is not None:
         return bool(verify)
     return os.environ.get(VERIFY_RESTORE_ENV, "0") not in ("", "0")
-
-
-def _env_count(name: str) -> int:
-    try:
-        return max(0, int(os.environ.get(name, "0")))
-    except ValueError:
-        return 0
 
 
 def _verify_archive(path: str) -> None:
@@ -206,46 +200,71 @@ def save(path: str, tree, *, comm: Optional[Communicator] = None,
          aux_extra: Optional[Dict[str, Any]] = None,
          write_window: Optional[int] = None,
          vendor: bytes = DEFAULT_VENDOR,
+         record_hashes: bool = False,
          delta_base: Optional[Tuple[Dict[str, Any], str]] = None,
          shards: Optional[int] = None,
          parity: Optional[int] = None) -> Dict[str, Any]:
     """Write ``tree`` (nested dicts/lists of tensors) to ``path`` as a
     serial-equivalent scda checkpoint.
 
-    The arguments mean what they mean for ``repro.checkpoint.save``
-    (without its content-hash option, which serves delta checkpoints);
-    ``vendor`` is the file header's vendor string.  ``shards``, ``parity``
-    (or ``REPRO_SCDA_SHARDS`` / ``REPRO_SCDA_PARITY``) and ``delta_base``
-    select layouts this port does not carry yet: a non-zero value raises
-    :class:`NotImplementedError` rather than writing a different layout
-    than asked for.  Returns the manifest document.
+    The arguments mean what they mean for ``repro.checkpoint.save``;
+    ``vendor`` is the header's vendor string of every file written (each
+    shard, the set manifest and each parity file of a set).
+
+    ``record_hashes`` adds per-chunk digests (CRC32 and a 128-bit SHA-256
+    prefix) to the manifest, so the archive can serve as a delta base;
+    ``delta_base`` (a ``(base_manifest_doc, base_file_name)`` pair) stores
+    only the chunks whose digests differ from the base's.  Both are
+    single-rank.  ``shards`` (``None``: ``REPRO_SCDA_SHARDS``) splits the
+    save into that many archives plus a manifest file at ``path``, and
+    ``parity`` (``None``: ``REPRO_SCDA_PARITY``; ignored for a flat save)
+    adds that many erasure-code shards.  Returns the manifest document
+    (a sharded save's, with its shards' docs under ``shard_docs``).
     """
-    n_shards = _env_count(SHARDS_ENV) if shards is None else int(shards)
-    n_parity = _env_count(PARITY_ENV) if parity is None else int(parity)
-    if n_shards or n_parity or delta_base is not None:
-        raise NotImplementedError(
-            "sharded, parity and delta checkpoints are not ported yet "
-            f"(shards={n_shards}, parity={n_parity}, "
-            f"delta_base={'set' if delta_base is not None else None})")
+    from repro_torch.checkpoint import redundancy as _red
+    from repro_torch.checkpoint import sharding as _sharding
     comm = comm or SerialComm()
-    with _trace.span("save", "ckpt", path=path, step=step, shards=0,
-                     parity=0, compressed=compressed):
-        named, _ = flatten_named(tree)
-        leaves: List[mf.LeafSpec] = []
-        arrays: List[Any] = []
-        aux: Dict[str, Any] = dict(aux_extra or {})
-        for name, value in named:
-            if _is_array(value):
-                leaves.append(mf.LeafSpec.make(
-                    name, tuple(value.shape), value.dtype,
-                    compressed, chunk_bytes))
-                arrays.append(value)
-            else:
-                aux[name] = _encode_aux(value)
+    n_shards = _sharding.shards_default() if shards is None else \
+        max(0, int(shards))
+    n_parity = _red.parity_default() if parity is None else \
+        max(0, int(parity))
+    with _trace.span("save", "ckpt", path=path, step=step,
+                     shards=n_shards, parity=n_parity,
+                     compressed=compressed):
+        if n_shards:
+            _red.check_geometry(n_shards, n_parity)
+            return _sharding.save_sharded(
+                path, tree, shards=n_shards, comm=comm, step=step,
+                compressed=compressed, chunk_bytes=chunk_bytes,
+                aux_extra=aux_extra, write_window=write_window,
+                record_hashes=record_hashes, delta_base=delta_base,
+                parity=n_parity, vendor=vendor)
+        leaves, arrays, aux = _split_leaves(tree, compressed, chunk_bytes,
+                                            aux_extra)
         return _write_checkpoint(
             path, comm=comm, step=step, leaves=leaves, arrays=arrays,
             aux=aux, compressed=compressed, chunk_bytes=chunk_bytes,
-            write_window=write_window, vendor=vendor)
+            write_window=write_window, vendor=vendor,
+            record_hashes=record_hashes, delta_base=delta_base)
+
+
+def _split_leaves(tree, compressed: bool, chunk_bytes: int,
+                  aux_extra: Optional[Dict[str, Any]]):
+    """``tree`` flattened into array leaf specs, the arrays, and the aux
+    (non-array) leaves."""
+    named, _ = flatten_named(tree)
+    leaves: List[mf.LeafSpec] = []
+    arrays: List[Any] = []
+    aux: Dict[str, Any] = dict(aux_extra or {})
+    for name, value in named:
+        if _is_array(value):
+            leaves.append(mf.LeafSpec.make(
+                name, tuple(value.shape), value.dtype, compressed,
+                chunk_bytes))
+            arrays.append(value)
+        else:
+            aux[name] = _encode_aux(value)
+    return leaves, arrays, aux
 
 
 def _write_checkpoint(path: str, *, comm: Communicator,
@@ -253,21 +272,69 @@ def _write_checkpoint(path: str, *, comm: Communicator,
                       arrays: List[Any], aux: Dict[str, Any],
                       compressed: bool, chunk_bytes: int,
                       write_window: Optional[int],
-                      vendor: bytes) -> Dict[str, Any]:
-    """Flattened leaves → placement plan → archive (the reference's
-    ``_write_checkpoint`` without the content-hash and delta legs)."""
+                      vendor: bytes, record_hashes: bool = False,
+                      delta_base: Optional[Tuple[Dict[str, Any], str]]
+                      = None) -> Dict[str, Any]:
+    """The save core shared by :func:`save`, each shard of a set and
+    ``squash``: flattened leaves → digests → placement plan → archive.
+    Given the same inputs the bytes are the same whatever the caller."""
     ww = _effective_write_window(write_window)
     if compressed and comm.size > 1:
         raise ScdaError(ScdaErrorCode.ARG_SEQUENCE,
                         "compressed checkpoints require chunk-aligned "
                         "partitions; use comm.size == 1 (async snapshot)")
+    if (record_hashes or delta_base is not None) and comm.size > 1:
+        raise ScdaError(ScdaErrorCode.ARG_SEQUENCE,
+                        "content-hashed / delta checkpoints are "
+                        "single-rank; use comm.size == 1 (async snapshot)")
+
+    if record_hashes or delta_base is not None:
+        # Digests are taken over the host snapshot, and the same host
+        # bytes are the sections' payloads: one device→host copy a leaf.
+        # The delta leg takes the strong hash only; its CRC32s are filled
+        # in by plan_refs (computed for stored chunks, inherited from the
+        # base for unchanged ones), so its cost follows the changed bytes.
+        hosts: List[np.ndarray] = []
+        for spec_, arr in zip(leaves, arrays):
+            host = _host_bytes(arr)
+            sizes = layout.chunk_sizes(spec_["nbytes"], chunk_bytes)
+            view = _byte_view(host)
+            if delta_base is not None:
+                spec_["chunks"] = {
+                    "bytes": int(chunk_bytes),
+                    "hash": mf.chunk_strong_hashes(view, sizes)}
+            else:
+                crcs, hashes = mf.chunk_digests(view, sizes)
+                spec_["chunks"] = {"bytes": int(chunk_bytes),
+                                   "crc32": crcs, "hash": hashes}
+            hosts.append(host)
+        arrays = hosts
+    delta_table: Optional[Dict[str, Any]] = None
+    if delta_base is not None:
+        from repro_torch.checkpoint import delta as _delta
+        base_doc, base_file = delta_base
+        delta_table = _delta.plan_refs(
+            leaves, base_doc, base_file,
+            views=[_byte_view(h) for h in arrays])
 
     placements: List[planner.LeafPlacement] = []
     for i, (spec_, arr) in enumerate(zip(leaves, arrays)):
         user = mf.leaf_user_string(i)
-        if compressed:
-            sizes = layout.chunk_sizes(spec_["nbytes"], chunk_bytes)
+        sizes = layout.chunk_sizes(spec_["nbytes"], chunk_bytes)
+        if delta_table is not None:
+            present = spec_["present"]
+            if not present:
+                continue  # unchanged leaf: references only, no section
 
+            def snapshot(arr=arr, present=present, sizes=sizes):
+                flat = _byte_view(arr)
+                return [flat[c * chunk_bytes:c * chunk_bytes + sizes[c]]
+                        for c in present]
+
+            placements.append(planner.ChunkPlacement(
+                user, [sizes[c] for c in present], snapshot, compressed,
+                key=i))
+        elif compressed:
             def snapshot(arr=arr, sizes=sizes):
                 flat = _byte_view(arr)
                 chunks, pos = [], 0
@@ -294,10 +361,11 @@ def _write_checkpoint(path: str, *, comm: Communicator,
                            root=0)
             f.write_block(
                 mf.MANIFEST_USER_STRING,
-                mf.build(step, leaves, aux) if comm.rank == 0 else None,
+                mf.build(step, leaves, aux, delta_table)
+                if comm.rank == 0 else None,
                 E=None, root=0)
             planner.write_placements(f, placements, ww)
-    return mf.document(step, leaves, aux)
+    return mf.document(step, leaves, aux, delta_table)
 
 
 def _encode_aux(value) -> Any:
@@ -336,15 +404,6 @@ def _read_header_sections(r: ScdaReader) -> Dict[str, Any]:
     if doc.get("step") is None:
         doc["step"] = step
     return doc
-
-
-def _check_flat(doc: Dict[str, Any], path: str) -> None:
-    if doc.get("format") == mf.SHARDED_FORMAT:
-        raise NotImplementedError(
-            f"{path}: sharded checkpoint sets are not ported yet")
-    if doc.get("delta"):
-        raise NotImplementedError(
-            f"{path}: delta checkpoints are not ported yet")
 
 
 def _resolve_index(r: ScdaReader) -> ScdaIndex:
@@ -406,25 +465,44 @@ def restore(path: str, like=None, *, device=None,
     """
     comm = comm or SerialComm()
     pf = _effective_prefetch(prefetch_bytes)
+    vfy = _effective_verify(verify)
     with _trace.span("restore", "ckpt", path=path):
-        if _effective_verify(verify):
+        if vfy:
             _verify_archive(path)
         with fopen_read(comm, path) as r:
             doc = _read_header_sections(r)
-            _check_flat(doc, path)
-            return _restore_from_reader(r, doc, like, pf, device)
+            if doc.get("format") != mf.SHARDED_FORMAT:
+                return _restore_from_reader(r, doc, like, pf, device)
+        # A set's manifest holds no payloads: close it and resolve the
+        # shard archives.
+        from repro_torch.checkpoint import sharding as _sharding
+        return _sharding.restore_sharded(path, doc, like, device=device,
+                                         comm=comm,
+                                         prefetch_bytes=prefetch_bytes,
+                                         verify=vfy)
 
 
 def _restore_from_reader(r: ScdaReader, doc: Dict[str, Any], like,
                          pf: int, device):
+    """The flat restore body (the reader past the manifest); a delta
+    doc's leaves resolve through its chain."""
     step = doc.get("step")
+    chained = bool(doc.get("delta"))
+    if chained:
+        from repro_torch.checkpoint import delta as _delta
     by_name: Dict[str, Any] = {}
     for i, spec_ in enumerate(doc["leaves"]):
         by_name[spec_["name"]] = (i, spec_)
 
     if like is None:
         out: Dict[str, Any] = {}
-        if pf > 0 and doc["leaves"]:
+        if chained:
+            _adopt_sidecar(r)
+            wanted = [(spec_["name"], i, spec_, None)
+                      for i, spec_ in enumerate(doc["leaves"])]
+            out = (_delta.restore_chained(r, doc, wanted, pf, device=device)
+                   if wanted else {})
+        elif pf > 0 and doc["leaves"]:
             _adopt_sidecar(r)
             wanted = [(spec_["name"], i, spec_, None)
                       for i, spec_ in enumerate(doc["leaves"])]
@@ -450,7 +528,12 @@ def _restore_from_reader(r: ScdaReader, doc: Dict[str, Any], like,
                         f"leaves missing from checkpoint: {missing[:5]}"
                         f"{'…' if len(missing) > 5 else ''}")
     _adopt_sidecar(r)
-    if pf > 0:
+    if chained:
+        wanted = [(name,) + by_name[name] + (targets[name],)
+                  for name in targets if name in by_name]
+        values = (_delta.restore_chained(r, doc, wanted, pf, device=device)
+                  if wanted else {})
+    elif pf > 0:
         wanted = [(name,) + by_name[name] + (targets[name],)
                   for name in targets if name in by_name]
         values = _restore_pipelined(r, wanted, pf, device)
@@ -482,26 +565,41 @@ def restore_leaf(path: str, name: str, like=None, *, device=None,
     """
     comm = comm or SerialComm()
     pf = _effective_prefetch(prefetch_bytes)
+    vfy = _effective_verify(verify)
     with _trace.span("restore_leaf", "ckpt", path=path, leaf=name):
-        if _effective_verify(verify):
+        if vfy:
             _verify_archive(path)
         with fopen_read(comm, path) as r:
             doc = _read_header_sections(r)
-            _check_flat(doc, path)
-            for i, spec_ in enumerate(doc["leaves"]):
-                if spec_["name"] != name:
-                    continue
-                _adopt_sidecar(r)
-                if pf > 0:
-                    return _restore_pipelined(
-                        r, [(name, i, spec_, like)], pf, device)[name]
-                hdr = r.open_section(mf.leaf_user_string(i))
-                _check_leaf_header(hdr, spec_)
-                return _read_leaf_to_target(r, spec_, like, device)
-            if name in doc["aux"]:
-                return doc["aux"][name]
-            raise ScdaError(ScdaErrorCode.ARG_SEQUENCE,
-                            f"leaf {name!r} not in checkpoint")
+            if doc.get("format") != mf.SHARDED_FORMAT:
+                return _restore_leaf_from_reader(r, doc, name, like, pf,
+                                                 device)
+        from repro_torch.checkpoint import sharding as _sharding
+        return _sharding.restore_leaf_sharded(
+            path, doc, name, like, device=device, comm=comm,
+            prefetch_bytes=prefetch_bytes, verify=vfy)
+
+
+def _restore_leaf_from_reader(r: ScdaReader, doc: Dict[str, Any],
+                              name: str, like, pf: int, device):
+    for i, spec_ in enumerate(doc["leaves"]):
+        if spec_["name"] != name:
+            continue
+        _adopt_sidecar(r)
+        if doc.get("delta"):
+            from repro_torch.checkpoint import delta as _delta
+            return _delta.restore_chained(
+                r, doc, [(name, i, spec_, like)], pf, device=device)[name]
+        if pf > 0:
+            return _restore_pipelined(
+                r, [(name, i, spec_, like)], pf, device)[name]
+        hdr = r.open_section(mf.leaf_user_string(i))
+        _check_leaf_header(hdr, spec_)
+        return _read_leaf_to_target(r, spec_, like, device)
+    if name in doc["aux"]:
+        return doc["aux"][name]
+    raise ScdaError(ScdaErrorCode.ARG_SEQUENCE,
+                    f"leaf {name!r} not in checkpoint")
 
 
 def _check_leaf_header(hdr, spec_) -> None:
@@ -536,12 +634,30 @@ def _as_tensor(raw: np.ndarray, spec_) -> torch.Tensor:
     """Host uint8 bytes → a CPU tensor of the manifest's dtype and shape
     (through a ``torch.uint8`` view: no numpy bf16 needed)."""
     dtype = mf.dtype_from_name(spec_["dtype"])
+    if not raw.size:  # an empty leaf (its byte view has no usable stride)
+        return torch.empty(spec_["shape"], dtype=dtype)
     return torch.from_numpy(raw).view(dtype).reshape(spec_["shape"])
 
 
 def _to_device(t: torch.Tensor, target, device) -> torch.Tensor:
     dev = _target_device(target, device)
     return t if dev.type == "cpu" else t.to(dev)
+
+
+def _leaf_layout(name: str, spec_, target, device) -> Dict[str, Any]:
+    """One leaf's destination for the delta chain resolver: a host buffer
+    covering the whole leaf (one run), filled from whichever archives its
+    chunks come from, then moved to the leaf's device."""
+    _check_target_shape(spec_, target)
+    nbytes = spec_["nbytes"]
+    return {"name": name, "spec": spec_, "target": target,
+            "device": device, "runs": [(0, 0, nbytes)] if nbytes else [],
+            "arr": np.empty(nbytes, np.uint8), "pending": 0}
+
+
+def _finalize_leaf(leaf: Dict[str, Any]) -> torch.Tensor:
+    return _to_device(_as_tensor(leaf["arr"], leaf["spec"]), leaf["target"],
+                      leaf["device"])
 
 
 # --------------------------------------------------------------------------

@@ -248,31 +248,6 @@ def test_restore_checks_target_shape(tmp_path, smoke_params):
         tio.restore(path, like={"w": torch.empty(3, 3)})
 
 
-@pytest.mark.parametrize("kwargs,env", [
-    (dict(shards=2), {}),
-    (dict(parity=1), {}),
-    (dict(delta_base=({}, "base.scda")), {}),
-    ({}, {"REPRO_SCDA_SHARDS": "2"}),
-])
-def test_layouts_not_ported_raise(tmp_path, monkeypatch, smoke_params,
-                                  kwargs, env):
-    _, tree = smoke_params
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    path = str(tmp_path / "ck.scda")
-    with pytest.raises(NotImplementedError):
-        tio.save(path, tree, **kwargs)
-    assert not os.path.exists(path)
-
-
-def test_sharded_reference_archive_raises(tmp_path, smoke_params):
-    arrays, _ = smoke_params
-    path = str(tmp_path / "set.scda")
-    jio.save(path, arrays, shards=2)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tio.restore(path)
-
-
 def test_flatten_order_matches_jax():
     tree = {"b": [torch.zeros(1), {"z": torch.zeros(2), "a": torch.zeros(3)}],
             "a": (torch.zeros(4), None, 2.0), "c": torch.zeros(())}

@@ -4,7 +4,8 @@ backward) against their plain versions, the smoke models (qwen3,
 falcon-mamba, zamba2, gemma3, granite-moe, whisper, llava) on CUDA against
 the same models on the CPU, their training paths (loss, gradients; kill
 and resume for the first five),
-and checkpoint round trips of CUDA tensors.  Every
+and checkpoint round trips of CUDA tensors (flat, as a parity-protected
+set without one of its shards, and as a delta).  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -481,6 +482,47 @@ def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
         assert torch.equal(got["a"].view(torch.int16),
                            tree["a"].view(torch.int16))
         assert torch.equal(got["b"]["c"], tree["b"]["c"])
+
+
+def test_set_with_a_lost_shard_and_a_delta_of_cuda_tensors(cuda, tmp_path):
+    """CUDA tensors saved as 4 shards + 2 parity restore bit-equal onto the
+    card after a data shard is deleted (through the parity); a delta of
+    them, with one row changed, stores only that row's chunk and restores
+    through its chain."""
+    import os
+    from repro_torch.checkpoint import (read_manifest, read_sharded_manifest,
+                                        restore, save, shard_file)
+    rng = np.random.default_rng(24)
+    tree = {f"w{i}": _rand(rng, (64, 1024), torch.bfloat16, cuda)
+            for i in range(6)}
+    tree["v"] = _rand(rng, (4096,), torch.float32, cuda)
+    path = str(tmp_path / "set.scda")
+    save(path, tree, step=3, shards=4, parity=2, record_hashes=True,
+         chunk_bytes=1 << 14)
+    os.remove(shard_file(path, 1, 4))
+    got, step = restore(path, device=cuda)
+    assert step == 3
+    for k, t in tree.items():
+        assert got[k].device.type == "cuda" and torch.equal(
+            got[k].view(torch.uint8), t.view(torch.uint8)), k
+
+    new = {k: t.clone() for k, t in tree.items()}
+    new["w2"][40] += 1.0
+    dpath = str(tmp_path / "flat.scda")
+    save(str(tmp_path / "base.scda"), tree, step=3, record_hashes=True,
+         chunk_bytes=1 << 14)
+    doc = save(dpath, new, step=4, chunk_bytes=1 << 14,
+               delta_base=(read_manifest(str(tmp_path / "base.scda")),
+                           "base.scda"))
+    stored = {s["name"]: s["present"] for s in doc["leaves"]}
+    assert stored == {k: ([40 * 1024 * 2 // (1 << 14)] if k == "w2" else [])
+                      for k in tree}
+    got, step = restore(dpath, like=tree)
+    assert step == 4
+    for k, t in new.items():
+        assert got[k].device.type == "cuda" and torch.equal(
+            got[k].view(torch.uint8), t.view(torch.uint8)), k
+    assert read_sharded_manifest(path)["parity"]["m"] == 2
 
 
 # ------------------------------------------------------------ K1 backward --

@@ -2,8 +2,12 @@
 flat saves, directories written by both managers in turn, retention, the
 writer lock, fallback past a corrupted newest file, restore-or-init, the
 journal, compressed saves, a snapshot that in-place updates cannot reach,
-and a power-cut replay of the port's commit (``tests/helpers/crashsim.py``
-rebound to the port's fault layer)."""
+a power-cut replay of the port's commit (``tests/helpers/crashsim.py``
+rebound to the port's fault layer), and the sharded, parity and delta
+layouts: sets byte-identical to the reference manager's, delta chains and
+their cap, chain-aware retention that drops sets whole, the environment
+knobs, a restore through a lost shard, and the trace records of a set's
+save against the reference's."""
 import os
 import sys
 
@@ -15,15 +19,20 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.checkpoint import pytree_io as jio  # noqa: E402
 from repro.checkpoint.manager import CheckpointManager as JManager  # noqa: E402
+from repro.core import trace as jtrace  # noqa: E402
 from repro.journal import read_records  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 
+from repro_torch.checkpoint import pytree_io as tio  # noqa: E402
+from repro_torch.checkpoint import sharding as tsh  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.checkpoint.pytree_io import REFERENCE_VENDOR  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import ScdaError  # noqa: E402
 from repro_torch.core import faults as tfaults  # noqa: E402
+from repro_torch.core import trace as ttrace  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
@@ -35,7 +44,8 @@ def _flat_saves(monkeypatch):
     """The reference's managers default to the environment's layout; the
     comparisons here are of flat, full saves."""
     for name in ("REPRO_SCDA_SHARDS", "REPRO_SCDA_PARITY",
-                 "REPRO_SCDA_DELTA", "REPRO_SCDA_FAULTS"):
+                 "REPRO_SCDA_DELTA", "REPRO_SCDA_DELTA_CHAIN",
+                 "REPRO_SCDA_FAULTS"):
         monkeypatch.delenv(name, raising=False)
 
 
@@ -224,15 +234,6 @@ def test_snapshot_is_not_reached_by_in_place_updates(tmp_path):
     _assert_same(got, _tstate(5))
 
 
-def test_unported_layouts_raise(tmp_path, monkeypatch):
-    for kw in (dict(delta=True), dict(shards=2), dict(parity=1)):
-        with pytest.raises(NotImplementedError):
-            CheckpointManager(str(tmp_path / "c"), **kw)
-    monkeypatch.setenv("REPRO_SCDA_DELTA", "1")
-    with pytest.raises(NotImplementedError):
-        CheckpointManager(str(tmp_path / "c"))
-
-
 def test_powercut_replay_of_a_port_commit(tmp_path, monkeypatch):
     """Every sampled crash prefix of a port manager's commit restores the
     previous checkpoint or the complete new one; the complete op log
@@ -258,3 +259,213 @@ def test_powercut_replay_of_a_port_commit(tmp_path, monkeypatch):
                 assert step == 2, f"complete commit rolled back to {step}"
     finally:
         crashsim.materialize(d, rec.final)
+
+
+# ------------------------------------------- sets, parity and deltas --
+CB = 1 << 12   # 4 KiB chunks: one edit dirties one chunk
+
+
+def _bump(state, k: int):
+    """The state after a sparse update: one element of ``params/w`` and
+    the count change (as a step that touches little would)."""
+    out = jax.tree_util.tree_map(lambda t: t.clone(), state)
+    out["params"]["w"][k % 17, k % 5] += 1.0
+    out["opt"] = out["opt"]._replace(count=out["opt"].count + 1)
+    return out
+
+
+def _jbump(state, k: int):
+    arrays = jax.tree_util.tree_map(np.asarray, state)
+    w = arrays["params"]["w"].copy()
+    w[k % 17, k % 5] += 1.0
+    params = dict(arrays["params"], w=jnp.asarray(w))
+    return {"params": params, "opt": arrays["opt"]._replace(
+        count=jnp.asarray(arrays["opt"].count + 1))}
+
+
+@pytest.mark.parametrize("layout", [dict(shards=2, parity=1),
+                                    dict(shards=4, parity=2, delta=True),
+                                    dict(shards=0, delta=True)])
+def test_set_and_delta_saves_are_byte_identical_to_jax(tmp_path, layout):
+    """Three steps (a full save, then deltas where asked): every file the
+    two managers leave, sidecars included, is the same."""
+    jstate, tstate = _jstate(3), _tstate(3)
+    with JManager(str(tmp_path / "j"), keep=2, chunk_bytes=CB,
+                  **layout) as mgr:
+        for step in (1, 2, 3):
+            mgr.save(step, jstate, blocking=True)
+            jstate = _jbump(jstate, step)
+    with CheckpointManager(str(tmp_path / "t"), keep=2, chunk_bytes=CB,
+                           vendor=REFERENCE_VENDOR, **layout) as mgr:
+        for step in (1, 2, 3):
+            mgr.save(step, tstate, blocking=True)
+            tstate = _bump(tstate, step)
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == names
+    for f in names:
+        assert (tmp_path / "t" / f).read_bytes() == \
+            (tmp_path / "j" / f).read_bytes(), f
+
+
+def test_delta_chain_and_its_cap(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_SCDA_DELTA", "1")
+    monkeypatch.setenv("REPRO_SCDA_DELTA_CHAIN", "2")
+    states = [_tstate(1)]
+    with CheckpointManager(str(tmp_path), keep=10, chunk_bytes=CB) as mgr:
+        assert mgr.delta and mgr.delta_chain == 2
+        for step in range(5):
+            mgr.save(step, states[-1], blocking=True)
+            states.append(_bump(states[-1], step))
+        docs = [tio.read_manifest(mgr.path_for(k)) for k in range(5)]
+        assert [(d.get("delta") or {}).get("depth", 0) for d in docs] == \
+            [0, 1, 2, 0, 1]
+        assert docs[3]["version"] == 1 and docs[3]["leaves"][0]["chunks"]
+        for step in range(5):
+            got, s = mgr.restore(step, _like())
+            assert s == step
+            _assert_same(got, states[step], f"step {step}")
+
+
+def test_retention_keeps_a_referenced_base(tmp_path):
+    """keep=1 with a sharded delta chain: the newest step's shards still
+    reference the first set, so it stays, whole, with its parity."""
+    states = [_tstate(2)]
+    with CheckpointManager(str(tmp_path), keep=1, shards=2, parity=1,
+                           delta=True, chunk_bytes=CB) as mgr:
+        for step in (3, 5):
+            mgr.save(step, states[-1], blocking=True)
+            states.append(_bump(states[-1], step))
+        assert mgr.all_steps() == [3, 5]
+        doc = tsh.load_set(mgr.path_for(5))
+        bases = {b["file"] for sd in doc["shard_docs"]
+                 for b in (sd.get("delta") or {}).get("bases", [])}
+        assert bases and all(b.startswith("step_0000000003-s")
+                             for b in bases)
+        names = set(os.listdir(tmp_path))
+        for f in ("step_0000000003-s00of02.scda",
+                  "step_0000000003-s01of02.scda",
+                  "step_0000000003-p00of01.scda"):
+            assert f in names and f + ".scdax" in names
+        got, step = mgr.restore_latest(_like())
+    assert step == 5
+    _assert_same(got, states[1])
+
+
+def test_retention_drops_whole_sets_and_sweeps_orphans(tmp_path):
+    with CheckpointManager(str(tmp_path), keep=2, shards=2,
+                           parity=2) as mgr:
+        mgr.save(1, _tstate(1), blocking=True)
+        orphan = str(tmp_path / "step_0000000099-s00of02.scda")
+        tio.save(orphan, _tstate(9), step=99)
+        orphan_parity = str(tmp_path / "step_0000000098-p01of02.scda")
+        (tmp_path / "step_0000000098-p01of02.scda").write_bytes(b"x")
+        for step in (2, 3, 4):
+            mgr.save(step, _tstate(step), blocking=True)
+        assert mgr.all_steps() == [3, 4]
+    names = sorted(n for n in os.listdir(tmp_path) if n != ".scda-lock")
+    assert not os.path.exists(orphan) and not os.path.exists(orphan_parity)
+    want = []
+    for step in (3, 4):
+        stem = f"step_{step:010d}"
+        for f in (f"{stem}-p00of02.scda", f"{stem}-p01of02.scda",
+                  f"{stem}-s00of02.scda", f"{stem}-s01of02.scda",
+                  f"{stem}.scda"):
+            want += [f, f + ".scdax"]
+    assert names == sorted(want)
+
+
+def test_knobs_select_the_layout(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_SCDA_SHARDS", "3")
+    monkeypatch.setenv("REPRO_SCDA_PARITY", "2")
+    monkeypatch.setenv("REPRO_SCDA_DELTA", "1")
+    with CheckpointManager(str(tmp_path)) as mgr:
+        assert (mgr.shards, mgr.parity, mgr.delta) == (3, 2, True)
+        mgr.save(1, _tstate(1), blocking=True)
+        mgr.save(2, _bump(_tstate(1), 1), blocking=True)
+        doc = tsh.load_set(mgr.path_for(2))
+    assert len(doc["shards"]) == 3 and doc["parity"]["m"] == 2
+    assert tsh.chain_depth(doc) == 1
+    monkeypatch.setenv("REPRO_SCDA_SHARDS", "0")
+    with CheckpointManager(str(tmp_path / "flat")) as mgr:
+        assert (mgr.shards, mgr.parity) == (0, 0)
+    monkeypatch.setenv("REPRO_SCDA_SHARDS", "2")
+    monkeypatch.setenv("REPRO_SCDA_PARITY", "3")
+    with pytest.raises(ScdaError):
+        CheckpointManager(str(tmp_path / "bad"))
+
+
+@pytest.mark.parametrize("lost", ["data", "two data"])
+def test_restore_latest_through_lost_shards(tmp_path, lost):
+    """The newest set lost shards within its parity: restore_latest
+    reconstructs them (no fallback to the older step), and a delta saved
+    next takes the older set as its base, as the newest cannot be opened
+    whole (the reference's choice)."""
+    d = str(tmp_path / "c")
+    with CheckpointManager(d, keep=3, shards=3, parity=2,
+                           delta=True) as mgr:
+        mgr.save(1, _tstate(1), blocking=True)
+        mgr.save(2, _tstate(2), blocking=True)
+        for k in range(1 if lost == "data" else 2):
+            os.remove(tsh.shard_file(mgr.path_for(2), k, 3))
+    with CheckpointManager(d, keep=3, shards=3, parity=2,
+                           delta=True) as mgr:
+        got, step = mgr.restore_latest(_like(), device="cpu")
+        assert step == 2
+        _assert_same(got, _tstate(2))
+        mgr.save(3, _tstate(3), blocking=True)
+        doc = tsh.load_set(mgr.path_for(3))
+        assert tsh.chain_depth(doc) == 1
+        assert {b["file"][:16] for sd in doc["shard_docs"]
+                for b in sd["delta"]["bases"]} == {"step_0000000001-"}
+        got, _ = mgr.restore(3, _like())
+        _assert_same(got, _tstate(3))
+
+
+def _ckpt_events(trace_mod, path):
+    """The ckpt-category records of a trace, in order: name and args,
+    each path by its base name."""
+    out = []
+    for ev in trace_mod.load_chrome(path):
+        if ev["cat"] != "ckpt":
+            continue
+        args = {k: (os.path.basename(v) if k == "path" else v)
+                for k, v in (ev.get("args") or {}).items()}
+        out.append((ev["name"], args))
+    return out
+
+
+def test_set_save_emits_the_references_trace_records(tmp_path):
+    """A set saved by ``save`` and by the manager (with a delta) emits the
+    reference's span and event names and arguments in the same order;
+    the port's manager adds only its ``snapshot`` span (the pinned host
+    copy, which the reference does not take)."""
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    jdir.mkdir()
+    tdir.mkdir()
+
+    def run(trace_mod, save_fn, manager, state, bump, d):
+        path = str(d / "trace.json")
+        tc = trace_mod.install(trace_mod.TraceCollector(path=path))
+        try:
+            save_fn(str(d / "set.scda"), state)
+            with manager(str(d / "m"), keep=1, shards=3, parity=2,
+                         delta=True, chunk_bytes=CB) as mgr:
+                mgr.save(1, state, blocking=True)
+                mgr.save(2, bump(state, 1), blocking=True)
+        finally:
+            trace_mod.uninstall()
+        tc.export()
+        return _ckpt_events(trace_mod, path)
+
+    jev = run(jtrace, lambda p, s: jio.save(p, s, step=1, shards=3, parity=2),
+              JManager, _jstate(4), _jbump, jdir)
+    tev = run(ttrace, lambda p, s: tio.save(p, s, step=1, shards=3, parity=2,
+                                            vendor=REFERENCE_VENDOR),
+              lambda *a, **k: CheckpointManager(*a, vendor=REFERENCE_VENDOR,
+                                                **k),
+              _tstate(4), _bump, tdir)
+    assert [e for e in tev if e[0] != "snapshot"] == jev
+    assert [e[0] for e in tev].count("snapshot") == 2
+    names = {e[0] for e in jev}
+    assert {"save", "plan", "write_archive", "shard_placement", "commit",
+            "parity_encode", "retention"} <= names

@@ -23,7 +23,15 @@ prompt, then 32 greedy tokens).
   deleted, those two rebuilt to their original SHA-256; then the
   attention weights of 2 of the 28 layers are changed on the card and
   saved as a delta of the set, whose stored chunks must be the 1 MiB
-  chunks that changed, and the chain restored bit-equal;
+  chunks that changed, and the chain restored bit-equal; then 4 gloo
+  ranks spawned on the one card (``repro_torch.distributed.ranks``)
+  restore the weights' file onto the placement rules' DTensors
+  (``distributed.sharding.params_shardings``) of the meshes (2, 2), (4,
+  1) and (1, 4), every local shard held bit-equal against a host restore,
+  and save them back with ``TorchDistComm``, each rank its own bytes
+  (each file's SHA-256 must be the single-process file's); then restore
+  it fully replicated and with P(("data", "model"), None) on the 2-D
+  leaves, with the prefetch engine and without;
 - falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
   16, vocab 65 024; 14.0 GB of weights) through the fused K2 selective
   scan, which every prefill layer launches and no decode step does; then
@@ -69,7 +77,7 @@ Then seven models train at full width (8192 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
 after step 3's save, run 2 resumes bit-exactly.  All are cut
 in depth (``*_TRAIN_LAYERS``) to keep the run's time well under its limit
-and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 6 of its 28
+and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 4 of its 28
 layers, trains through K1's forward and its backward (8 x 1024 tokens),
 saving its state through the reference launcher's knobs
 (REPRO_SCDA_SHARDS=4, REPRO_SCDA_PARITY=2, REPRO_SCDA_DELTA=1): step 3's
@@ -263,10 +271,14 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: them too: two state files coexist while the final save commits, and the
 #: run keeps its footprint under 45 GiB (falcon's at 64 layers would also
 #: not fit the card: 112 GB at 16 B a parameter; zamba2's two at 54 layers
-#: are 54.3 GB, gemma3's at 34 are 93.1 GB).
+#: are 54.3 GB, gemma3's at 34 are 93.1 GB).  The distributed phase of
+#: qwen3's weights (69 s in its first full run, a run of 1042.9 s to
+#: "done" on an H100 machine that took 198.8 s over the kernel checks,
+#: 35.1 s more than the machine of the 825.6 s run) cut qwen3's training
+#: from 6 layers to 4 (512,510,976 parameters).
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
-QWEN_TRAIN_LAYERS = 6
+QWEN_TRAIN_LAYERS = 4
 FALCON_TRAIN_LAYERS = 2
 #: zamba2's cut is in whole groups (1 of its 9, so 1 shared-attention
 #: application).  Its device memory fits at 54 layers (a 53.6 GB peak).
@@ -325,6 +337,21 @@ SET_LOST = (1, 3)
 DELTA_LAYERS = (5, 17)
 SET_KNOBS = {"REPRO_SCDA_SHARDS": str(SET_SHARDS),
              "REPRO_SCDA_PARITY": str(SET_PARITY), "REPRO_SCDA_DELTA": "1"}
+#: qwen3-1.7b's weights as DTensors on DIST_RANKS spawned gloo ranks, all
+#: on the one card: restored onto ``params_shardings`` of each mesh of
+#: DIST_MESHES (axes DIST_AXES) and saved from there, and restored onto
+#: DIST_EXTRA, with and without prefetch: the reference's third elastic
+#: case (``tests/helpers/elastic_roundtrip.py:103``), P(("data",
+#: "model"), None) on the 2-D leaves, and every leaf replicated.  The
+#: runs of DIST_EXTRA[DIST_EXTRA_SPLIT[i]:DIST_EXTRA_SPLIT[i + 1]] follow
+#: mesh i's save, so that the main process's hash of each saved file
+#: (about 4 s) runs beside them.
+DIST_RANKS = 4
+DIST_AXES = ("data", "model")
+DIST_MESHES = ((2, 2), (4, 1), (1, 4))
+DIST_EXTRA = (("elastic", (2, 2), None), ("elastic", (2, 2), 0),
+              ("replicated", (4, 1), None), ("replicated", (4, 1), 0))
+DIST_EXTRA_SPLIT = (0, 2, 3, 4)
 
 
 _START = time.perf_counter()
@@ -1442,8 +1469,13 @@ def library_backend(torch, fn) -> str:
 
 
 # ---------------------------------------------------------------- phase 3 --
-def checkpoint_phase(torch, cfg, tmp):
+def checkpoint_phase(torch, cfg, tmp, keep: bool = False):
+    """Save the model's seeded bf16 weights and restore them onto the card
+    bit-equal.  ``keep``: the file (with the reference's vendor) stays
+    for a later phase, its path in the record's ``path``."""
     from repro_torch.checkpoint import save
+    from repro_torch.checkpoint.pytree_io import (DEFAULT_VENDOR,
+                                                  REFERENCE_VENDOR)
     from repro_torch.models import init_lm, param_bytes
     from repro_torch.serve import load_weights
     cuda = torch.device("cuda")
@@ -1452,7 +1484,8 @@ def checkpoint_phase(torch, cfg, tmp):
     nbytes = param_bytes(params)
     path = os.path.join(tmp, f"{cfg.name}-bf16.scda")
     t0 = time.perf_counter()
-    save(path, params, step=1000)
+    save(path, params, step=1000,
+         vendor=REFERENCE_VENDOR if keep else DEFAULT_VENDOR)
     t_save = time.perf_counter() - t0
     size = os.path.getsize(path)
     t0 = time.perf_counter()
@@ -1461,7 +1494,8 @@ def checkpoint_phase(torch, cfg, tmp):
     t_restore = time.perf_counter() - t0
     check(step == 1000, f"restored step {step}")
     n = hold_leaves(torch, weights, params, "the restore")
-    os.remove(path)
+    if not keep:
+        os.remove(path)
     print(f"checkpoint {cfg.name}: {n} leaves bit-equal, {nbytes} B of "
           f"weights, file {size} B, save {size / t_save / 1e6:.1f} MB/s "
           f"({t_save:.3f} s), restore {size / t_restore / 1e6:.1f} MB/s "
@@ -1469,7 +1503,8 @@ def checkpoint_phase(torch, cfg, tmp):
     del params
     return weights, dict(weight_bytes=nbytes, file_bytes=size,
                          save_mb_s=size / t_save / 1e6,
-                         restore_mb_s=size / t_restore / 1e6)
+                         restore_mb_s=size / t_restore / 1e6,
+                         path=path if keep else None)
 
 
 def sha256_file(path: str) -> str:
@@ -1687,6 +1722,256 @@ def weights_set_phase(torch, cfg, weights, tmp):
           f"delta set {rec['delta_set_bytes']} B); save {t_delta:.3f} s "
           f"({rec['delta_mb_s']:.1f} MB/s of weights); chained restore "
           f"{rec['chain_restore_mb_s']:.1f} MB/s ({t:.3f} s), bit-equal")
+    return rec
+
+
+def hold_local_shards(torch, got, host, what: str) -> int:
+    """Every leaf of ``got`` a DTensor whose local tensor is on this
+    rank's card and bit-equal to the same slice of ``host`` (the whole
+    values, on the host); returns the number of leaves."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    named = flatten_named(got)[0]
+    check(sorted(n for n, _ in named) == sorted(host), f"{what}: leaves")
+    for name, t in named:
+        check(isinstance(t, DTensor), f"{what}: {name} is no DTensor")
+        local = t.to_local()
+        check(local.device.type == "cuda", f"{what}: {name} on "
+              f"{local.device}")
+        lshape, off = compute_local_shape_and_global_offset(
+            t.shape, t.device_mesh, t.placements)
+        want = host[name][tuple(slice(o, o + n)
+                                for o, n in zip(off, lshape))]
+        want = want.to(local.device).reshape(-1).view(torch.uint8)
+        check(torch.equal(local.reshape(-1).view(torch.uint8), want),
+              f"{what}: {name}'s local shard is not bit-equal")
+    return len(named)
+
+
+def dist_rank(cfg, f0: str, d: str, saved, verdicts):
+    """One of DIST_RANKS spawned gloo ranks (on the card, ``spawn_ranks``):
+    restore F0 onto each mesh's ``params_shardings``, hold every local
+    shard against a host restore of F0, save with ``TorchDistComm``
+    (rank 0 hands each file to the main process, which hashes and
+    deletes it, and waits for its verdict before the next save), and
+    restore onto DIST_EXTRA's targets, held the same way.  Returns the
+    timings, the bytes this rank owned in each save (what it wrote) and
+    the placement shares."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.checkpoint.pytree_io import (REFERENCE_VENDOR,
+                                                  _local_block,
+                                                  flatten_named)
+    from repro_torch.core.comm import TorchDistComm
+    from repro_torch.distributed import sharding
+    from repro_torch.models import init_lm
+    clock = {"enter": time.time()}
+    comm = TorchDistComm()
+    rank = comm.rank
+    abstract = init_lm(cfg, SEED, device="meta", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    host = dict(flatten_named(restore(f0)[0])[0])
+    t_host = time.perf_counter() - t0
+    clock["host"] = time.time()
+    meshes = {s: init_device_mesh("cuda", s, mesh_dim_names=DIST_AXES)
+              for s in DIST_MESHES}
+    clock["meshes"] = time.time()
+    rec = {"rank": rank, "device": f"cuda:{torch.cuda.current_device()}",
+           "host_restore_s": t_host, "meshes": {}, "extra": {},
+           "clock": clock}
+
+    def timed(fn):
+        comm.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        comm.barrier()
+        return out, time.perf_counter() - t0
+
+    def shares(targets):
+        """The leaves' shares sharded on every mesh dim of size > 1, on
+        some of them, and on none (replicated on every rank)."""
+        counts = [0, 0, 0]
+        leaves = [t for _, t in flatten_named(targets)[0]]
+        for t in leaves:
+            dims = [p.is_shard() for p, n in zip(t.placements,
+                                                 t.device_mesh.shape)
+                    if n > 1]
+            counts[0 if all(dims) else 2 if not any(dims) else 1] += 1
+        return [c / len(leaves) for c in counts]
+
+    abstract_named = flatten_named(abstract)[0]
+
+    def extra(case, shape, pf):
+        mesh = meshes[shape]
+        if case == "replicated":
+            specs = {n: sharding.P() for n, _ in abstract_named}
+        else:
+            specs = {n: (sharding.P(DIST_AXES, None) if leaf.ndim == 2
+                         else sharding.leaf_spec(mesh, n, leaf))
+                     for n, leaf in abstract_named}
+        targets = {n: sharding.target(mesh, specs[n], leaf)
+                   for n, leaf in abstract_named}
+        (got, step), t = timed(lambda: restore(f0, like=targets,
+                                               prefetch_bytes=pf))
+        check(step == 1000, f"{case}: restored step {step}")
+        for name, spec in specs.items():
+            check(list(got[name].placements)
+                  == sharding.placements(mesh, spec),
+                  f"{case}: {name}'s placements")
+        t0 = time.perf_counter()
+        hold_local_shards(torch, got, host, f"{case} on {shape}, "
+                          f"prefetch_bytes={pf}")
+        rec["extra"][(case, pf)] = dict(restore_s=t,
+                                        hold_s=time.perf_counter() - t0,
+                                        shares=shares(targets))
+
+    waiting = False
+    for i, shape in enumerate(DIST_MESHES):
+        mesh = meshes[shape]
+        targets = sharding.params_shardings(mesh, abstract)
+        (got, step), t_restore = timed(lambda: restore(f0, like=targets))
+        check(step == 1000, f"mesh {shape}: restored step {step}")
+        t0 = time.perf_counter()
+        n = hold_local_shards(torch, got, host, f"mesh {shape}")
+        t_hold = time.perf_counter() - t0
+        if rank == 0 and waiting:   # the previous file is hashed and gone
+            check(verdicts.get() is True, "a mesh's file is not F0")
+        path = os.path.join(d, "m{}x{}.scda".format(*shape))
+        _, t_save = timed(lambda: save(path, got, comm=comm, step=1000,
+                                       vendor=REFERENCE_VENDOR))
+        if rank == 0:
+            saved.put(path)
+            waiting = True
+        written = 0
+        for _, leaf in flatten_named(got)[0]:
+            lshape, _, owned = _local_block(leaf)
+            written += math.prod(lshape) * leaf.dtype.itemsize * owned
+        rec["meshes"][shape] = dict(leaves=n, restore_s=t_restore,
+                                    hold_s=t_hold, save_s=t_save,
+                                    written=written,
+                                    shares=shares(targets))
+        del got
+        for run in DIST_EXTRA[DIST_EXTRA_SPLIT[i]:DIST_EXTRA_SPLIT[i + 1]]:
+            extra(*run)
+    if rank == 0 and waiting:
+        check(verdicts.get() is True, "the last mesh's file is not F0")
+    dist.barrier()
+    clock["exit"] = time.time()
+    return rec
+
+
+def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp):
+    """F0, qwen3's weights as one flat file with the reference's vendor
+    (``checkpoint_phase``'s): DIST_RANKS gloo ranks on the card restore it
+    onto each mesh of DIST_MESHES and save it from there (each file's
+    SHA-256 must be F0's: hashed and deleted here while the ranks go on,
+    so at most two such files exist at once), then restore it onto
+    DIST_EXTRA, with and without prefetch; every local shard bit-equal to
+    a host restore of F0.  F0 is deleted at the end."""
+    import threading
+    from repro_torch.distributed.ranks import spawn_ranks
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "dist")
+    os.makedirs(d)
+    size = os.path.getsize(f0)
+    ctx = torch.multiprocessing.get_context("spawn")
+    saved, verdicts = ctx.SimpleQueue(), ctx.SimpleQueue()
+    hashed, f0_hash = [], {}
+
+    def hasher():
+        # F0's digest while the ranks start, then each rank file's; a
+        # verdict for every file, so that rank 0 never waits in vain
+        t0 = time.perf_counter()
+        try:
+            digest = sha256_file(f0)
+        except OSError as e:
+            digest, f0_hash["error"] = None, repr(e)
+        f0_hash["s"] = time.perf_counter() - t0
+        for _ in DIST_MESHES:
+            path = saved.get()
+            try:
+                ok = digest is not None and sha256_file(path) == digest
+                os.remove(path)
+            except OSError as e:
+                ok = repr(e)
+            hashed.append((os.path.basename(path), ok))
+            verdicts.put(ok)
+
+    thread = threading.Thread(target=hasher, daemon=True)
+    thread.start()
+    t0, spawned = time.perf_counter(), time.time()
+    ranks = spawn_ranks(dist_rank, DIST_RANKS, cfg, f0, d, saved,
+                        verdicts, device="cuda")
+    t_ranks, ended = time.perf_counter() - t0, time.time()
+    thread.join(10)
+    check(len(hashed) == len(DIST_MESHES)
+          and all(ok is True for _, ok in hashed),
+          f"the ranks' files against F0's SHA-256: {hashed}")
+    check(not os.listdir(d), f"{d} holds {os.listdir(d)}")
+    os.remove(f0)
+    shutil.rmtree(d)
+    r0 = ranks[0]
+    t_hash = f0_hash["s"]
+    rec = dict(ranks=DIST_RANKS, file_bytes=size, f0_hash_s=t_hash,
+               ranks_s=t_ranks, meshes={}, extra={},
+               host_restore_s=[r["host_restore_s"] for r in ranks])
+    print(f"distributed checkpoints {cfg.name}: F0 {size} B (the "
+          f"reference's vendor), SHA-256 in {t_hash:.3f} s; {DIST_RANKS} gloo "
+          f"ranks on {[r['device'] for r in ranks]} (spawned and "
+          f"run in {t_ranks:.3f} s; each restored F0 to the host in "
+          f"{[round(r['host_restore_s'], 3) for r in ranks]} s)")
+    clocks = [r["clock"] for r in ranks]
+    rec["spans_s"] = dict(
+        start=max(c["enter"] for c in clocks) - spawned,
+        host_restore=max(c["host"] for c in clocks)
+        - max(c["enter"] for c in clocks),
+        meshes=max(c["meshes"] for c in clocks)
+        - max(c["host"] for c in clocks),
+        steps=max(c["exit"] for c in clocks)
+        - max(c["meshes"] for c in clocks),
+        end=ended - max(c["exit"] for c in clocks))
+    print("  the ranks' time, s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rec["spans_s"].items())
+        + " (start: spawn to the last rank's first step; end: its last "
+          "step to the spawn's return)")
+    for shape in DIST_MESHES:
+        m = r0["meshes"][shape]
+        written = [r["meshes"][shape]["written"] for r in ranks]
+        check(sum(written) == nbytes, f"mesh {shape}: the ranks wrote "
+              f"{written} B, the leaves hold {nbytes} B")
+        key = "{}x{}".format(*shape)
+        rec["meshes"][key] = dict(
+            restore_s=m["restore_s"], restore_mb_s=size / m["restore_s"]
+            / 1e6, save_s=m["save_s"], save_mb_s=size / m["save_s"] / 1e6,
+            written=written, shares=m["shares"])
+        print(f"  mesh {shape} {DIST_AXES}: restore "
+              f"{rec['meshes'][key]['restore_mb_s']:.1f} MB/s "
+              f"({m['restore_s']:.3f} s), {m['leaves']} local shards "
+              f"bit-equal on every rank (held in {m['hold_s']:.3f} s); save "
+              f"{rec['meshes'][key]['save_mb_s']:.1f} MB/s "
+              f"({m['save_s']:.3f} s), SHA-256 equal to F0's; bytes "
+              f"written by ranks 0-{DIST_RANKS - 1} {written}; leaves "
+              f"sharded on every mesh dim, on some, on none: "
+              f"{[round(x, 4) for x in m['shares']]}")
+    for case, shape, pf in DIST_EXTRA:
+        e = r0["extra"][(case, pf)]
+        rec["extra"][f"{case}-pf{pf}"] = dict(
+            restore_s=e["restore_s"], hold_s=e["hold_s"],
+            restore_mb_s=size / e["restore_s"] / 1e6, shares=e["shares"])
+        print(f"  {case} on {shape}, prefetch_bytes={pf}: restore "
+              f"{size / e['restore_s'] / 1e6:.1f} MB/s of F0 "
+              f"({e['restore_s']:.3f} s), every local shard bit-equal (held "
+              f"in {e['hold_s']:.3f} s); leaves sharded on every mesh dim, "
+              f"on some, on none: {[round(x, 4) for x in e['shares']]}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {smi_line()}")
+    print(f"distributed checkpoints phase: {rec['phase_s']:.3f} s")
     return rec
 
 
@@ -2272,9 +2557,13 @@ def qwen_path(torch, K, tmp):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     cfg = get_config(QWEN)
-    weights, ckpt = checkpoint_phase(torch, cfg, tmp)
+    weights, ckpt = checkpoint_phase(torch, cfg, tmp, keep=True)
     phase(f"{QWEN} weights as a set")
     ckpt["set"] = weights_set_phase(torch, cfg, weights, tmp)
+    phase(f"{QWEN} distributed checkpoints ({DIST_RANKS} ranks on one "
+          f"H100)")
+    ckpt["dist"] = dist_checkpoint_phase(torch, cfg, ckpt["weight_bytes"],
+                                         ckpt.pop("path"), tmp)
     zero_counts(K)                            # the main path starts
     prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"])
     serve, out = serve_phase(torch, cfg, weights, K["k1"])

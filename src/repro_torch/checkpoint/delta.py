@@ -447,7 +447,7 @@ def _restore_chained(pio, resolver: ChainResolver, wanted,
                 ScdaErrorCode.CORRUPT_ENCODING,
                 f"leaf {name}: chunk reference tables disagree with the "
                 f"leaf geometry")
-        needed = layout.chunks_for_runs(leaf["runs"], cb)
+        needed = layout.chunks_for_runs(pio._leaf_runs(leaf), cb)
         by_sid: Dict[int, List[int]] = {}
         for c in needed:
             by_sid.setdefault(src[c], []).append(c)
@@ -465,12 +465,14 @@ def _restore_chained(pio, resolver: ChainResolver, wanted,
             plan.sort(key=lambda p: p[1][0])
             order = [c for c, _ in plan]
             extents = [ext for _, ext in plan]
-            # A leaf is one buffer here, so stored chunks are read straight
-            # into their place in it (the reference reads, then scatters).
-            dst = None if inflate else [
-                leaf["arr"][c * cb:c * cb + usizes[c]] for c in order]
+            # A whole leaf is one buffer, so its stored chunks are read
+            # straight into their place in it (the reference reads, then
+            # scatters); a DTensor target's shard is scattered into.
+            in_place = not inflate and leaf["whole"]
+            dst = [leaf["arr"][c * cb:c * cb + usizes[c]]
+                   for c in order] if in_place else None
             items_by_src.setdefault(sid, []).append(ReadItem(
-                (leaf_pos, order, sid, extents, inflate), extents,
+                (leaf_pos, order, sid, extents, in_place), extents,
                 inflate=inflate,
                 expected_sizes=([usizes[c] for c in order]
                                 if inflate else None), dst=dst))
@@ -519,7 +521,7 @@ def _drain_source(pio, resolver: ChainResolver, leaves, values, rr,
                   items: List[ReadItem], prefetch_bytes: int,
                   strong: bool) -> None:
     for key, res in run_pipeline(rr._backend, items, prefetch_bytes):
-        leaf_pos, order, sid_, extents, inflated = key
+        leaf_pos, order, sid_, extents, in_place = key
         leaf = leaves[leaf_pos]
         table = leaf["spec"]["chunks"]
         cb = int(table["bytes"])
@@ -542,8 +544,8 @@ def _drain_source(pio, resolver: ChainResolver, leaves, values, rr,
                         f"{resolver.base_file(sid_)} fails its recorded "
                         f"content hash", offset=ext[0])
             chunks[c] = payload
-        if inflated:  # raw chunks were read in place
-            _scatter_subset(leaf["runs"], chunks, cb, leaf["arr"])
+        if not in_place:
+            _scatter_subset(pio._leaf_runs(leaf), chunks, cb, leaf["arr"])
         leaf["pending"] -= 1
         if leaf["pending"] == 0:
             values[leaf["name"]] = pio._finalize_leaf(leaf)

@@ -83,11 +83,21 @@ def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
     allocated here (a buffer is reused when shape and dtype still match).
     The copies are asynchronous and synchronised before the return.  CPU
     leaves are cloned; anything else is passed through.
+
+    The manager is single-process, as the reference's is: a DTensor leaf
+    raises, naming the leaf, and is never gathered.  Save a DTensor state
+    with ``pytree_io.save(..., comm=TorchDistComm())`` on every rank.
     """
     pinned = {} if pinned is None else pinned
     named, rebuild = pytree_io.flatten_named(tree)
     out, cuda = [], False
     for name, x in named:
+        if pytree_io._is_dtensor(x):
+            raise ScdaError(
+                ScdaErrorCode.ARG_SEQUENCE,
+                f"leaf {name}: a DTensor; the CheckpointManager is "
+                f"single-process — save DTensor state with "
+                f"pytree_io.save(..., comm=TorchDistComm()) on every rank")
         if isinstance(x, torch.Tensor):
             x = x.detach()
             if x.device.type == "cuda":

@@ -21,7 +21,7 @@ where the format is defined independently of MPI.
 from repro_torch.core.errors import ScdaError, ScdaErrorCode, ferror_string
 from repro_torch.core import spec, encode, codec, partition, pipeline
 from repro_torch.core.comm import (Communicator, SerialComm, ThreadComm,
-                                   run_ranks)
+                                   TorchDistComm, run_ranks)
 from repro_torch.core.io_backend import FileBackend
 from repro_torch.core.writer import (ScdaWriter, fopen_write, fopen_append,
                                DEFAULT_VENDOR)
@@ -32,7 +32,7 @@ from repro_torch.core.index import IndexEntry, ScdaIndex
 __all__ = [
     "ScdaError", "ScdaErrorCode", "ferror_string",
     "spec", "encode", "codec", "partition", "pipeline",
-    "Communicator", "SerialComm", "ThreadComm",
+    "Communicator", "SerialComm", "ThreadComm", "TorchDistComm",
     "run_ranks", "FileBackend",
     "ScdaWriter", "fopen_write", "fopen_append", "DEFAULT_VENDOR",
     "ScdaReader", "SectionHeader", "fopen_read", "scan_sections",

@@ -2,13 +2,16 @@
 
 The scda API is collective over an MPI communicator.  This module provides
 the minimal collective surface the format needs (barrier / broadcast /
-allgather) behind one interface with two implementations:
+allgather) behind one interface with three implementations:
 
-  * :class:`SerialComm` — one rank; the common case inside a single JAX
-    process (all local devices' shards are addressable, one writer).
+  * :class:`SerialComm` — one rank; the common case of one process
+    holding every tensor it saves (one writer).
   * :class:`ThreadComm` — P genuine concurrent ranks backed by threads.
     Used by tests and benchmarks to demonstrate partition-independent
     parallel writes against one shared file, byte-for-byte.
+  * :class:`TorchDistComm` — one rank per process of a
+    ``torch.distributed`` group (gloo or NCCL), the counterpart of the
+    reference's ``JaxProcessComm``.  With one rank it is SerialComm.
 
 Only *values needed for file layout* travel through these collectives
 (section parameters, compressed sizes); bulk data never does — each rank
@@ -134,3 +137,46 @@ def run_ranks(comms: Sequence[ThreadComm],
         raise errors[0]
     return results
 
+
+
+class TorchDistComm(Communicator):
+    """One rank per process of a ``torch.distributed`` group.
+
+    ``rank`` and ``size`` are the process's in ``group`` (default: the
+    default group, which must be initialised).  The collectives are
+    ``torch.distributed``'s object collectives, so they carry any
+    picklable value and work on gloo; with one rank every call
+    short-circuits, as the reference's ``JaxProcessComm`` does.
+    """
+
+    def __init__(self, group=None) -> None:
+        import torch.distributed as dist
+        self._dist = dist
+        self._group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+
+    def _global(self, rank: int) -> int:
+        if self._group is None:
+            return rank
+        return self._dist.get_global_rank(self._group, rank)
+
+    def barrier(self) -> None:
+        if self.size == 1:
+            return
+        self._dist.barrier(group=self._group)
+
+    def bcast(self, value: Any, root: int = 0) -> Any:
+        if self.size == 1:
+            return value
+        box = [value]
+        self._dist.broadcast_object_list(box, src=self._global(root),
+                                         group=self._group)
+        return box[0]
+
+    def allgather(self, value: Any) -> List[Any]:
+        if self.size == 1:
+            return [value]
+        out: List[Any] = [None] * self.size
+        self._dist.all_gather_object(out, value, group=self._group)
+        return out

@@ -1,1 +1,2 @@
-"""What the distributed layer holds on one device: gradient compression."""
+"""The distributed layer: gradient compression, the parameter-placement
+rules on a DeviceMesh (``sharding``) and spawned gloo ranks (``ranks``)."""

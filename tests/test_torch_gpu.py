@@ -5,7 +5,8 @@ falcon-mamba, zamba2, gemma3, granite-moe, whisper, llava) on CUDA against
 the same models on the CPU, their training paths (loss, gradients; kill
 and resume for the first five),
 and checkpoint round trips of CUDA tensors (flat, as a parity-protected
-set without one of its shards, and as a delta).  Every
+set without one of its shards, as a delta, and as DTensors saved by two
+gloo ranks on the card and restored under another mesh).  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -523,6 +524,79 @@ def test_set_with_a_lost_shard_and_a_delta_of_cuda_tensors(cuda, tmp_path):
         assert got[k].device.type == "cuda" and torch.equal(
             got[k].view(torch.uint8), t.view(torch.uint8)), k
     assert read_sharded_manifest(path)["parity"]["m"] == 2
+
+
+def _dtensor_state(device):
+    rng = np.random.default_rng(26)
+    return {"w": _rand(rng, (64, 48), torch.bfloat16, device),
+            "v": _rand(rng, (30,), torch.float32, device),
+            "n": torch.tensor(5, dtype=torch.int32, device=device)}
+
+
+def _as_dtensor(full, mesh, spec):
+    """``full`` as a DTensor on ``mesh`` under ``spec``, each rank keeping
+    its own block (no collective)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.distributed.sharding import placements
+    pl = placements(mesh, spec)
+    lshape, off = compute_local_shape_and_global_offset(
+        tuple(full.shape), mesh, pl)
+    local = full[tuple(slice(o, o + n) for o, n in zip(off, lshape))]
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def _two_rank_dtensor_checkpoint(path):
+    """Rank body (``spawn_ranks``, 2 gloo ranks on one card): save the
+    state as DTensors of CUDA tensors on a (2, 1) mesh, then restore it
+    onto a (1, 2) mesh with other placements; every restored local shard
+    on the card and bit-equal to its slice of the state."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.comm import TorchDistComm
+    from repro_torch.distributed.sharding import P, target
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    state = _dtensor_state(cuda)
+    axes = ("data", "model")
+    m21 = init_device_mesh("cuda", (2, 1), mesh_dim_names=axes)
+    m12 = init_device_mesh("cuda", (1, 2), mesh_dim_names=axes)
+    saved = {"w": P("data", "model"), "v": P("data"), "n": P()}
+    save(path, {k: _as_dtensor(v, m21, saved[k]) for k, v in state.items()},
+         comm=TorchDistComm(), step=7)
+    restored = {"w": P(None, "model"), "v": P(), "n": P()}
+    got, step = restore(path, like={k: target(m12, restored[k], v)
+                                    for k, v in state.items()})
+    out = {"step": step}
+    for k, t in got.items():
+        local = t.to_local()
+        lshape, off = compute_local_shape_and_global_offset(
+            t.shape, m12, t.placements)
+        want = state[k][tuple(slice(o, o + n) for o, n in zip(off, lshape))]
+        out[k] = (local.device.type == "cuda" and torch.equal(
+            local.reshape(-1).view(torch.uint8),
+            want.contiguous().reshape(-1).view(torch.uint8)))
+    return out
+
+
+def test_dtensor_checkpoint_of_cuda_tensors_on_two_ranks(cuda, tmp_path):
+    """Two gloo ranks on one card write a DTensor state of CUDA tensors
+    (each rank its own windows): the file is a single process's save of
+    the same values, and it restores under another mesh, exact."""
+    from repro_torch.checkpoint import save
+    from repro_torch.distributed.ranks import spawn_ranks
+    path = str(tmp_path / "ranks.scda")
+    results = spawn_ranks(_two_rank_dtensor_checkpoint, 2, path,
+                          device="cuda")
+    single = str(tmp_path / "single.scda")
+    save(single, _dtensor_state(cuda), step=7)
+    with open(path, "rb") as a, open(single, "rb") as b:
+        assert a.read() == b.read()
+    for r in results:
+        assert r == {"step": 7, "w": True, "v": True, "n": True}
 
 
 # ------------------------------------------------------------ K1 backward --

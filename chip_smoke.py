@@ -352,6 +352,44 @@ DIST_MESHES = ((2, 2), (4, 1), (1, 4))
 DIST_EXTRA = (("elastic", (2, 2), None), ("elastic", (2, 2), 0),
               ("replicated", (4, 1), None), ("replicated", (4, 1), 0))
 DIST_EXTRA_SPLIT = (0, 2, 3, 4)
+#: The model path under a mesh, in the distributed phase's ranks, on the
+#: weights they restored: (a) TP + FSDP serving on MESH_TP, a
+#: 4 x MESH_PROMPT prefill and MESH_DECODE decode steps from a seeded
+#: cache of MESH_PROMPT positions; (b) sequence-parallel decode on
+#: MESH_SP, one request, an SP_CACHE cache (SP_CACHE / 4 a rank),
+#: MESH_DECODE steps from SP_START (the new token's owner moves from rank
+#: 2 to rank 3, rank 3's shard starts wholly masked); (c) training
+#: MESH_TRAIN_LAYERS layers at full width, step 0 on MESH_TP saved by its
+#: run's closing save through the ranked manager, step 1 resumed on
+#: MESH_SP.  Cuts to depth and steps (decode 8 -> 4 steps, training 3 ->
+#: 2, for the run's time; (b) from 3070, so the owner still moves); each
+#: is held against one device's run in the parent: the prefill's bf16
+#: logits at TOL_LOGITS, the decode steps replayed in f32 at TOL_MESH_F32
+#: (their largest sound error on an H100 was 2.1e-5), and (c) as
+#: TOL_MESH_LOSS and TOL_MESH_UPDATE say.
+MESH_TP, MESH_SP = (2, 2), (4, 1)
+MESH_PROMPT, MESH_DECODE = 512, 4
+SP_CACHE, SP_START = 4096, 3070
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 2
+MESH_TRAIN_B, MESH_TRAIN_S = 4, 256
+#: (c)'s optimizer: no warmup, so that step 0's update moves step 1's loss
+#: (at the default 100 warmup steps its rate is 6e-6 and the move was
+#: about 0.004 on an H100).
+MESH_TRAIN_OPT = dict(total_steps=MESH_TRAIN_STEPS, warmup_steps=0)
+TOL_MESH_F32 = dict(rtol=1e-3, atol=1e-3)
+#: (c)'s losses against one device's: the mesh sums its bf16 products in
+#: another order (1.6e-4 apart at step 0 on an H100).  The run also checks
+#: that this is MESH_LOSS_MARGIN times smaller than what step 0's update
+#: moves step 1's loss by (one device's loss of step 1's batch before the
+#: update against after it), so that a lost or wrong update shows.
+TOL_MESH_LOSS = dict(rtol=0.0, atol=2e-3)
+MESH_LOSS_MARGIN = 10
+#: (c)'s global gradient norm of each step and each leaf's update norm
+#: (the norm of its parameters' change in the step) against one
+#: device's.  AdamW's first steps move each weight by about the rate,
+#: whatever its gradient's size: a leaf whose gradient is lost moves by
+#: its weight decay alone.
+TOL_MESH_UPDATE = dict(rtol=1e-2, atol=0.0)
 
 
 _START = time.perf_counter()
@@ -696,6 +734,83 @@ def k1_main_shapes(torch, fa, rand, off, model, H, Hkv, D,
             **bound(nbytes, flops, PEAK_BF16_FLOPS)))
     for r in records:
         r["model"] = model
+    return records
+
+
+def decode_lse_checks(torch, fa):
+    """The decode kernel with its log-sum-exp (sequence-parallel decode's
+    merge weights) against the plain decode and ``lse_plain``: f32 at head
+    dims 64, 80, 128 and 256 with the query offset below 0 (every key
+    masked: output 0, lse -inf), 0, inside the keys and past them,
+    windowed and not; then bf16 at qwen3's heads over one rank's shard of
+    (b)'s cache (SP_CACHE / 4 keys), timed with and without the lse beside
+    the plain version.  Returns the records, the main shape's first."""
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 5)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.float32).to(dtype)
+
+    def hold(q, k, v, kw, tol, what):
+        out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        want_lse = fa.lse_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = assert_close(out, want, tol, f"{what}: output")
+        live = torch.isfinite(want_lse)
+        check(torch.equal(live, torch.isfinite(lse)),
+              f"{what}: lse is -inf elsewhere than lse_plain")
+        if bool(live.any()):
+            err = max(err, assert_close(lse[live], want_lse[live], LSE_TOL,
+                                        f"{what}: lse"))
+        return err
+
+    worst, n = 0.0, 0
+    S = 300
+    for D in (64, 80, 128, 256):
+        for pos in (-5, 0, 150, S - 1, S + 200):
+            for window in (None, 64):
+                q = rand(2, 1, 8, D, dtype=torch.float32)
+                k = rand(2, S, 4, D, dtype=torch.float32)
+                v = rand(2, S, 4, D, dtype=torch.float32)
+                kw = dict(window=window, q_offset=torch.tensor(
+                    pos, dtype=torch.int32, device=cuda))
+                worst = max(worst, hold(q, k, v, kw, TOL_F32,
+                                        f"K1 decode+lse f32 D{D} pos {pos} "
+                                        f"window {window}"))
+                n += 1
+    print(f"K1 decode with lse, f32: {n} cases pass, max abs err {worst}")
+    H, Hkv, D = K1_HEADS[QWEN]
+    S = SP_CACHE // MESH_SP[0]
+    bf16 = torch.bfloat16
+    q = rand(1, 1, H, D, dtype=bf16)
+    k = rand(1, S, Hkv, D, dtype=bf16)
+    v = rand(1, S, Hkv, D, dtype=bf16)
+    records = []
+    for pos in (S - 1, S // 2, -S // 2):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        kw = dict(q_offset=p)
+        err = hold(q, k, v, kw, TOL_BF16, f"K1 decode+lse bf16 pos {pos}")
+        live = max(0, min(S, pos + 1))
+        rec = dict(
+            shape=f"decode+lse B1 Skv{S} (one rank's shard of {SP_CACHE}) "
+                  f"q_offset {pos} H{H}/{Hkv} D{D} bf16",
+            kernel="flash_decode_kernel (lse)", model=f"{QWEN}, SP decode",
+            max_abs_err=err,
+            no_lse_ms=device_time_ms(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw), 200),
+            **timings(lambda: fa.flash_attention_cuda(q, k, v, with_lse=True,
+                                                      **kw),
+                      lambda: (fa.flash_attention_plain(q, k, v, **kw),
+                               fa.lse_plain(q, k, v, **kw)), None, 200),
+            **bound(2 * (2 * q.numel() + 2 * live * Hkv * D) + 4 * H,
+                    4 * H * D * live, PEAK_BF16_FLOPS))
+        records.append(rec)
+        print(f"K1 {rec['shape']}: err {err} device ms {rec['ms']:.5f} "
+              f"(without the lse {rec['no_lse_ms']:.5f}) plain "
+              f"{rec['plain_ms']:.5f} bound {rec['bound_ms']:.5f} "
+              f"({rec['bound_by']})")
     return records
 
 
@@ -1750,15 +1865,18 @@ def hold_local_shards(torch, got, host, what: str) -> int:
     return len(named)
 
 
-def dist_rank(cfg, f0: str, d: str, saved, verdicts):
+def dist_rank(cfg, f0: str, d: str, saved, verdicts, mesh_ref):
     """One of DIST_RANKS spawned gloo ranks (on the card, ``spawn_ranks``):
     restore F0 onto each mesh's ``params_shardings``, hold every local
     shard against a host restore of F0, save with ``TorchDistComm``
     (rank 0 hands each file to the main process, which hashes and
     deletes it, and waits for its verdict before the next save), and
-    restore onto DIST_EXTRA's targets, held the same way.  Returns the
-    timings, the bytes this rank owned in each save (what it wrote) and
-    the placement shares."""
+    restore onto DIST_EXTRA's targets, held the same way.  On MESH_TP's
+    restored weights it runs the mesh part (a), on MESH_SP's replicated
+    restore (b), and at the end (c) (``mesh_ref``: the tokens they
+    replay).  Returns
+    the timings, the bytes this rank owned in each save (what it wrote),
+    the placement shares and the mesh parts' records."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1805,7 +1923,7 @@ def dist_rank(cfg, f0: str, d: str, saved, verdicts):
             counts[0 if all(dims) else 2 if not any(dims) else 1] += 1
         return [c / len(leaves) for c in counts]
 
-    abstract_named = flatten_named(abstract)[0]
+    abstract_named, rebuild_abstract = flatten_named(abstract)
 
     def extra(case, shape, pf):
         mesh = meshes[shape]
@@ -1830,6 +1948,16 @@ def dist_rank(cfg, f0: str, d: str, saved, verdicts):
         rec["extra"][(case, pf)] = dict(restore_s=t,
                                         hold_s=time.perf_counter() - t0,
                                         shares=shares(targets))
+        if case == "replicated" and pf is None and shape == MESH_SP:
+            # SP decode serves from weights whole on every rank: this
+            # restore's
+            weights = rebuild_abstract([got[n] for n, _ in abstract_named])
+            with torch.no_grad():
+                rec["mesh_sp"] = mesh_sp_part(torch, cfg, mesh, weights,
+                                              mesh_ref["sp"])
+            del weights, got
+            gc.collect()
+            torch.cuda.empty_cache()
 
     waiting = False
     for i, shape in enumerate(DIST_MESHES):
@@ -1856,27 +1984,659 @@ def dist_rank(cfg, f0: str, d: str, saved, verdicts):
                                     hold_s=t_hold, save_s=t_save,
                                     written=written,
                                     shares=shares(targets))
+        with torch.no_grad():
+            if shape == MESH_TP:
+                rec["mesh_tp"] = mesh_tp_part(torch, cfg, mesh, got,
+                                              mesh_ref["tp"])
         del got
+        gc.collect()
+        torch.cuda.empty_cache()   # the ranks share the card
         for run in DIST_EXTRA[DIST_EXTRA_SPLIT[i]:DIST_EXTRA_SPLIT[i + 1]]:
             extra(*run)
     if rank == 0 and waiting:
         check(verdicts.get() is True, "the last mesh's file is not F0")
+    clock["mesh_train"] = time.time()
+    rec["mesh_train"] = mesh_train_part(torch, cfg, d, meshes[MESH_TP],
+                                        meshes[MESH_SP])
+    from repro_torch.distributed import collectives
+    rec["routed"] = collectives.routed_counts()
     dist.barrier()
     clock["exit"] = time.time()
     return rec
 
 
-def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp):
+# ------------------------------------------------------------ mesh parts --
+def mesh_prompt(torch, cfg):
+    """(a)'s seeded prompts, 4 x MESH_PROMPT tokens on the card (the same
+    in the parent and in every rank)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    return torch.randint(0, cfg.vocab, (PREFILL_B, MESH_PROMPT),
+                         generator=gen, device="cuda", dtype=torch.int32)
+
+
+def seeded_kv(torch, cfg, B, S, filled, seed):
+    """A decode cache's (k, v), (L, B, S, Hkv, D) bf16 on the card: seeded
+    normal values at positions [0, filled), zeros after."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim_)
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    out = []
+    for _ in range(2):
+        t = torch.zeros(shape, dtype=dtype, device="cuda")
+        for i in range(cfg.n_layers):   # a layer at a time: a small draw
+            t[i, :, :filled] = torch.randn(
+                (B, filled) + shape[3:], generator=gen,
+                device="cuda").to(torch.bfloat16).to(dtype)
+        out.append(t)
+    return out
+
+
+def decode_reference(torch, cfg, weights, B, S, filled, first, seed,
+                     steps=MESH_DECODE, fed=None):
+    """The single-device decode the mesh parts replay: a cache of S
+    positions holding ``seeded_kv`` up to ``filled``, ``steps`` greedy
+    steps from ``first`` (B, 1), or with ``fed`` (B, steps) those tokens.
+    Returns the tokens fed (B, steps) and each step's logits, on the
+    host, and the steps' times."""
+    from repro_torch.models.lm import init_cache, serve_step
+    cache = init_cache(cfg, B, S, device="cuda")
+    k, v = seeded_kv(torch, cfg, B, S, filled, seed)
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    del k, v
+    cache["pos"].fill_(filled)
+    tok = first if fed is None else fed[:, :1].to("cuda")
+    given, logits, times = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = serve_step(cfg, weights, cache, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        given.append(tok)
+        logits.append(out.float().cpu())
+        tok = (torch.argmax(out, dim=-1, keepdim=True).to(torch.int32)
+               if fed is None else fed[:, len(given):len(given) + 1]
+               .to("cuda"))
+    return dict(fed=torch.cat(given, 1).cpu(), logits=logits, step_s=times)
+
+
+def mesh_references(torch, cfg, weights):
+    """What the mesh parts are held against, on one device in this
+    process: (a)'s prefill logits and its decode, (b)'s decode, and (c)'s
+    training losses (MESH_TRAIN_LAYERS layers, f32 master weights)."""
+    from repro_torch.models.lm import cast_params
+    from repro_torch.train.step import make_prefill_step
+    t0 = time.perf_counter()
+    prompt = mesh_prompt(torch, cfg)
+    pre = make_prefill_step(cfg)(weights, {"tokens": prompt}).float()
+    tp = decode_reference(
+        torch, cfg, weights, PREFILL_B, MESH_PROMPT + MESH_DECODE,
+        MESH_PROMPT, torch.argmax(pre, -1, keepdim=True).to(torch.int32),
+        SEED + 28)
+    tp["prefill"] = pre.cpu()
+    sp = decode_reference(torch, cfg, weights, 1, SP_CACHE, SP_START,
+                          prompt[:1, :1], SEED + 29)
+    # the same steps in f32 (weights, cache and compute), the same tokens
+    # fed: the mesh's arithmetic apart from bf16's rounding paths
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    w32 = cast_params(weights, torch.float32)
+    tp["f32"] = decode_reference(
+        torch, cfg32, w32, PREFILL_B, MESH_PROMPT + MESH_DECODE,
+        MESH_PROMPT, None, SEED + 28, fed=tp["fed"])
+    sp["f32"] = decode_reference(torch, cfg32, w32, 1, SP_CACHE, SP_START,
+                                 None, SEED + 29, fed=sp["fed"])
+    del w32
+    # two rounding paths on one device: the first step with K1's decode
+    # kernel and with the plain attention, on the same cache
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    with mock.patch.object(ops, "flash_attention", _plain_attention(fa_mod)):
+        for part, B, S, filled, seed in (
+                (tp, PREFILL_B, MESH_PROMPT + MESH_DECODE, MESH_PROMPT,
+                 SEED + 28), (sp, 1, SP_CACHE, SP_START, SEED + 29)):
+            part["plain"] = decode_reference(torch, cfg, weights, B, S,
+                                             filled, None, seed, steps=1,
+                                             fed=part["fed"])["logits"][0]
+    ref = dict(tp=tp, sp=sp, train=mesh_train_reference(torch, cfg))
+    gc.collect()
+    torch.cuda.empty_cache()   # the f32 weights and caches: the ranks need the room
+    ref["s"] = time.perf_counter() - t0
+    return ref
+
+
+def mesh_train_config(cfg):
+    return dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+
+
+def mesh_train_data(cfg):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN_S,
+                                      global_batch=MESH_TRAIN_B, seed=SEED))
+
+
+def snapshot(tree):
+    """Every leaf of ``tree`` (DTensors or tensors) copied, by name."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    return {n: t.detach().clone() for n, t in flatten_named(tree)[0]}
+
+
+def update_norms(torch, new, old):
+    """Each leaf's change from ``old`` (a :func:`snapshot`) to ``new``, as
+    its norm, summed in f64 on one device."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    return {n: float(torch.linalg.vector_norm(t.detach().double()
+                                              - old[n].double()))
+            for n, t in flatten_named(new)[0]}
+
+
+def mesh_train_reference(torch, cfg):
+    """(c)'s MESH_TRAIN_STEPS steps on one device: their losses, global
+    gradient norms, each leaf's update norms and times, and the loss of
+    step 1's batch on the weights before any update (what the loss hold
+    would see if step 0's update were lost)."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import init_state
+    from repro_torch.train.step import make_eval_step, make_train_step
+    cfg = mesh_train_config(cfg)
+    data = mesh_train_data(cfg)
+    loss_chunk = min(256, MESH_TRAIN_S)
+    with torch.inference_mode(False):
+        state = init_state(cfg, SEED, "cuda")
+        step_fn = make_train_step(cfg, AdamWConfig(**MESH_TRAIN_OPT),
+                                  loss_chunk=loss_chunk)
+        first = snapshot(state["params"])
+        losses, gnorms, updates, times = [], [], [], []
+        for step in range(MESH_TRAIN_STEPS):
+            old = snapshot(state["params"]) if step else first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step_fn(state["params"], state["opt"],
+                              data.sharded_batch(step, "cuda"))
+            state = {"params": p, "opt": o}
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            updates.append(update_norms(torch, p, old))
+            del old
+        named, rebuild = flatten_named(state["params"])
+        del state, p, o
+        before = float(make_eval_step(cfg, loss_chunk)(
+            rebuild([first[n] for n, _ in named]),
+            data.sharded_batch(1, "cuda")))
+        del first
+    return dict(losses=losses, grad_norms=gnorms, update_norms=updates,
+                step_s=times, step1_loss_before_update=before)
+
+
+def rank_update_norms(torch, new, old):
+    """:func:`update_norms` of DTensor trees, every rank's: the squares of
+    each leaf's change in its owned blocks summed in f64, all-reduced."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.pytree_io import _local_block, flatten_named
+    names, squares = [], []
+    for name, t in flatten_named(new)[0]:
+        names.append(name)
+        change = (t.to_local().detach().double()
+                  - old[name].to_local().double())
+        squares.append(change.square().sum() if _local_block(t)[2]
+                       else change.new_zeros(()))
+    total = torch.stack(squares).cpu()
+    dist.all_reduce(total)
+    return {n: math.sqrt(v) for n, v in zip(names, total.tolist())}
+
+
+def rank_checksums(torch, tree):
+    """:func:`checksums` of a DTensor tree, every rank's: each leaf's
+    owned blocks summed as integers (exact in any order), all-reduced."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.pytree_io import _local_block, flatten_named
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    names, sums = [], []
+    for name, t in flatten_named(tree)[0]:
+        names.append(name)
+        local = t.to_local().detach()
+        owned = _local_block(t)[2]
+        sums.append(local.view(ints[t.element_size()]).to(torch.int64).sum()
+                    if owned else torch.zeros((), dtype=torch.int64,
+                                              device=local.device))
+    total = torch.stack(sums).cpu()
+    dist.all_reduce(total)
+    return dict(zip(names, total.tolist()))
+
+
+def _traffic_delta(before, after):
+    return {k: [after[k][0] - before.get(k, [0, 0])[0],
+                after[k][1] - before.get(k, [0, 0])[1]] for k in after}
+
+
+def mesh_decode_part(torch, cfg, mesh, weights, ref, B, S, filled, seed,
+                     sp_axis=None, steps=MESH_DECODE):
+    """``ref``'s decode replayed on ``mesh``: a cache of DTensors with
+    ``input_shardings``' placements (sequence-sharded for B = 1), the same
+    seeded contents, the same tokens fed.  Returns the steps' logits (on
+    rank 0), times, K1 launches (and those of the decode kernel with its
+    log-sum-exp) and collective traffic a step."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.lm import init_cache, serve_step
+    sh.set_mesh(mesh, sp_decode_axis=sp_axis)
+    cache = init_cache(cfg, B, S, device="cuda", mesh=mesh)
+    full = seeded_kv(torch, cfg, B, S, filled, seed)
+    for key, t in zip(("k", "v"), full):
+        whole = sh.distribute(t, mesh, sh.P())
+        cache[key].to_local().copy_(
+            whole.redistribute(mesh, cache[key].placements).to_local())
+    del full, whole
+    cache["pos"].fill_(filled)
+    fed = ref["fed"].to("cuda")
+    k1 = flash_attention_cuda
+    k1.launches = k1.decode_lse_launches = 0
+    logits, times, traffic = [], [], []
+    for i in range(steps):
+        before = collectives.traffic()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = serve_step(cfg, weights, cache, fed[:, i:i + 1])
+        out = out.full_tensor()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        traffic.append(_traffic_delta(before, collectives.traffic()))
+        logits.append(out.float().cpu())
+    local = cache["k"].to_local()
+    rec = dict(step_s=times, launches=k1.launches,
+               lse_launches=k1.decode_lse_launches, traffic=traffic,
+               cache_block=list(local.shape),
+               cache_placements=[str(p) for p in cache["k"].placements],
+               routed=collectives.routed_counts())
+    if mesh.get_rank() == 0:
+        rec["logits"] = logits
+    sh.set_mesh(None)
+    return rec
+
+
+def serving_weights(torch, sh, weights):
+    """The restored weights as serving keeps them: gathered over the data
+    axes once (FSDP without resharding after each forward), their model
+    shards kept, so a step's collectives are tensor parallelism's alone.
+    Returns them and the gather's seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sh.gather_data_axes(weights)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_decode_both(torch, cfg, mesh, weights, ref, B, S, filled, seed,
+                     sp_axis=None):
+    """``mesh_decode_part`` in bf16, then again in f32 (the weights cast
+    on each rank, the same tokens fed; ``ref["f32"]`` its reference)."""
+    from repro_torch.models.lm import cast_params
+    rec = mesh_decode_part(torch, cfg, mesh, weights, ref, B, S, filled,
+                           seed, sp_axis=sp_axis)
+    w32 = cast_params(weights, torch.float32)
+    rec["f32"] = mesh_decode_part(
+        torch, dataclasses.replace(cfg, dtype="float32"), mesh, w32,
+        ref["f32"], B, S, filled, seed, sp_axis=sp_axis)
+    del w32
+    gc.collect()
+    torch.cuda.empty_cache()   # four ranks share the card: hand it back
+    return rec
+
+
+def mesh_tp_part(torch, cfg, mesh, weights, ref):
+    """(a): a 4 x MESH_PROMPT prefill and MESH_DECODE decode steps of
+    qwen3-1.7b at full width on MESH_TP (FSDP over data, TP over model),
+    on the weights restored onto ``params_shardings``, gathered over data
+    once (``serving_weights``)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.train.step import make_prefill_step
+    t_part = time.perf_counter()
+    sh.set_mesh(mesh)
+    weights, unshard_s = serving_weights(torch, sh, weights)
+    prompt = mesh_prompt(torch, cfg)
+    batch = {"tokens": sh.distribute(prompt, mesh, sh.batch_spec(mesh, 2))}
+    k1 = flash_attention_cuda
+    k1.launches = 0
+    before = collectives.traffic()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = make_prefill_step(cfg)(weights, batch).full_tensor()
+    torch.cuda.synchronize()
+    rec = dict(prefill_s=time.perf_counter() - t0, unshard_s=unshard_s,
+               prefill_launches=k1.launches,
+               prefill_traffic=_traffic_delta(before, collectives.traffic()))
+    if mesh.get_rank() == 0:
+        rec["prefill"] = pre.float().cpu()
+    rec["decode"] = mesh_decode_both(
+        torch, cfg, mesh, weights, ref, PREFILL_B,
+        MESH_PROMPT + MESH_DECODE, MESH_PROMPT, SEED + 28)
+    del weights, pre, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t_part
+    if mesh.get_rank() == 0:
+        print(f"  [rank 0] (a) unshard {unshard_s:.3f} s, prefill "
+              f"{rec['prefill_s']:.3f} s, decode steps s "
+              f"{[round(x, 4) for x in rec['decode']['step_s']]}, f32 "
+              f"{[round(x, 4) for x in rec['decode']['f32']['step_s']]}, "
+              f"part {rec['s']:.3f} s", flush=True)
+    return rec
+
+
+def mesh_sp_part(torch, cfg, mesh, weights, ref):
+    """(b): MESH_DECODE sequence-parallel decode steps of one request from
+    position SP_START of an SP_CACHE cache sharded on the data axis, on
+    weights whole on every rank (the replicated restore)."""
+    from repro_torch.distributed import sharding as sh
+    t0 = time.perf_counter()
+    rec = mesh_decode_both(torch, cfg, mesh, weights, ref, 1, SP_CACHE,
+                           SP_START, SEED + 29, sp_axis="data")
+    sh.set_mesh(None)
+    rec["s"] = time.perf_counter() - t0
+    if mesh.get_rank() == 0:
+        print(f"  [rank 0] (b) decode steps s "
+              f"{[round(x, 4) for x in rec['step_s']]}, f32 "
+              f"{[round(x, 4) for x in rec['f32']['step_s']]}, part "
+              f"{rec['s']:.3f} s", flush=True)
+    return rec
+
+
+def mesh_train_part(torch, cfg, d, tp_mesh, sp_mesh):
+    """(c): ``train`` on MESH_TP for its first step, which its closing save
+    writes through the ranked manager; then ``train`` on MESH_SP resumes
+    from the file (the restored state's checksums against the state
+    saved) and runs the second of MESH_TRAIN_STEPS, dying after it as a
+    killed job (no save).  Each step's loss, global gradient norm and
+    leaves' update norms (from a snapshot of the weights it started
+    from) are returned."""
+    from repro_torch.checkpoint import manager as mgr_mod
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train
+    t_part = time.perf_counter()
+    cfg = mesh_train_config(cfg)
+    ckpt_dir = os.path.join(d, "mesh-train")
+    opt = AdamWConfig(**MESH_TRAIN_OPT)
+    losses, times, sums, traffic = {}, {}, {}, {}
+    gnorms, updates, last, start = {}, {}, {}, {}
+
+    def on_step(step, state, metrics):
+        losses[step] = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times[step] = time.perf_counter() - last["t"]
+        traffic[step] = _traffic_delta(last["traffic"],
+                                       collectives.traffic())
+        gnorms[step] = float(metrics["grad_norm"])
+        updates[step] = rank_update_norms(torch, state["params"],
+                                          start.pop("params"))
+        if step == 0:
+            sums["saved"] = rank_checksums(torch, state)
+        last.update(t=time.perf_counter(), traffic=collectives.traffic())
+
+    def run(mesh, total_steps, die_at):
+        loop = TrainLoopConfig(total_steps=total_steps, ckpt_every=0,
+                               ckpt_dir=ckpt_dir, ckpt_keep=1,
+                               log_every=1000, seed=SEED)
+        last.update(t=time.perf_counter(), traffic=collectives.traffic())
+        t0 = time.perf_counter()
+        try:
+            train(cfg, loop, opt, data=mesh_train_data(cfg),
+                  hooks={"on_step": on_step,
+                         "should_die": lambda s: s == die_at},
+                  device="cuda", mesh=mesh)
+        except SystemExit:
+            pass
+        return time.perf_counter() - t0
+
+    real_restore = mgr_mod.CheckpointManager.restore_or_init
+    timing = {}
+
+    def restore_or_init(self, init_fn, like=None, *, device=None):
+        # the state a run starts from: its weights' snapshot, and on run
+        # 2's resume onto MESH_SP's layout its checksums
+        t0 = time.perf_counter()
+        tree, step = real_restore(self, init_fn, like, device=device)
+        torch.cuda.synchronize()
+        if step >= 0:
+            timing["restore_s"] = time.perf_counter() - t0
+            check(step == 0, f"(c) resumed from step {step}")
+            sums["restored"] = rank_checksums(torch, tree)
+        start["params"] = snapshot(tree["params"])
+        return tree, step
+
+    with mock.patch.object(mgr_mod.CheckpointManager, "restore_or_init",
+                           restore_or_init):
+        run1_s = run(tp_mesh, 1, None)   # step 0, then its closing save
+        path = os.path.join(ckpt_dir, f"step_{0:010d}.scda")
+        file_bytes = os.path.getsize(path)
+        run2_s = run(sp_mesh, MESH_TRAIN_STEPS, MESH_TRAIN_STEPS - 1)
+    restore_s = timing["restore_s"]
+    sh.set_mesh(None)
+    if tp_mesh.get_rank() == 0:
+        print(f"  [rank 0] (c) step s {[round(times[s], 3) for s in times]}, "
+              f"runs {run1_s:.3f} + {run2_s:.3f} s, restore "
+              f"{restore_s:.3f} s, part {time.perf_counter() - t_part:.3f} s",
+              flush=True)
+    return dict(losses=[losses[s] for s in range(MESH_TRAIN_STEPS)],
+                grad_norms=[gnorms[s] for s in range(MESH_TRAIN_STEPS)],
+                update_norms=[updates[s] for s in range(MESH_TRAIN_STEPS)],
+                step_s=[times[s] for s in range(MESH_TRAIN_STEPS)],
+                traffic=[traffic[s] for s in range(MESH_TRAIN_STEPS)],
+                sums=sums, run1_s=run1_s, run2_s=run2_s,
+                restore_s=restore_s, file_bytes=file_bytes,
+                s=time.perf_counter() - t_part)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def mesh_report(torch, cfg, ranks, ref):
+    """Hold the ranks' mesh parts against the single-device references and
+    print their times, launches and collective traffic.  Decode logits are
+    held in f32 (weights, cache and compute: the mesh's arithmetic) at
+    TOL_MESH_F32 and reported in bf16 beside a single-device control, the
+    same step with K1 and with the plain attention: random bf16 layers
+    part two rounding paths past TOL_LOGITS on this cache, on one device
+    as on a mesh.  Training is held by its losses, gradient norms and
+    update norms (TOL_MESH_LOSS, TOL_MESH_UPDATE)."""
+    from repro_torch.distributed import collectives
+    r0 = ranks[0]
+    L = cfg.n_layers
+    out = dict(reference_s=ref["s"])
+    tp, sp, tr = r0["mesh_tp"], r0["mesh_sp"], r0["mesh_train"]
+    missed = []
+
+    def held(got, want, what, tol=TOL_LOGITS):
+        """hold_logits's report, its verdict at ``tol`` kept for the end,
+        so that every part prints before a miss fails the run."""
+        err = hold_logits(got, want, False, what)
+        if not torch.allclose(got.float(), want.float(), **tol):
+            missed.append(what)
+        return err
+
+    def decode_holds(part, want, label, where):
+        """The f32 steps held, the bf16 steps and the control reported."""
+        f32 = [held(g, w, f"{label} decode step {i} in f32 on {where} vs "
+                    f"one device in f32", TOL_MESH_F32)
+               for i, (g, w) in enumerate(zip(part["f32"]["logits"],
+                                              want["f32"]["logits"]))]
+        bf16 = [hold_logits(g, w, False, f"{label} decode step {i} in bf16 "
+                            f"on {where} vs one device")
+                for i, (g, w) in enumerate(zip(part["logits"],
+                                               want["logits"]))]
+        control = hold_logits(want["plain"], want["logits"][0], False,
+                              f"{label} control: step 0 on one device, "
+                              f"plain attention vs K1")
+        return dict(f32_max_abs_err=max(f32), bf16_max_abs_err=max(bf16),
+                    bf16_rel_l2=[rel_err(g, w) for g, w in
+                                 zip(part["logits"], want["logits"])],
+                    control_max_abs_err=control,
+                    control_rel_l2=rel_err(want["plain"],
+                                           want["logits"][0]))
+
+    print(f"mesh parts {cfg.name} ({len(ranks)} gloo ranks on one card; "
+          f"collectives staged through host memory by this program: none; "
+          f"DTensor's {list(collectives.ROUTED)} of CUDA tensors routed to "
+          f"c10d's collectives on the card, calls on rank 0: "
+          f"{r0['routed']}); single-device references in "
+          f"{ref['s']:.3f} s")
+    # (a)
+    for r in ranks:
+        a = r["mesh_tp"]
+        check(a["prefill_launches"] == L,
+              f"(a) prefill launched K1 {a['prefill_launches']} times on a "
+              f"rank, expected {L}")
+        for run in (a["decode"], a["decode"]["f32"]):
+            check(run["launches"] == L * MESH_DECODE,
+                  f"(a) decode launched K1 {run['launches']} times on a "
+                  f"rank, expected {L * MESH_DECODE}")
+    err = held(tp["prefill"], ref["tp"]["prefill"],
+               f"(a) prefill logits on {MESH_TP} vs one device")
+    dec = tp["decode"]
+    holds = decode_holds(dec, ref["tp"], "(a)", MESH_TP)
+    out["tp"] = dict(prefill_s=tp["prefill_s"], unshard_s=tp["unshard_s"],
+                     prefill_max_abs_err=err, **holds,
+                     decode_step_s=_median(dec["step_s"][1:]),
+                     one_device_step_s=_median(ref["tp"]["step_s"][1:]),
+                     launches_per_step=L, collective_bytes_per_step=sum(
+                         v[1] for v in dec["traffic"][-1].values()),
+                     traffic_per_step=dec["traffic"][-1],
+                     prefill_traffic=tp["prefill_traffic"], s=tp["s"])
+    print(f"  (a) TP + FSDP on {MESH_TP}: weights gathered over data once "
+          f"in {tp['unshard_s']:.3f} s; prefill {PREFILL_B} x "
+          f"{MESH_PROMPT} in {tp['prefill_s']:.3f} s ({L} K1 launches a "
+          f"rank), logits max abs err {err} vs one device; {MESH_DECODE} "
+          f"decode steps from {MESH_PROMPT} ({L} K1 launches a step a "
+          f"rank), f32 max abs err {holds['f32_max_abs_err']} (held), bf16 "
+          f"{holds['bf16_max_abs_err']} (control on one device "
+          f"{holds['control_max_abs_err']}); step "
+          f"{out['tp']['decode_step_s'] * 1e3:.3f} ms (one device "
+          f"{out['tp']['one_device_step_s'] * 1e3:.3f} ms); collectives a "
+          f"step on rank 0 {dec['traffic'][-1]} ([calls, bytes]); "
+          f"prefill's {tp['prefill_traffic']}; part {tp['s']:.3f} s")
+    # (b)
+    for r in ranks:
+        b = r["mesh_sp"]
+        for run in (b, b["f32"]):
+            check(run["launches"] == L * MESH_DECODE
+                  and run["lse_launches"] == L * MESH_DECODE,
+                  f"(b) a rank launched K1 {run['launches']} times, "
+                  f"{run['lse_launches']} with the log-sum-exp; expected "
+                  f"{L * MESH_DECODE} each")
+        check(b["cache_block"][2] == SP_CACHE // MESH_SP[0],
+              f"(b) a rank's cache block {b['cache_block']}")
+    holds = decode_holds(sp, ref["sp"], "(b)", MESH_SP)
+    out["sp"] = dict(**holds, decode_step_s=_median(sp["step_s"][1:]),
+                     one_device_step_s=_median(ref["sp"]["step_s"][1:]),
+                     lse_launches=sp["lse_launches"],
+                     lse_launches_all_ranks=sum(r["mesh_sp"]["lse_launches"]
+                                                for r in ranks),
+                     collective_bytes_per_step=sum(
+                         v[1] for v in sp["traffic"][-1].values()),
+                     traffic_per_step=sp["traffic"][-1], s=sp["s"])
+    print(f"  (b) SP decode on {MESH_SP}, B1, cache {SP_CACHE} "
+          f"({SP_CACHE // MESH_SP[0]} a rank, {sp['cache_placements']}), "
+          f"weights replicated: {MESH_DECODE} steps from {SP_START} (the "
+          f"new token's owner moves from rank 2 to rank 3), {L} K1 "
+          f"decode-with-LSE launches a step a rank; f32 max abs err "
+          f"{holds['f32_max_abs_err']} (held), bf16 "
+          f"{holds['bf16_max_abs_err']} (control on one device "
+          f"{holds['control_max_abs_err']}); step "
+          f"{out['sp']['decode_step_s'] * 1e3:.3f} ms (one device "
+          f"{out['sp']['one_device_step_s'] * 1e3:.3f} ms); collectives a "
+          f"step on rank 0 {sp['traffic'][-1]}; part {sp['s']:.3f} s")
+    # (c)
+    rt = ref["train"]
+    want = rt["losses"]
+    if tr["sums"]["saved"] != tr["sums"]["restored"]:
+        missed.append("(c) the state restored onto (4, 1) differs from the "
+                      "one saved on (2, 2)")
+    check(len(tr["losses"]) == MESH_TRAIN_STEPS,
+          f"(c) ran {len(tr['losses'])} steps")
+
+    def within(g, w, tol):
+        return abs(g - w) <= tol["atol"] + tol["rtol"] * abs(w)
+
+    update_err = []
+    for s, (g, w) in enumerate(zip(tr["losses"], want)):
+        if not within(g, w, TOL_MESH_LOSS):
+            missed.append(f"(c) step {s} loss {g} on the mesh vs {w} on one "
+                          f"device")
+        gn, wn = tr["grad_norms"][s], rt["grad_norms"][s]
+        if not within(gn, wn, TOL_MESH_UPDATE):
+            missed.append(f"(c) step {s} gradient norm {gn} on the mesh vs "
+                          f"{wn} on one device")
+        got_u, want_u = tr["update_norms"][s], rt["update_norms"][s]
+        check(sorted(got_u) == sorted(want_u), f"(c) step {s}'s leaves")
+        off = sorted(n for n in want_u
+                     if not within(got_u[n], want_u[n], TOL_MESH_UPDATE))
+        if off:
+            missed.append(f"(c) step {s} update norms off one device's: "
+                          f"{[(n, got_u[n], want_u[n]) for n in off]}")
+        update_err.append(max(abs(got_u[n] - want_u[n]) / max(want_u[n],
+                                                                1e-30)
+                              for n in want_u))
+    moved = rt["step1_loss_before_update"] - want[1]
+    if abs(moved) < MESH_LOSS_MARGIN * TOL_MESH_LOSS["atol"]:
+        missed.append(f"(c) step 0's update moved step 1's loss by {moved} "
+                      f"on one device, under {MESH_LOSS_MARGIN} x the loss "
+                      f"hold's {TOL_MESH_LOSS['atol']}")
+    out["train"] = dict(losses=tr["losses"], one_device_losses=want,
+                        grad_norms=tr["grad_norms"],
+                        one_device_grad_norms=rt["grad_norms"],
+                        update_norm_max_rel_err=update_err,
+                        step1_loss_moved_by_update=moved,
+                        step_s=tr["step_s"],
+                        one_device_step_s=ref["train"]["step_s"],
+                        traffic=tr["traffic"], file_bytes=tr["file_bytes"],
+                        run1_s=tr["run1_s"], run2_s=tr["run2_s"],
+                        restore_s=tr["restore_s"], s=tr["s"])
+    print(f"  (c) training {MESH_TRAIN_LAYERS} of {cfg.n_layers} layers, "
+          f"{MESH_TRAIN_B} x {MESH_TRAIN_S} tokens a step: step 0 on "
+          f"{MESH_TP}, saved at its end through the ranked manager "
+          f"({tr['file_bytes']} B), restored onto {MESH_SP} with the saved "
+          f"checksums ({tr['restore_s']:.3f} s), step 1 there; losses "
+          f"{tr['losses']} vs one device {want} (held at {TOL_MESH_LOSS}; "
+          f"step 0's update moved step 1's loss by {moved} on one device); "
+          f"gradient norms {tr['grad_norms']} vs {rt['grad_norms']}; "
+          f"update norms of {len(rt['update_norms'][0])} leaves, largest "
+          f"relative error a step {update_err} (held at "
+          f"{TOL_MESH_UPDATE}); step s "
+          f"{[round(x, 3) for x in tr['step_s']]} (one device "
+          f"{[round(x, 3) for x in ref['train']['step_s']]}); collectives "
+          f"a step on rank 0 {tr['traffic']}; runs {tr['run1_s']:.3f} + "
+          f"{tr['run2_s']:.3f} s, part {tr['s']:.3f} s")
+    print(f"  {smi_line()}")
+    check(not missed, f"mesh parts: {missed}")
+    return out
+
+
+def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp, weights):
     """F0, qwen3's weights as one flat file with the reference's vendor
     (``checkpoint_phase``'s): DIST_RANKS gloo ranks on the card restore it
     onto each mesh of DIST_MESHES and save it from there (each file's
     SHA-256 must be F0's: hashed and deleted here while the ranks go on,
     so at most two such files exist at once), then restore it onto
     DIST_EXTRA, with and without prefetch; every local shard bit-equal to
-    a host restore of F0.  F0 is deleted at the end."""
+    a host restore of F0.  F0 is deleted at the end.  The ranks also run
+    the model path under a mesh (``mesh_tp_part``, ``mesh_sp_part``,
+    ``mesh_train_part``), held here against one device's run on
+    ``weights``, computed before the spawn."""
     import threading
     from repro_torch.distributed.ranks import spawn_ranks
     t_phase = time.perf_counter()
+    mesh_ref = mesh_references(torch, cfg, weights)
+    replay = {k: {"fed": mesh_ref[k]["fed"],
+                  "f32": {"fed": mesh_ref[k]["f32"]["fed"]}}
+              for k in ("tp", "sp")}
     d = os.path.join(tmp, "dist")
     os.makedirs(d)
     size = os.path.getsize(f0)
@@ -1907,12 +2667,13 @@ def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp):
     thread.start()
     t0, spawned = time.perf_counter(), time.time()
     ranks = spawn_ranks(dist_rank, DIST_RANKS, cfg, f0, d, saved,
-                        verdicts, device="cuda")
+                        verdicts, replay, device="cuda")
     t_ranks, ended = time.perf_counter() - t0, time.time()
     thread.join(10)
     check(len(hashed) == len(DIST_MESHES)
           and all(ok is True for _, ok in hashed),
           f"the ranks' files against F0's SHA-256: {hashed}")
+    shutil.rmtree(os.path.join(d, "mesh-train"), ignore_errors=True)
     check(not os.listdir(d), f"{d} holds {os.listdir(d)}")
     os.remove(f0)
     shutil.rmtree(d)
@@ -1933,8 +2694,10 @@ def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp):
         - max(c["enter"] for c in clocks),
         meshes=max(c["meshes"] for c in clocks)
         - max(c["host"] for c in clocks),
-        steps=max(c["exit"] for c in clocks)
+        steps=max(c["mesh_train"] for c in clocks)
         - max(c["meshes"] for c in clocks),
+        mesh_train=max(c["exit"] for c in clocks)
+        - max(c["mesh_train"] for c in clocks),
         end=ended - max(c["exit"] for c in clocks))
     print("  the ranks' time, s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in rec["spans_s"].items())
@@ -1969,6 +2732,7 @@ def dist_checkpoint_phase(torch, cfg, nbytes: int, f0: str, tmp):
               f"({e['restore_s']:.3f} s), every local shard bit-equal (held "
               f"in {e['hold_s']:.3f} s); leaves sharded on every mesh dim, "
               f"on some, on none: {[round(x, 4) for x in e['shares']]}")
+    rec["mesh"] = mesh_report(torch, cfg, ranks, mesh_ref)
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"  {smi_line()}")
     print(f"distributed checkpoints phase: {rec['phase_s']:.3f} s")
@@ -2563,7 +3327,7 @@ def qwen_path(torch, K, tmp):
     phase(f"{QWEN} distributed checkpoints ({DIST_RANKS} ranks on one "
           f"H100)")
     ckpt["dist"] = dist_checkpoint_phase(torch, cfg, ckpt["weight_bytes"],
-                                         ckpt.pop("path"), tmp)
+                                         ckpt.pop("path"), tmp, weights)
     zero_counts(K)                            # the main path starts
     prefill, tokens = prefill_phase(torch, cfg, weights, K["k1"])
     serve, out = serve_phase(torch, cfg, weights, K["k1"])
@@ -4025,6 +4789,11 @@ def main(argv=None) -> int:
         "--kernels-only", action="store_true",
         help="build the kernels and run their checks and timings, then stop "
              "before the model paths (prints no result line)")
+    parser.add_argument(
+        "--mesh-only", action="store_true",
+        help="build the kernels, check the decode kernel's log-sum-exp, "
+             "then run qwen3's checkpoint and distributed phases with the "
+             "mesh parts, and stop (prints no result line)")
     args = parser.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from the root of a repro checkout "
@@ -4069,6 +4838,20 @@ def main(argv=None) -> int:
     sys.stdout.flush()
 
     phase("kernel checks")
+    lse_records = decode_lse_checks(torch, fa)
+    if args.mesh_only:
+        tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
+        try:
+            with torch.inference_mode():
+                cfg = get_config(QWEN)
+                weights, ckpt = checkpoint_phase(torch, cfg, tmp, keep=True)
+                phase(f"{QWEN} distributed checkpoints and mesh parts")
+                dist_checkpoint_phase(torch, cfg, ckpt["weight_bytes"],
+                                      ckpt["path"], tmp, weights)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("--mesh-only: the other paths were not run")
+        return 0
     k1_records = kernel_checks(torch, fa)
     falcon = get_config(FALCON)
     k2_records = scan_checks(torch, ss, falcon)
@@ -4288,6 +5071,15 @@ def main(argv=None) -> int:
                                   GRANITE: granite_serve,
                                   WHISPER: whisper_serve,
                                   LLAVA: llava_serve}),
+        kernel_entry("flash_attention_decode_lse", fa.SOURCE,
+                     "src/repro/kernels/flash_attention.py:82 (its decode, "
+                     "merged over sequence shards as "
+                     "src/repro/models/layers.py:238 merges them)",
+                     fa.KERNEL_NAMES,
+                     qwen_serve["checkpoint"]["dist"]["mesh"]["sp"][
+                         "lse_launches_all_ranks"],
+                     lse_records, qwen_serve["checkpoint"]["dist"]["mesh"],
+                     extra=["no_lse_ms"]),
         kernel_entry("flash_attention_bwd", fa.BWD_SOURCE,
                      "none: the gradient of src/repro/models/layers.py:115 "
                      "by autodiff", fa.BWD_KERNEL_NAMES,

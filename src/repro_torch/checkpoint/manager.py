@@ -30,6 +30,15 @@ A file written here (with ``vendor=REFERENCE_VENDOR``) is the one the JAX
 package's manager writes for the same arrays, and each package restores
 the other's directories.
 
+**Ranked**: with ``comm`` a ``TorchDistComm`` of several ranks, every
+rank calls ``save`` with its DTensor state; each snapshots the blocks it
+owns (pinned host buffers, as below) and writes them into the one file
+through ``pytree_io.save(..., comm=)``, and rank 0 commits it and prunes.
+The writer's collectives run on a process group of the manager's own
+(``dist.new_group``), so they never interleave with the step's.  Only
+rank 0 holds the directory's lock.  Sets, deltas and compression are
+single-rank, as ``pytree_io.save`` has them, and are refused.
+
 The snapshot is a copy.  The port updates its training state in place, so
 ``save`` must not hand the writer views of live tensors: CUDA tensors are
 copied into pinned host buffers that are kept and reused by later saves
@@ -74,7 +83,8 @@ def _ckpt_name(step: int) -> str:
     return f"step_{step:010d}.scda"
 
 
-def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
+def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None,
+                     *, ranked: bool = False):
     """A host copy of every tensor leaf of ``tree`` (same structure, shape
     and dtype), which later in-place updates of the tree do not reach.
 
@@ -84,14 +94,30 @@ def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
     The copies are asynchronous and synchronised before the return.  CPU
     leaves are cloned; anything else is passed through.
 
-    The manager is single-process, as the reference's is: a DTensor leaf
-    raises, naming the leaf, and is never gathered.  Save a DTensor state
-    with ``pytree_io.save(..., comm=TorchDistComm())`` on every rank.
+    Single-process (``ranked=False``), a DTensor leaf raises, naming the
+    leaf, and is never gathered.  ``ranked=True`` (a manager with a
+    ``comm`` of several ranks): a DTensor leaf becomes a DTensor of the
+    same mesh, placements and shape whose local tensor is the host copy
+    of this rank's block where it owns that block for a save, and an
+    empty ``meta`` tensor where another rank writes it.
     """
     pinned = {} if pinned is None else pinned
     named, rebuild = pytree_io.flatten_named(tree)
     out, cuda = [], False
     for name, x in named:
+        if ranked and pytree_io._is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            local = x.to_local().detach()
+            if pytree_io._local_block(x)[2]:
+                local, on_card = _host_copy(local, name, pinned)
+                cuda = cuda or on_card
+            else:
+                local = torch.empty(local.shape, dtype=local.dtype,
+                                    device="meta")
+            out.append(DTensor.from_local(
+                local, x.device_mesh, x.placements, run_check=False,
+                shape=x.shape, stride=x.stride()))
+            continue
         if pytree_io._is_dtensor(x):
             raise ScdaError(
                 ScdaErrorCode.ARG_SEQUENCE,
@@ -99,22 +125,26 @@ def snapshot_to_host(tree, pinned: Optional[Dict[str, torch.Tensor]] = None):
                 f"single-process — save DTensor state with "
                 f"pytree_io.save(..., comm=TorchDistComm()) on every rank")
         if isinstance(x, torch.Tensor):
-            x = x.detach()
-            if x.device.type == "cuda":
-                buf = pinned.get(name)
-                if buf is None or buf.shape != x.shape \
-                        or buf.dtype != x.dtype:
-                    buf = torch.empty(x.shape, dtype=x.dtype,
-                                      pin_memory=True)
-                    pinned[name] = buf
-                buf.copy_(x, non_blocking=True)
-                x, cuda = buf, True
-            else:
-                x = x.clone()
+            x, on_card = _host_copy(x.detach(), name, pinned)
+            cuda = cuda or on_card
         out.append(x)
     if cuda:
         torch.cuda.synchronize()
     return rebuild(out)
+
+
+def _host_copy(x: torch.Tensor, name: str, pinned):
+    """``(copy, from_card)``: a CUDA tensor's asynchronous copy into the
+    pinned buffer ``pinned[name]`` (made or remade to fit), a CPU
+    tensor's clone."""
+    if x.device.type != "cuda":
+        return x.clone(), False
+    buf = pinned.get(name)
+    if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        pinned[name] = buf
+    buf.copy_(x, non_blocking=True)
+    return buf, True
 
 
 class CheckpointManager:
@@ -125,8 +155,22 @@ class CheckpointManager:
                  delta_chain: Optional[int] = None,
                  shards: Optional[int] = None,
                  parity: Optional[int] = None,
-                 vendor: bytes = pytree_io.DEFAULT_VENDOR) -> None:
+                 vendor: bytes = pytree_io.DEFAULT_VENDOR,
+                 comm=None) -> None:
         self.directory = directory
+        self._comm = None
+        if comm is not None and comm.size > 1:
+            if compressed or delta or shards or parity:
+                raise ValueError(
+                    "a ranked CheckpointManager writes flat, uncompressed "
+                    "full saves (sets, deltas and compression are "
+                    "single-rank)")
+            import torch.distributed as dist
+            from repro_torch.core.comm import TorchDistComm
+            ranks = [comm._global(r) for r in range(comm.size)]
+            self._comm = TorchDistComm(dist.new_group(ranks,
+                                                      backend="gloo"))
+            shards, parity, delta = 0, 0, False
         self.keep = max(1, keep)
         self.compressed = compressed
         self.chunk_bytes = chunk_bytes
@@ -154,7 +198,14 @@ class CheckpointManager:
         self._lock_path = os.path.join(directory, LOCK_NAME)
         self._lock_owned = False
         os.makedirs(directory, exist_ok=True)
-        self._acquire_lock()
+        if self._rank == 0:
+            self._acquire_lock()
+        if self._comm is not None:
+            self._comm.barrier()   # the directory exists, rank 0 holds it
+
+    @property
+    def _rank(self) -> int:
+        return 0 if self._comm is None else self._comm.rank
 
     def __enter__(self) -> "CheckpointManager":
         return self
@@ -285,7 +336,9 @@ class CheckpointManager:
         """
         self.wait()  # one in-flight save at a time; surfaces prior errors
         with _trace.span("snapshot", "ckpt", step=step):
-            host_tree = snapshot_to_host(tree, self._pinned)
+            host_tree = (snapshot_to_host(tree, self._pinned)
+                         if self._comm is None else
+                         snapshot_to_host(tree, self._pinned, ranked=True))
         use_delta = self.delta if delta is None else bool(delta)
 
         def _write() -> None:
@@ -338,6 +391,9 @@ class CheckpointManager:
     def _write_and_commit(self, step: int, host_tree,
                           aux_extra: Optional[Dict[str, Any]],
                           use_delta: bool = False) -> None:
+        if self._comm is not None:
+            self._write_ranked(step, host_tree, aux_extra)
+            return
         final = self.path_for(step)
         tmp = final + ".tmp"
         with _trace.span("plan", "ckpt", step=step, delta=use_delta,
@@ -408,6 +464,36 @@ class CheckpointManager:
             self._apply_retention()
         # The doc a re-read of the fresh checkpoint would parse: the next
         # delta references it without touching the disk.
+        self._last_doc = (doc, _ckpt_name(step))
+
+    def _write_ranked(self, step: int, host_tree,
+                      aux_extra: Optional[Dict[str, Any]]) -> None:
+        """Every rank writes its blocks into ``<name>.tmp``; once all have,
+        rank 0 renames it into place and prunes, and the ranks meet again,
+        so a later restore on any rank sees the commit."""
+        final = self.path_for(step)
+        tmp = final + ".tmp"
+        comm = self._comm
+        try:
+            doc = pytree_io.save(tmp, host_tree, comm=comm, step=step,
+                                 chunk_bytes=self.chunk_bytes,
+                                 aux_extra=aux_extra, vendor=self.vendor,
+                                 shards=0)
+        except BaseException:
+            if comm.rank == 0:
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+            raise
+        comm.barrier()
+        if comm.rank == 0:
+            with _trace.span("commit", "ckpt", path=final, step=step):
+                replace_durable(tmp, final)
+                ScdaIndex.write_sidecars([final])
+            with _trace.span("retention", "ckpt", keep=self.keep):
+                self._apply_retention()
+        comm.barrier()
         self._last_doc = (doc, _ckpt_name(step))
 
     def _shard_files(self, name: str) -> List[str]:

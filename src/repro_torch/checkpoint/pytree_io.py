@@ -51,7 +51,6 @@ import dataclasses
 import math
 import mmap
 import os
-import sys
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,6 +65,7 @@ from repro_torch.core.comm import Communicator, SerialComm
 from repro_torch.core.index import ScdaIndex
 from repro_torch.core.io_backend import prefetch_window, write_pipeline_window
 from repro_torch.core.pipeline import ReadItem, WriteItem, run_pipeline
+from repro_torch.runtime import is_dtensor as _is_dtensor
 from repro_torch.core.reader import ScdaReader, fopen_read
 from repro_torch.core.writer import fopen_write
 
@@ -177,13 +177,6 @@ def _is_array(x) -> bool:
 # --------------------------------------------------------------------------
 # Saving
 # --------------------------------------------------------------------------
-
-def _is_dtensor(x) -> bool:
-    """Is ``x`` a DTensor?  (None exists unless ``torch.distributed.tensor``
-    was imported, so plain saves never import it.)"""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
-
 
 def _local_block(t) -> Tuple[Tuple[int, ...], Tuple[int, ...], bool]:
     """This rank's block of the DTensor ``t``: its local shape, its offset

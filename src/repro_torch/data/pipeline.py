@@ -5,8 +5,9 @@ Every (step, row) of the global batch is a pure function of the seed, so a
 restart reproduces its batches from the step counter alone.  ``_tokens``
 and ``global_batch_shard`` are the reference's numpy code unchanged, so
 both packages feed a run the same tokens.  :meth:`sharded_batch` returns
-the whole global batch as tensors on one device (there is no mesh here);
-labels are int64, as ``gather`` wants them.
+the whole global batch as tensors on one device, or with a mesh as
+DTensors under ``sharding.batch_spec`` (each rank keeps its rows); labels
+are int64, as ``gather`` wants them.
 """
 from __future__ import annotations
 
@@ -52,12 +53,21 @@ class SyntheticTokens:
         seq = self._tokens(step, row_start, rows)
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
-    def sharded_batch(self, step: int, device) -> Dict[str, torch.Tensor]:
+    def sharded_batch(self, step: int, device, mesh=None) \
+            -> Dict[str, torch.Tensor]:
         """The full global batch on ``device``: int32 tokens, int64
-        labels."""
+        labels.  With ``mesh`` (a ``DeviceMesh``) each is a DTensor
+        batch-sharded on the data axes (``sharding.batch_spec``): the
+        rank's rows on ``device``, the same values as without."""
         host = self.global_batch_shard(step, 0, self.cfg.global_batch)
-        return {
+        batch = {
             "tokens": torch.from_numpy(np.ascontiguousarray(host["tokens"]))
             .to(device),
             "labels": torch.from_numpy(host["labels"].astype(np.int64))
             .to(device)}
+        if mesh is not None:
+            from repro_torch.distributed import sharding as sh
+            spec = sh.batch_spec(mesh, 2)
+            batch = {k: sh.distribute(v, mesh, spec)
+                     for k, v in batch.items()}
+        return batch

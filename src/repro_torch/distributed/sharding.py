@@ -17,15 +17,22 @@ parameter tree's restore targets: DTensors whose local tensors live on
 the ``meta`` device, so ``checkpoint.restore(path, like=targets)`` reads
 each rank's shard of each leaf and nothing else.
 
-The ambient policy the model path reads (``set_mesh``, ``constrain``,
-``padded_heads``) and the step inputs' shardings (``input_shardings``)
-are not ported yet.
+The ambient policy the model path reads: :func:`set_mesh` declares the
+mesh (and, for long-context decode, the sequence-parallel axis),
+:func:`constrain` redistributes an activation to the placements its
+logical dim roles give, and :func:`padded_heads` / :func:`gqa_heads`
+size the phantom heads tensor parallelism pads in.  No mesh set: every
+one is the identity, so single-device runs never see a DTensor.
+:func:`input_shardings` gives the step inputs' and caches' specs.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import math
 import re
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 class PartitionSpec(tuple):
@@ -42,6 +49,246 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 MODEL_AXIS = "model"
+
+
+# --------------------------------------------------------------------------
+# Ambient mesh policy — lets model code place activation constraints without
+# threading mesh objects through every function.  No mesh set → no-ops, so
+# tests and single-device runs are unaffected.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Policy:
+    mesh: Optional[Any] = None
+    #: decode attention merges partial softmax over this axis when the KV
+    #: cache is sequence-sharded (long-context SP decode).
+    sp_decode_axis: Optional[str] = None
+
+
+#: The process's policy.  The reference keeps one a thread; here the
+#: backward pass of a CUDA tensor runs on autograd's device thread, whose
+#: recomputed (remat'd) layers read the policy the forward ran under.
+_POLICY = Policy()
+
+
+def set_mesh(mesh, sp_decode_axis: Optional[str] = None) -> None:
+    """Declare the ambient mesh (a ``DeviceMesh`` with named dims, or
+    None) for the process's model code.  While a CUDA mesh over gloo is
+    set, DTensor's collectives take
+    ``collectives.route_dtensor_collectives``'s route."""
+    global _POLICY
+    from repro_torch.distributed import collectives
+    routed = False
+    if mesh is not None and mesh.device_type == "cuda":
+        import torch.distributed as dist
+        routed = dist.get_backend(mesh.get_group(0)) == "gloo"
+    collectives.route_dtensor_collectives(routed)
+    _POLICY = Policy(mesh=mesh, sp_decode_axis=sp_decode_axis)
+
+
+def get_policy() -> Policy:
+    return _POLICY
+
+
+def model_axis_size() -> int:
+    mesh = get_policy().mesh
+    return axis_size(mesh, MODEL_AXIS) if mesh is not None else 1
+
+
+def role_axes(mesh, role):
+    """The mesh axis (or axes) a logical dim role shards on: None, "batch"
+    and "seq_data" the data axes, "model" and "seq_model" the model
+    axis."""
+    if role is None:
+        return None
+    if role in ("batch", "seq_data"):
+        axes = data_axes(mesh)
+        return axes if len(axes) > 1 else axes[0]
+    if role in ("model", "seq_model"):
+        return MODEL_AXIS
+    raise ValueError(role)
+
+
+def constrain_spec(mesh, shape: Sequence[int], *logical) -> PartitionSpec:
+    """The spec :func:`constrain` gives a tensor of ``shape`` on ``mesh``:
+    each role's axes, dropped where they do not divide the dim
+    (correctness first).  Dims past the roles are unsharded."""
+    spec = []
+    for dim, role in zip(shape, logical):
+        ax = role_axes(mesh, role)
+        spec.append(ax if ax is not None and dim % axis_size(mesh, ax) == 0
+                    else None)
+    spec += [None] * (len(shape) - len(spec))
+    return P(*spec)
+
+
+def distribute(x, mesh, spec: Sequence[Any]):
+    """``x``, a whole tensor that every rank of ``mesh`` holds, as a DTensor
+    with ``spec``'s placements: each rank keeps its block, no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+    whole = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return whole.redistribute(mesh, placements(mesh, spec))
+
+
+def constrain(x, *logical):
+    """Redistribute ``x`` to the placements of its dim roles (the
+    reference's ``with_sharding_constraint``; see :func:`constrain_spec`).
+    Roles per dim: None (unsharded: gathered if sharded), "batch" (data
+    axes), "model", or "seq_model"/"seq_data".  No mesh set: ``x``
+    untouched.  A plain tensor under a mesh is taken as the whole value
+    every rank holds."""
+    mesh = get_policy().mesh
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    want = placements(mesh, constrain_spec(mesh, x.shape, *logical))
+    if not isinstance(x, DTensor):
+        return distribute(x, mesh, constrain_spec(mesh, x.shape, *logical))
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def mesh_region():
+    """The context a region of model code under a mesh runs in: plain
+    tensors it makes (positions, masks, scalars) meet the DTensors as
+    values every rank holds whole (DTensor's implicit replication).
+    Without a mesh, a context that does nothing."""
+    if get_policy().mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        # already inside one: the context's exit would switch it off
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def backward_in_mesh_region(loss) -> None:
+    """Make the backward pass from ``loss`` run in :func:`mesh_region`:
+    DTensor's implicit replication is a flag of each thread, and autograd
+    runs a CUDA tensor's backward on its device thread, where the ops that
+    met plain tensors in the forward meet them again.  A hook on ``loss``,
+    the first thing the backward runs, turns the flag on in its thread,
+    and a callback at the end of that backward pass gives the flag its
+    value back there."""
+    def hook(grad):
+        import threading
+        import torch
+        from torch.distributed.tensor import DTensor
+        dispatcher = DTensor._op_dispatcher
+        was = dispatcher._allow_implicit_replication
+        thread = threading.get_ident()
+        dispatcher._allow_implicit_replication = True
+
+        def restore():
+            if threading.get_ident() == thread:
+                dispatcher._allow_implicit_replication = was
+
+        torch.autograd.Variable._execution_engine.queue_callback(restore)
+        return grad
+    if get_policy().mesh is not None and loss.requires_grad:
+        loss.register_hook(hook)
+
+
+def under_mesh(fn):
+    """Run ``fn`` inside :func:`mesh_region`."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with mesh_region():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def gather_data_axes(tree):
+    """FSDP's unshard: every DTensor leaf of ``tree`` (nested dicts) made
+    whole over the data axes, its model-axis shard kept; other leaves as
+    they are.  The model path gathers a layer's weights so before the
+    layer runs: its products are then tensor-parallel alone, and no
+    matmul sums partial products over the data axes in the compute
+    dtype.  Without gradients (serving) the leaves' blocks travel in one
+    all-gather a dtype (``collectives.gather_blocks``); with them each
+    leaf is redistributed, and autograd reduce-scatters its gradient.  No
+    mesh set: ``tree`` itself."""
+    mesh = get_policy().mesh
+    if mesh is None:
+        return tree
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    daxes = set(data_axes(mesh))
+    names = mesh.mesh_dim_names
+    want = {}
+
+    def plan(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                plan(v, path + (k,))
+        elif isinstance(t, DTensor):
+            pl = [Replicate() if n in daxes else p
+                  for n, p in zip(names, t.placements)]
+            if pl != list(t.placements):
+                want[path] = pl
+
+    plan(tree, ())
+    if not want:
+        return tree
+    leaves = {}
+
+    def get(t, path):
+        for k in path:
+            t = t[k]
+        return t
+
+    coalesce = len(daxes) == 1 and not (torch.is_grad_enabled() and any(
+        get(tree, p).requires_grad for p in want))
+    if coalesce:
+        from repro_torch.distributed import collectives
+        axis = next(iter(daxes))
+        ts = [get(tree, p) for p in want]
+        dims = [t.placements[names.index(axis)].dim for t in ts]
+        locals_ = collectives.gather_blocks(
+            [t.to_local() for t in ts], dims, mesh.get_group(axis))
+        for p, t, local in zip(want, ts, locals_):
+            leaves[p] = DTensor.from_local(local, mesh, want[p],
+                                           run_check=False, shape=t.shape,
+                                           stride=t.stride())
+    else:
+        for p, pl in want.items():
+            leaves[p] = get(tree, p).redistribute(mesh, pl)
+
+    def rebuild(t, path):
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (k,)) for k, v in t.items()}
+        return leaves.get(path, t)
+
+    return rebuild(tree, ())
+
+
+def padded_heads(n_heads: int) -> int:
+    """Round the head count up to a model-axis multiple (the reference's
+    forward-time pad): the MHA layout, where kv heads are padded with
+    q heads."""
+    m = model_axis_size()
+    if m <= 1 or n_heads % m == 0:
+        return n_heads
+    return ((n_heads + m - 1) // m) * m
+
+
+def gqa_heads(n_heads: int, n_kv: int) -> int:
+    """q heads per kv group once phantom heads are padded in, exactly: the
+    smallest count at least ``n_heads // n_kv`` whose total ``n_kv *
+    count`` the model axis divides.  Phantom heads go last in each group,
+    so q head h of group g keeps reading kv head g (the reference pads
+    after the last group, which moves GQA heads to other kv heads).  The
+    totals are ``padded_heads``' at gemma3's 8/4, granite's 24/8 and
+    llama4's 40/8 on a 16-way model axis (16, 32, 48)."""
+    group = n_heads // n_kv
+    m = model_axis_size()
+    if m <= 1 or n_heads % m == 0:
+        return group
+    step = m // math.gcd(n_kv, m)
+    return -(-group // step) * step
 
 
 def _axis_sizes(mesh) -> Dict[str, int]:
@@ -173,6 +420,68 @@ def batch_spec(mesh, ndim: int, batch_divisible: bool = True) \
     daxes = data_axes(mesh)
     ax = daxes if len(daxes) > 1 else daxes[0]
     return P(*((ax,) + (None,) * (ndim - 1)))
+
+
+def input_shardings(mesh, kind: str, cfg, shape_cfg) \
+        -> Dict[str, PartitionSpec]:
+    """Specs for the step inputs of a given cell kind (the reference's
+    ``input_shardings``, spec by spec); :func:`placements` turns each into
+    DTensor placements.  Decode: the KV caches (L, B, S, Hkv, hd) shard B
+    on the data axes when they divide it, else the sequence (SP decode),
+    and kv heads (else head_dim) on the model axis; SSM states shard B and
+    d_inner (Mamba2: heads) likewise."""
+    daxes = data_axes(mesh)
+    dsize = axis_size(mesh, daxes)
+    dax = daxes if len(daxes) > 1 else daxes[0]
+    msize = axis_size(mesh, MODEL_AXIS)
+    out: Dict[str, PartitionSpec] = {}
+    B = shape_cfg.global_batch
+    batch = dax if B % dsize == 0 else None
+
+    if kind == "train":
+        out["tokens"] = P(batch, None)
+        out["labels"] = P(batch, None)
+        if cfg.family == "vlm":
+            out["patch_embeds"] = P(batch, None, MODEL_AXIS
+                                    if cfg.d_model % msize == 0 else None)
+        if cfg.family == "encdec":
+            out["enc_embeds"] = P(batch, None, None)
+        return out
+
+    out["tokens"] = P(batch, None)
+    hd, Hkv = cfg.head_dim_, cfg.n_kv_heads
+    if Hkv and Hkv % msize == 0:
+        kv_model_dim = 3
+    elif hd % msize == 0:
+        kv_model_dim = 4
+    else:
+        kv_model_dim = None
+    kv: List[Any] = [None] * 5
+    if batch is not None:
+        kv[1] = dax
+    else:
+        kv[2] = dax          # SP: shard the cache's sequence dim
+    if kv_model_dim is not None:
+        kv[kv_model_dim] = MODEL_AXIS
+    out["cache_k"] = P(*kv)
+    out["cache_v"] = P(*kv)
+    if cfg.ssm_type == "mamba1":
+        # h: (L,B,di,N), conv: (L,B,K-1,di)
+        out["ssm_h"] = P(None, batch,
+                         MODEL_AXIS if cfg.d_inner % msize == 0 else None,
+                         None)
+        out["ssm_conv"] = P(None, batch, None,
+                            MODEL_AXIS if cfg.d_inner % msize == 0 else None)
+    elif cfg.ssm_type == "mamba2":
+        # h: (L,B,H,N,P), conv: (L,B,K-1,di)
+        out["ssm_h"] = P(None, batch,
+                         MODEL_AXIS if cfg.ssm_heads % msize == 0 else None,
+                         None, None)
+        out["ssm_conv"] = P(None, batch, None,
+                            MODEL_AXIS if cfg.d_inner % msize == 0 else None)
+    if cfg.family == "encdec":
+        out["enc_out"] = P(batch, None, None)
+    return out
 
 
 def replicated(mesh) -> List[Any]:

@@ -47,6 +47,9 @@
 //    __threadfence() and a ticket per (b, kv head): the live block that
 //    takes the last ticket merges the partials in split order
 //    (deterministic), writes the output and sets the ticket back to 0.
+//    Asked for it, the block that writes a row's output also writes its
+//    log-sum-exp from the (m, l) it holds (sequence-parallel decode merges
+//    the shards' outputs with it); a row with no live key gets -inf.
 //  * flash_prefill_f32_kernel (Sq > 1, f32): the plain FMA path, with S,
 //    P and the accumulator in shared memory; it serves the f32 checks.
 //
@@ -554,7 +557,8 @@ __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ o, Strides st, int Skv, int Hkv, int group, int causal,
                     int window, const int* __restrict__ q_offset_dev, int q_offset, float scale,
-                    float* __restrict__ scratch, int* __restrict__ tickets) {
+                    float* __restrict__ scratch, int* __restrict__ tickets,
+                    float* __restrict__ lse, float* __restrict__ o32) {
   using SM = DecodeSmem<T, D>;
   constexpr int LD = SM::LD, VEC = 16 / sizeof(T), D2 = D / 2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -576,10 +580,24 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int s_hi = kv_begin < kv_end ? (kv_end - 1) / SPLIT + 1 : s_lo;
   const int n_live = s_hi - s_lo;
   T* const ob = o + b * st.o_b + (long long)hk * group * st.o_h;
+  // o32, when given, takes the output in f32 instead of o (same strides):
+  // sequence-parallel decode merges its shards' outputs before rounding.
+  float* const ob32 = o32 ? o32 + b * st.o_b + (long long)hk * group * st.o_h : nullptr;
+  auto put = [&](long long at, float x, float y) {
+    if (ob32) store2(ob32 + at, x, y);
+    else store2(ob + at, x, y);
+  };
+  // lse (B, H) when asked: the rows' natural log-sum-exp times log2(e),
+  // -inf where no key is live (lse_plain's units, the prefill's).
+  float* const lb = lse ? lse + ((long long)b * Hkv + hk) * group : nullptr;
+  constexpr float LOG2E = 1.4426950408889634f;
   if (split < s_lo || split >= s_hi) {  // an empty partial: it adds nothing
-    if (n_live == 0 && split == 0)      // no live key at all: the output is 0
+    if (n_live == 0 && split == 0) {    // no live key at all: the output is 0
       for (int i = tid; i < group * D2; i += NT)
-        store2(ob + (i / D2) * st.o_h + (i % D2) * 2, 0.f, 0.f);
+        put((i / D2) * st.o_h + (i % D2) * 2, 0.f, 0.f);
+      if (lb)
+        for (int r = tid; r < group; r += NT) lb[r] = -INFINITY;
+    }
     return;
   }
   const int lo = max(kv_begin, split * SPLIT), hi = min(kv_end, split * SPLIT + SPLIT);
@@ -636,6 +654,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (lane == 0) {
       sM[r] = mx;
       sL[r] = sum;
+      if (lb && n_live == 1) lb[r] = (mx + logf(sum)) * LOG2E;
       if (n_live > 1) {
         part[r] = mx;
         part[group + r] = sum;
@@ -658,7 +677,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
     if (n_live == 1) {
       const float den = fmaxf(sL[r], 1e-37f);
-      store2(ob + r * st.o_h + d, a0 / den, a1 / den);
+      put(r * st.o_h + d, a0 / den, a1 / den);
     } else {
       store2(part + 2 * group + r * D + d, a0, a1);
     }
@@ -725,8 +744,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = tid; i < group * D2; i += NT) {
     const int r = i / D2, d = (i % D2) * 2;
     const float den = fmaxf(sL[r], 1e-37f);
-    store2(ob + r * st.o_h + d, sA[r * D + d] / den, sA[r * D + d + 1] / den);
+    put(r * st.o_h + d, sA[r * D + d] / den, sA[r * D + d + 1] / den);
   }
+  if (lb)
+    for (int r = tid; r < group; r += NT) lb[r] = (sM[r] + logf(sL[r])) * LOG2E;
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
@@ -796,7 +817,8 @@ template <typename T, int D>
 int launch_decode(const void* q, const void* k, const void* v, void* o, const Strides& st,
                   int B, int Skv, int H, int Hkv, int causal, int window,
                   const int* q_offset_dev, int q_offset, float scale, float* scratch,
-                  int* tickets, int n_splits, cudaStream_t stream) {
+                  int* tickets, int n_splits, float* lse, float* o32,
+                  cudaStream_t stream) {
   const int group = H / Hkv;
   const int bytes = DecodeSmem<T, D>::bytes(group);
   static unsigned long long done = 0;
@@ -805,7 +827,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o, const St
   flash_decode_kernel<T, D><<<dim3(n_splits, Hkv, B), NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), st, Skv, Hkv, group, causal, window, q_offset_dev, q_offset, scale,
-      scratch, tickets);
+      scratch, tickets, lse, o32);
   return (int)cudaGetLastError();
 }
 
@@ -845,16 +867,21 @@ extern "C" int repro_flash_prefill(int dtype, int D, const void* q, const void* 
 
 // Sq = 1, split-KV.  scratch holds B * Hkv * n_splits * group * (D + 2)
 // floats; tickets B * Hkv ints, zero before the launch and zero after it.
+// lse, when not null, receives (B, H) f32 log-sum-exps in the prefill's
+// units (-inf for a row with no live key: a query offset below 0, or a
+// window past the keys).  o32, when not null, receives the output in f32
+// instead of o (the strides are o's).
 extern "C" int repro_flash_decode(int dtype, int D, const void* q, const void* k, const void* v,
                                   void* o, const long long* strides, int B, int Skv, int H,
                                   int Hkv, int causal, int window, const int* q_offset_dev,
                                   int q_offset, float scale, float* scratch, int* tickets,
-                                  int n_splits, void* stream) {
+                                  int n_splits, float* lse, float* o32,
+                                  void* stream) {
   const Strides st = to_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_DECODE(T, DD)                                                                  \
   return launch_decode<T, DD>(q, k, v, o, st, B, Skv, H, Hkv, causal, window, q_offset_dev, \
-                              q_offset, scale, scratch, tickets, n_splits, s)
+                              q_offset, scale, scratch, tickets, n_splits, lse, o32, s)
   if (dtype == 0) {
     switch (D) {
       case 16: REPRO_DECODE(float, 16);

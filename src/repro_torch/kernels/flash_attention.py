@@ -398,10 +398,13 @@ _COMMON_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5)
 
 class FlashAttentionKernel:
     """The K1 kernels' wrapper.  ``launches`` counts kernel launches, one
-    per call whichever kernel it takes."""
+    per call whichever kernel it takes; ``decode_lse_launches`` those of
+    the decode kernel asked for its log-sum-exp (sequence-parallel
+    decode), which ``launches`` counts too."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.decode_lse_launches = 0
         self._fns = None
         #: (device index, stream) -> (scratch, tickets) of the decode kernel:
         #: allocated once, grown when a call needs more, never cleared (the
@@ -422,6 +425,7 @@ class FlashAttentionKernel:
                                + [ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_float, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p])
             prefill.restype = decode.restype = ctypes.c_int
             self._fns = (prefill, decode)
@@ -443,12 +447,17 @@ class FlashAttentionKernel:
 
     def __call__(self, q, k, v, *, causal: bool = True,
                  window: Optional[int] = None, q_offset: QOffset = 0,
-                 with_lse: bool = False):
+                 with_lse: bool = False, out_f32: bool = False):
         """Same contract as :func:`flash_attention_plain`, on CUDA tensors
         of float32 or bfloat16 with head dim in :data:`HEAD_DIMS`.
 
-        ``with_lse=True`` (Sq > 1 only) returns ``(out, lse)`` with the
-        rows' log-sum-exp as :func:`lse_plain` defines it.  The output
+        ``with_lse=True`` returns ``(out, lse)`` with the rows'
+        log-sum-exp as :func:`lse_plain` defines it, (B, H, Sq) f32: from
+        the prefill kernel, or (Sq = 1) from the decode kernel, where a
+        row with no live key (a query offset below 0 included) gets
+        -inf.  ``out_f32=True`` (Sq = 1 only) has the decode kernel write
+        its output in f32 rather than q's dtype: sequence-parallel decode
+        merges its shards' outputs before the one rounding.  The output
         carries no gradient, so inputs that require one under grad mode
         raise: ``ops.flash_attention`` is the differentiable entry.
         """
@@ -458,9 +467,9 @@ class FlashAttentionKernel:
         if needs_grad(q, k, v):
             raise RuntimeError(f"{what}: q, k or v requires grad; its output "
                                f"would drop it (call ops.flash_attention)")
-        if with_lse and Sq == 1:
-            raise ValueError(f"{what}: the decode kernel (Sq = 1) writes no "
-                             f"log-sum-exp")
+        if out_f32 and Sq != 1:
+            raise ValueError(f"{what}: out_f32 is the decode kernel's "
+                             f"(Sq = 1)")
         offset_ptr, offset = None, 0
         if isinstance(q_offset, torch.Tensor):
             if q_offset.device != q.device or q_offset.dtype != torch.int32 \
@@ -470,7 +479,8 @@ class FlashAttentionKernel:
             offset_ptr = q_offset.data_ptr()
         else:
             offset = int(q_offset)
-        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, Sq, H, D), device=q.device,
+                          dtype=torch.float32 if out_f32 else q.dtype)
         lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
                if with_lse else None)
         if out.numel() == 0:
@@ -490,7 +500,9 @@ class FlashAttentionKernel:
                                                         plan)
                 err = decode(*common, B, Skv, H, Hkv, *masks,
                              scratch.data_ptr(), tickets.data_ptr(),
-                             plan.n_splits, stream)
+                             plan.n_splits,
+                             None if lse is None else lse.data_ptr(),
+                             out.data_ptr() if out_f32 else None, stream)
             else:
                 err = prefill(*common, B, Sq, Skv, H, Hkv, *masks,
                               None if lse is None else lse.data_ptr(), stream)
@@ -498,6 +510,8 @@ class FlashAttentionKernel:
             raise RuntimeError(f"flash attention kernel failed to launch "
                                f"(error {err})")
         self.launches += 1
+        if with_lse and Sq == 1:
+            self.decode_lse_launches += 1
         return (out, lse) if with_lse else out
 
 

@@ -40,6 +40,14 @@ is the dense one with an image prefix: patch embeddings projected by
 ``mm_proj`` are put before the text, and the loss covers the text alone.
 A decode step never sees the image, as in the reference: its cache holds
 text positions only.
+
+Under a mesh (``distributed.sharding.set_mesh``) the parameters, the
+batch and the caches are DTensors (``sharding.params_shardings``,
+``data.pipeline.SyntheticTokens.sharded_batch(step, mesh)``,
+:func:`init_cache`'s ``mesh``), the reference's constraints stand at its
+points, and the loss head runs on each rank's vocabulary shard
+(:func:`_sharded_chunk_loss`).  The functions compute what they compute
+on one device, exactly: a mesh never changes the model's function.
 """
 from __future__ import annotations
 
@@ -49,10 +57,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import is_dtensor, resolve_device
 
 Params = Dict[str, Any]
 
@@ -210,6 +220,7 @@ def _ffn(cfg: ModelConfig, lp: Params, h):
     return L.mlp_block(lp["mlp"], h, cfg.mlp_type), None
 
 
+@sh.under_mesh
 def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
            kv_chunk: int, dtype: Optional[torch.dtype] = None,
            causal: bool = True, enc_out: Optional[torch.Tensor] = None):
@@ -220,7 +231,9 @@ def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
     encdec family attends to ``enc_out`` after its self-attention."""
     if dtype is not None:
         lp = cast_params(lp, dtype)
+    lp = sh.gather_data_axes(lp)
     eps = cfg.norm_eps
+    x = sh.constrain(x, "batch", None, None)
     if cfg.family in ("ssm", "hybrid"):
         return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
                                  cfg), None
@@ -239,9 +252,11 @@ def _cross_attention(cfg: ModelConfig, p: Params, x, enc_out):
     from ``enc_out``, no causal mask, no RoPE and no qk-norm (the
     reference's ``_cross_attention``).  The keys and values are computed
     from ``enc_out`` in every call, a decode step's too."""
-    q = L._heads(x, p["wq"])
-    k = L._heads(enc_out, p["wk"])
-    v = L._heads(enc_out, p["wv"])
+    _, kv_pad, _ = L.head_layout(cfg.n_heads, cfg.n_kv_heads)
+    q = L._heads(x, L.pad_heads(p["wq"], 1, cfg.n_heads, cfg.n_kv_heads))
+    k = L._heads(enc_out, L._pad_axis(p["wk"], 1, kv_pad))
+    v = L._heads(enc_out, L._pad_axis(p["wv"], 1, kv_pad))
+    q = sh.constrain(q, "batch", None, "model", None)
     out = ops.flash_attention(q, k, v, causal=False)
     return L._output_proj(p, out, cfg.n_heads, x.shape[-1])
 
@@ -270,7 +285,7 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds,
     dtype = compute_dtype(cfg)
     if not remat:
         _check_dtype(params, dtype)
-    e = enc_embeds.to(dtype)
+    e = sh.constrain(enc_embeds.to(dtype), "batch", None, None)
     for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
         if remat:
             e, _ = checkpoint(_layer, cfg, lp, e, None, kv_chunk, dtype,
@@ -280,6 +295,7 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds,
     return L.rms_norm(e, params["enc_norm"].to(dtype), cfg.norm_eps)
 
 
+@sh.under_mesh
 def forward_hidden(cfg: ModelConfig, params: Params, tokens,
                    patch_embeds=None, enc_embeds=None, kv_chunk: int = 512,
                    remat: bool = False) \
@@ -308,7 +324,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     dtype = compute_dtype(cfg)
     if not remat:
         _check_dtype(params, dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = sh.constrain(_embed(params["embed"], tokens).to(dtype), "batch",
+                     None, None)
     if cfg.family == "vlm":
         if patch_embeds is None:
             raise ValueError(f"{cfg.name}: the vlm family needs patch "
@@ -321,7 +338,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family == "hybrid":
         E = cfg.shared_attn_every
-        sa = cast_params(params["shared_attn"], dtype)
+        sa = sh.gather_data_axes(cast_params(params["shared_attn"], dtype))
         for g in range(_groups(cfg)):
             group = layers[g * E:(g + 1) * E]
             if remat:
@@ -345,7 +362,13 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
 
 
 def unembed(cfg: ModelConfig, params: Params, hidden):
+    """Logits of ``hidden``; under a mesh the unembedding is gathered over
+    the data axes, its vocabulary on the model axis where it divides."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    mesh = sh.get_policy().mesh
+    if mesh is not None:
+        w = w.redistribute(mesh, sh.placements(mesh, sh.constrain_spec(
+            mesh, tuple(w.shape), None, "model")))
     return hidden @ w.to(hidden.dtype)
 
 
@@ -359,11 +382,145 @@ def forward(cfg: ModelConfig, params: Params, tokens, **kw):
 # Loss with a sequence-chunked, remat'd softmax head
 # --------------------------------------------------------------------------
 
+def _embed(table, tokens):
+    """The rows of ``table`` at ``tokens``.  Under a mesh each rank gathers
+    from its own block of the table (a vocabulary or d_model shard): over
+    a mesh dim that shards the table the tokens are made whole (they are
+    small), and the rows come out as partial sums (vocabulary shards) or
+    d_model shards; over the other dims they keep their batch shard.
+    Nothing gathers the table."""
+    if not isinstance(tokens, torch.Tensor) or not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = sh.distribute(tokens, mesh, sh.P())
+    tab_pl = list(table.placements)
+    tok_pl = [Replicate() if wp.is_shard() or not tp.is_shard(0) else tp
+              for tp, wp in zip(tokens.placements, tab_pl)]
+    out_pl = [Partial() if wp.is_shard(0) else Shard(2) if wp.is_shard(1)
+              else Shard(0) if tp.is_shard(0) else Replicate()
+              for tp, wp in zip(tok_pl, tab_pl)]
+    vocab_dims = [i for i, wp in enumerate(tab_pl) if wp.is_shard(0)]
+
+    def local(w, t):
+        if not vocab_dims:
+            return w[t]
+        lo = sum(mesh.get_coordinate()[i] * w.shape[0]
+                 for i in vocab_dims)    # one vocab dim at most
+        idx = t.long() - lo
+        inside = (idx >= 0) & (idx < w.shape[0])
+        rows = w[idx.clamp(0, w.shape[0] - 1)]
+        return rows * inside[..., None].to(rows.dtype)
+
+    # the table's gradient is a part of the sum over a dim whose ranks
+    # gather from it with different tokens
+    tab_grad = [Partial() if tp.is_shard() else wp
+                for tp, wp in zip(tok_pl, tab_pl)]
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(tab_grad, tok_pl), device_mesh=mesh)(
+        table, tokens.redistribute(mesh, tok_pl))
+
+
 def _chunk_loss(h, w, y):
     """Sum over a chunk of (logsumexp - gold logit), the logits in f32."""
     logits = (h @ w).float()
     gold = torch.gather(logits, -1, y[..., None])[..., 0]
     return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+class _VocabXent(torch.autograd.Function):
+    """Per-token (logsumexp - gold logit) of f32 logits whose last dim is
+    this rank's vocabulary slice [v0, v0 + V_local), the rows' max and
+    sums all-reduced over ``group`` (None: the slice is the whole
+    vocabulary).  The backward is local: softmax minus the gold one-hot,
+    from the saved probabilities."""
+
+    @staticmethod
+    def forward(ctx, logits, y, v0: int, group):
+        mx = logits.amax(-1, keepdim=True)
+        if group is not None:
+            coll.all_reduce(mx, "max", group)
+        e = torch.exp(logits - mx)
+        V = logits.shape[-1]
+        idx = y.long() - v0
+        inside = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+        gold = torch.gather(logits, -1, idx[..., None])[..., 0] * inside
+        sums = torch.stack([e.sum(-1), gold])
+        if group is not None:
+            coll.all_reduce(sums, "sum", group)
+        ctx.save_for_backward(e / sums[0][..., None], idx, inside)
+        return torch.log(sums[0]) + mx[..., 0] - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        grad = p.scatter_add(-1, idx[..., None],
+                             -inside[..., None].to(p.dtype))
+        return grad * g[..., None], None, None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over ``group`` of a value each rank holds a part of, the
+    result every rank's; its gradient reaches each part unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        coll.all_reduce(x, "sum", group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _sharded_chunk_loss(h, w, y):
+    """:func:`_chunk_loss` of DTensors: h (B, c, d) and y (B, c) batch
+    sharded on the data axes, the unembedding w (d, V) sharded on V over
+    the model axis where it divides (the reference's ``constrain(logits,
+    "batch", None, "model")``).  Each rank makes the logits of its batch
+    and vocabulary shard alone; the sum over the batch shards is every
+    rank's."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = sh.get_policy().mesh
+    h = sh.constrain(h, "batch", None, None)
+    y = sh.constrain(y, "batch", None)
+    spec = sh.constrain_spec(mesh, (w.shape[0], w.shape[1]), None, "model")
+    w = w.redistribute(mesh, sh.placements(mesh, spec))
+    names = list(mesh.mesh_dim_names)
+    vocab_axis = spec[1]
+    batch_axes = [names[i] for i, p in enumerate(h.placements)
+                  if p.is_shard(0)]
+    groups = {a: mesh.get_group(a) for a in names}
+    out_pl = [Replicate()] * mesh.ndim
+
+    def local(hl, wl, yl):
+        v0 = (mesh.get_local_rank(vocab_axis) * wl.shape[1]
+              if vocab_axis else 0)
+        tok = _VocabXent.apply((hl @ wl).float(), yl, v0,
+                               groups[vocab_axis] if vocab_axis else None)
+        total = tok.sum()
+        for a in batch_axes:
+            total = _SumOver.apply(total, groups[a])
+        return total
+
+    # each rank's gradient of h is its vocabulary slice's part, of w its
+    # batch shard's part
+    h_grad = [Partial() if vocab_axis == n else p
+              for n, p in zip(names, h.placements)]
+    w_grad = [Partial() if n in batch_axes else p
+              for n, p in zip(names, w.placements)]
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(list(h.placements), list(w.placements),
+                                    list(y.placements)),
+                     in_grad_placements=(h_grad, w_grad,
+                                         list(y.placements)),
+                     device_mesh=mesh)(h, w, y)
 
 
 def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
@@ -382,6 +539,15 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
     exist whole: a chunk's are recomputed in the backward pass.  The
     unembedding is cast to the compute dtype once per call.
     """
+    with sh.mesh_region():
+        loss = _lm_loss(cfg, params, tokens, labels, loss_chunk, aux_weight,
+                        remat, patch_embeds, enc_embeds, kv_chunk)
+    sh.backward_in_mesh_region(loss)
+    return loss
+
+
+def _lm_loss(cfg, params, tokens, labels, loss_chunk, aux_weight, remat,
+             patch_embeds, enc_embeds, kv_chunk):
     hidden, aux = forward_hidden(cfg, params, tokens, patch_embeds,
                                  enc_embeds, kv_chunk, remat)
     if cfg.family == "vlm":
@@ -394,10 +560,19 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
     w = (params["embed"].T if cfg.tie_embeddings
          else params["lm_head"]).to(hidden.dtype)
     labels = labels.long()
+    mesh = sh.get_policy().mesh
+    if mesh is not None:
+        if not is_dtensor(labels):
+            labels = sh.distribute(labels, mesh, sh.P())
+        # the head's layout once a call, not once a chunk and again in
+        # each chunk's recompute: its vocabulary on the model axis
+        w = w.redistribute(mesh, sh.placements(mesh, sh.constrain_spec(
+            mesh, tuple(w.shape), None, "model")))
+    loss_fn = _chunk_loss if mesh is None else _sharded_chunk_loss
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
         part = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(_chunk_loss, hidden[:, part], w,
+        total = total + checkpoint(loss_fn, hidden[:, part], w,
                                    labels[:, part], use_reentrant=False)
     return total / (B * S) + aux_weight * aux
 
@@ -407,7 +582,7 @@ def lm_loss(cfg: ModelConfig, params: Params, tokens, labels,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Params:
+               device="cuda", mesh=None) -> Params:
     """Zero decode cache on ``device``: the position, and per layer a KV
     cache of ``max_len`` (dense) or the SSM state, h in f32 ((L, B,
     d_inner, N) for Mamba1, (L, B, H, N, P) for Mamba2) and the conv window
@@ -416,7 +591,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     layers and a KV cache of ``max_len`` for each of its G shared-attention
     applications, (G, B, max_len, Hkv, D).  An encdec model also holds
     ``enc_out`` (B, max_source_len, d) in the compute dtype, zeros until
-    the caller writes :func:`encode`'s output there."""
+    the caller writes :func:`encode`'s output there.
+
+    With ``mesh`` the caches are DTensors on it with the placements of
+    ``sharding.input_shardings(mesh, "decode", ...)``: the batch on the
+    data axes where they divide it, else the sequence (sequence-parallel
+    decode), kv heads on the model axis; each rank allocates its block
+    alone.  ``pos`` stays a plain tensor every rank holds."""
+    if mesh is not None:
+        return _init_cache_on(cfg, batch, max_len, device, mesh)
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = compute_dtype(cfg)
@@ -436,6 +619,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
+def _init_cache_on(cfg: ModelConfig, batch: int, max_len: int, device,
+                   mesh) -> Params:
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.configs.base import ShapeConfig
+    abstract = init_cache(cfg, batch, max_len, device="meta")
+    specs = sh.input_shardings(mesh, "decode", cfg,
+                               ShapeConfig("serve", "decode", max_len, batch))
+    names = {"k": "cache_k", "v": "cache_v", "enc_out": "enc_out"}
+    dev = resolve_device(device)
+
+    def place(t, spec):
+        pl = sh.placements(mesh, spec)
+        shape, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        local = torch.zeros(shape, dtype=t.dtype, device=dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=torch.empty(
+                                      t.shape, device="meta").stride())
+
+    out: Params = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for key, t in abstract.items():
+        if key == "ssm":
+            out["ssm"] = {n: place(a, specs["ssm_" + n])
+                          for n, a in t.items()}
+        elif key != "pos":
+            out[key] = place(t, specs[names[key]])
+    return out
+
+
+@sh.under_mesh
 def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     """One decode step: tokens (B, 1) → (logits (B, vocab) f32, cache).
 
@@ -453,7 +667,8 @@ def serve_step(cfg: ModelConfig, params: Params, cache: Params, tokens):
     _check_dtype(params, dtype)
     eps = cfg.norm_eps
     pos = cache["pos"]
-    x = params["embed"][tokens].to(dtype)
+    x = sh.constrain(_embed(params["embed"], tokens).to(dtype), "batch",
+                     None, None)
     if cfg.family == "ssm":
         x = _ssm_decode_layers(cfg, _unstack(params["layers"], cfg.n_layers),
                                cache["ssm"], x, 0)
@@ -474,6 +689,7 @@ def _ssm_decode_layers(cfg: ModelConfig, layers: List[Params],
     overwrites it in place."""
     h_all, conv_all = state["h"], state["conv"]
     for i, lp in enumerate(layers, first):
+        lp = sh.gather_data_axes(lp)
         h, st = SSM.ssm_decode(
             lp["ssm"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
             {"h": h_all[i], "conv": conv_all[i]}, cfg)
@@ -491,7 +707,7 @@ def _hybrid_decode_groups(cfg: ModelConfig, params: Params, cache: Params,
     pos = cache["pos"]
     pos_index = pos.reshape(1).long()
     layers = _unstack(params["layers"], cfg.n_layers)
-    sa = params["shared_attn"]
+    sa = sh.gather_data_axes(params["shared_attn"])
     for g in range(_groups(cfg)):
         x = _ssm_decode_layers(cfg, layers[g * E:(g + 1) * E], cache["ssm"],
                                x, g * E)
@@ -511,6 +727,7 @@ def _dense_decode_layers(cfg: ModelConfig, params: Params, cache: Params,
     windows = _windows_per_layer(cfg, cache["k"].shape[2])
     enc_out = cache.get("enc_out")
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        lp = sh.gather_data_axes(lp)
         h = L.rms_norm(x, lp["ln1"], eps)
         h, _, _ = L.attention_decode(
             lp["attn"], h, cache["k"][i], cache["v"][i], pos,

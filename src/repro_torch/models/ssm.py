@@ -19,8 +19,10 @@ f32, as in the reference, which has no Pallas kernel for it; the chunk
 length (128, the reference's default for Mamba2) is an argument.
 
 Decode is a closed-form update of one token in both blocks and reaches no
-kernel.  The reference's sharding constraints are the identity on one
-device and are left out.
+kernel.  Under a mesh the reference's sharding constraints stand at its
+points: x and z sharded on d_inner over the model axis (the scan runs on
+each rank's channels), Mamba2's heads likewise; on one device they are
+the identity and are left out.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import decay_inc
 from repro_torch.models.layers import _init, init_rms_norm, rms_norm
@@ -94,8 +97,8 @@ def init_mamba1(gen: torch.Generator, d_model: int, d_state: int,
 
 def _m1_gates(p, u, dt_rank, d_state):
     """Shared projections: returns x (conv'd), z, dt, B, C."""
-    x = u @ p["in_x"]
-    z = u @ p["in_z"]
+    x = sh.constrain(u @ p["in_x"], "batch", None, "model")
+    z = sh.constrain(u @ p["in_z"], "batch", None, "model")
     x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
     dbc = x @ p["x_proj"]
     dt = dbc[..., :dt_rank]
@@ -181,8 +184,9 @@ def init_mamba2(gen: torch.Generator, d_model: int, d_state: int,
 
 def _m2_split(p, u):
     """The input projections: z, x (before the conv), B, C and dt."""
-    z = u @ p["in_z"]
-    x = u @ p["in_x"]
+    roles = ("batch", None, "model") if u.ndim == 3 else ("batch", "model")
+    z = sh.constrain(u @ p["in_z"], *roles)
+    x = sh.constrain(u @ p["in_x"], *roles)
     Bs = u @ p["in_B"]
     Cs = u @ p["in_C"]
     dt = _softplus(u @ p["in_dt"] + p["dt_bias"])
@@ -207,7 +211,8 @@ def mamba2_block(p: Params, u, *, d_state: int, head_dim: int,
     assert nc * chunk == S, f"S={S} not divisible by chunk={chunk}"
     z, x, Bs, Cs, dt = _m2_split(p, u)
     x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
-    xh = x.reshape(B, nc, chunk, H, head_dim).float()
+    xh = sh.constrain(x.reshape(B, nc, chunk, H, head_dim).float(),
+                      "batch", None, None, "model", None)
     Bc = Bs.reshape(B, nc, chunk, d_state).float()
     Cc = Cs.reshape(B, nc, chunk, d_state).float()
     dtc = dt.reshape(B, nc, chunk, H).float()
@@ -285,6 +290,7 @@ def init_ssm(gen: torch.Generator, cfg, *, stack: int = 0,
                        dtype=dtype)
 
 
+@sh.under_mesh
 def ssm_block(p: Params, u, cfg, chunk: int = 0):
     """The config's block; ``chunk`` 0 takes its type's default (1024 for
     Mamba1, :data:`MAMBA2_CHUNK` for Mamba2)."""
@@ -295,6 +301,7 @@ def ssm_block(p: Params, u, cfg, chunk: int = 0):
                         chunk=chunk or MAMBA2_CHUNK, eps=cfg.norm_eps)
 
 
+@sh.under_mesh
 def ssm_decode(p: Params, u, state, cfg):
     if cfg.ssm_type == "mamba1":
         return mamba1_decode(p, u, state, d_state=cfg.ssm_state)

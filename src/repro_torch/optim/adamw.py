@@ -16,6 +16,8 @@ from typing import Any, Dict, List, NamedTuple
 
 import torch
 
+from repro_torch.runtime import is_dtensor
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -51,13 +53,18 @@ def leaves(tree) -> List[torch.Tensor]:
 
 
 def init(params) -> AdamWState:
-    """Zero moments beside each parameter (same device, f32) and count 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero moments beside each parameter (same device, f32; a DTensor
+    parameter's moments are DTensors placed like it) and count 0 (with
+    DTensor parameters, a DTensor every rank holds whole)."""
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=torch.float32, memory_format=torch.contiguous_format)
     first = leaves(params)[0]
+    count = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        from repro_torch.distributed import sharding
+        count = sharding.distribute(count, first.device_mesh, sharding.P())
     return AdamWState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
-                      count=torch.zeros((), dtype=torch.int32,
-                                        device=first.device))
+                      count=count)
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

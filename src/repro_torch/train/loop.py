@@ -4,10 +4,16 @@ checkpoint — the port of ``repro/train/loop.py``.
 Every run is a restart: boot goes through
 ``CheckpointManager.restore_or_init``, so a fresh start and a crash
 recovery are the same code path.  The state is ``{"params": f32 master
-weights, "opt": AdamWState}`` on one device; its structure for the
-restore comes from a shape-only model (``init_lm(device="meta")``), so a
-resume builds no second state.  Checkpoint failures are logged, never
-raised into the loop; the final save blocks.
+weights, "opt": AdamWState}`` on one device, or with ``mesh`` DTensors
+on it: parameters under ``sharding.params_shardings``, AdamW moments
+placed like their parameters, the count whole on every rank.  Its
+structure for the restore comes from a shape-only model
+(``init_lm(device="meta")``), so a resume builds no second state, and a
+resume onto another mesh is the same restore: scda's file is the same
+whatever mesh wrote it.  Under a mesh every rank runs the loop, and the
+manager saves through ``TorchDistComm`` (each rank writes the blocks it
+owns; rank 0 commits).  Checkpoint failures are logged, never raised
+into the loop; the final save blocks.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import os
 import tempfile
 import time
 from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig
@@ -41,11 +49,27 @@ class TrainLoopConfig:
     grad_compress: bool = False
 
 
-def init_state(cfg: ModelConfig, seed: int, device) -> Dict[str, Any]:
+def init_state(cfg: ModelConfig, seed: int, device,
+               mesh=None) -> Dict[str, Any]:
     """Fresh f32 master weights from ``seed`` and zero AdamW moments;
-    ``device="meta"`` gives the structure only."""
+    ``device="meta"`` gives the structure only.  With ``mesh`` the
+    parameters are DTensors under ``params_shardings`` (every rank draws
+    the same weights and keeps its blocks) or, on ``meta``, the restore
+    targets of that layout; the moments are placed like them."""
     params = init_lm(cfg, seed, device=device)
+    if mesh is not None:
+        params = _placed(params, mesh, torch.device(device).type == "meta")
     return {"params": params, "opt": adamw.init(params)}
+
+
+def _placed(params, mesh, targets_only: bool):
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.distributed import sharding as sh
+    named, rebuild = flatten_named(params)
+    if targets_only:
+        return sh.params_shardings(mesh, params)
+    return rebuild([sh.distribute(t, mesh, sh.leaf_spec(mesh, n, t))
+                    for n, t in named])
 
 
 def train(cfg: ModelConfig, loop: TrainLoopConfig,
@@ -53,15 +77,20 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig,
           data: Optional[SyntheticTokens] = None,
           seq_len: int = 128, global_batch: int = 8,
           hooks: Optional[Dict[str, Callable]] = None,
-          device="cuda") -> Dict[str, Any]:
+          device="cuda", mesh=None) -> Dict[str, Any]:
     """Run (or resume) a training job on ``device`` (the GPU unless
-    ``device="cpu"``); returns final metrics and state.
+    ``device="cpu"``); returns final metrics and state.  With ``mesh`` (a
+    ``DeviceMesh`` over every rank, each of which calls this) the policy
+    is set to it and the state, batches and step are the mesh's.
 
     ``hooks``: ``on_step(step, state, metrics)`` after each step,
     ``should_die(step)`` to inject a failure after the step's save (the
     save is waited for, then ``SystemExit`` is raised).
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as sh
+        sh.set_mesh(mesh)
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=loop.total_steps)
     data = data or SyntheticTokens(DataConfig(
         vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch,
@@ -77,18 +106,23 @@ def train(cfg: ModelConfig, loop: TrainLoopConfig,
     step_fn = make_train_step(cfg, opt_cfg, loss_chunk=loss_chunk,
                               grad_transform=grad_transform)
 
+    comm = None
+    if mesh is not None:
+        from repro_torch.core.comm import TorchDistComm
+        comm = TorchDistComm()
     mgr = CheckpointManager(loop.ckpt_dir, keep=loop.ckpt_keep,
-                            compressed=loop.ckpt_compressed)
+                            compressed=loop.ckpt_compressed, comm=comm)
     state, start_step = mgr.restore_or_init(
-        lambda: init_state(cfg, loop.seed, dev),
-        like=init_state(cfg, loop.seed, "meta"), device=dev)
+        lambda: init_state(cfg, loop.seed, dev, mesh),
+        like=init_state(cfg, loop.seed, "meta", mesh), device=dev)
     if start_step >= 0:
         log.info("resumed from checkpoint at step %d", start_step)
     metrics: Dict[str, Any] = {}
     losses = []
     t0 = time.time()
     for step in range(start_step + 1, loop.total_steps):
-        batch = data.sharded_batch(step, dev)
+        batch = (data.sharded_batch(step, dev) if mesh is None
+                 else data.sharded_batch(step, dev, mesh))
         params, opt, metrics = step_fn(state["params"], state["opt"], batch)
         state = {"params": params, "opt": opt}
         losses.append(float(metrics["loss"]))

@@ -9,7 +9,9 @@ step; unlike the reference's pure step it updates ``params`` and
 ``opt_state`` in place (AdamW in place, gradients freed as they are used)
 and returns the same objects.  Every builder passes a batch's
 ``patch_embeds`` and ``enc_embeds`` on to the model, as the reference's
-do.
+do.  Under a mesh (``sharding.set_mesh``) the train step takes DTensor
+parameters, state and batch, runs forward, backward and update in the
+mesh's region, and returns its metrics as plain tensors every rank holds.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.checkpoint.pytree_io import flatten_named
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 
@@ -37,19 +40,28 @@ def make_train_step(cfg: ModelConfig, opt: adamw.AdamWConfig,
     """Build the loss + grad + update step."""
 
     def step(params, opt_state, batch):
-        named, rebuild = flatten_named(params)
-        leaves = [p.requires_grad_(True) for _, p in named]
-        loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
-                          loss_chunk=loss_chunk, **_embeds(batch))
-        grads = rebuild(list(torch.autograd.grad(loss, leaves)))
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        params, opt_state, stats = adamw.update(opt, grads, opt_state,
-                                                params)
+        with sharding.mesh_region():
+            named, rebuild = flatten_named(params)
+            leaves = [p.requires_grad_(True) for _, p in named]
+            loss = lm.lm_loss(cfg, params, batch["tokens"], batch["labels"],
+                              loss_chunk=loss_chunk, **_embeds(batch))
+            grads = rebuild(list(torch.autograd.grad(loss, leaves)))
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            params, opt_state, stats = adamw.update(opt, grads, opt_state,
+                                                    params)
         metrics = {"loss": loss.detach(), **stats}
+        if sharding.get_policy().mesh is not None:
+            metrics = {k: _whole(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return step
+
+
+def _whole(x):
+    """A DTensor's whole value as a plain tensor; anything else as is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_eval_step(cfg: ModelConfig, loss_chunk: int = 256):

@@ -12,6 +12,8 @@ file runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1319,3 +1321,161 @@ def test_falcon_smoke_loss_and_gradients_on_cuda_match_cpu(cuda):
     for name, a, b in zip(names, gg, gc):
         assert b.norm() > 0, name
         torch.testing.assert_close(a, b, **TRAIN_TOL, msg=name)
+
+
+# ----------------------------------- decode with its log-sum-exp (SP decode) --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("pos", [-7, 0, 150, 299, 520])
+@pytest.mark.parametrize("window", [None, 64])
+def test_decode_kernel_writes_the_log_sum_exp(cuda, dtype, D, pos, window):
+    """The decode kernel asked for its log-sum-exp: lse_plain's values
+    where a key is live, -inf where none is (a query offset below 0, as
+    on a sequence shard past the position, or a window past the keys),
+    the output unchanged, and in f32 with ``out_f32`` the output before
+    its rounding."""
+    rng = np.random.default_rng(D + pos + (window or 0))
+    q = _rand(rng, (2, 1, 8, D), dtype, cuda)
+    k = _rand(rng, (2, 300, 4, D), dtype, cuda)
+    v = _rand(rng, (2, 300, 4, D), dtype, cuda)
+    kw = dict(window=window,
+              q_offset=torch.tensor(pos, dtype=torch.int32, device=cuda))
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    want = lse_plain(q, k, v, **kw)
+    assert lse.shape == (2, 8, 1) and lse.dtype == torch.float32
+    live = torch.isfinite(want)
+    assert torch.equal(live, torch.isfinite(lse))
+    torch.testing.assert_close(lse[live], want[live], **LSE_TOL)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v, **kw),
+                               **TOL[dtype])
+    out32, lse32 = flash_attention_cuda(q, k, v, with_lse=True, out_f32=True,
+                                        **kw)
+    assert out32.dtype == torch.float32 and torch.equal(
+        lse32.nan_to_num(), lse.nan_to_num())
+    assert torch.equal(out32.to(dtype), out)
+    if not bool(live.any()):
+        assert not bool(out.any()) and not bool(out32.any())
+
+
+def _tp_prefill_rank(tokens):
+    """qwen3's smoke model in bf16 on a (1, 2) mesh of the ranks sharing
+    the card: its weights as DTensors under the placement rules, the
+    prefill's last logits (K1 on each rank's local heads) and its K1
+    launches."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.train.step import make_prefill_step
+    cfg = dataclasses.replace(smoke(get_config("qwen3-1.7b")),
+                              dtype="bfloat16")
+    mesh = make_host_mesh(1, 2)
+    sh.set_mesh(mesh)
+    params = init_lm(cfg, 0, device="cuda", dtype=torch.bfloat16)
+    named, rebuild = flatten_named(params)
+    params = rebuild([sh.distribute(t, mesh, sh.leaf_spec(mesh, n, t))
+                      for n, t in named])
+    k1 = flash_attention_cuda
+    k1.launches = 0
+    with torch.no_grad():
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens.cuda()})
+        logits = logits.full_tensor().float().cpu()
+    sh.set_mesh(None)
+    return logits, k1.launches
+
+
+def test_tensor_parallel_prefill_on_two_ranks_of_one_card(cuda):
+    """A (1, 2) mesh over two gloo ranks sharing the card: each runs K1 on
+    its 2 of qwen3's smoke model's 4 heads (one kv head a rank), once a
+    layer; the last logits are the single-device prefill's."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.models import init_lm
+    from repro_torch.train.step import make_prefill_step
+    cfg = dataclasses.replace(smoke(get_config("qwen3-1.7b")),
+                              dtype="bfloat16")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    results = spawn_ranks(_tp_prefill_rank, 2, tokens, device="cuda")
+    params = init_lm(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = make_prefill_step(cfg)(params, {"tokens": tokens.to(cuda)})
+    for logits, launches in results:
+        assert launches == cfg.n_layers
+        torch.testing.assert_close(logits, want.float().cpu(),
+                                   **TOL[torch.bfloat16])
+
+
+def _train_grads_rank(tokens, labels, chunk):
+    """qwen3's smoke model in f32 on a (2, 1) and a (1, 2) mesh of the two
+    gloo ranks sharing the card: the train step's loss and gradients
+    (``lm_loss`` with its remat'd layers, differentiated inside the mesh
+    region as ``make_train_step`` does, the backward on autograd's device
+    thread), every gradient made whole, and the K1 backward's launches."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_lm, lm
+    cfg = smoke(get_config("qwen3-1.7b"))
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_host_mesh(*shape)
+        sh.set_mesh(mesh)
+        named, rebuild = flatten_named(init_lm(cfg, 0, device="cuda"))
+        leaves = [sh.distribute(t, mesh, sh.leaf_spec(mesh, n, t))
+                  .requires_grad_(True) for n, t in named]
+        spec = sh.batch_spec(mesh, 2)
+        tok = sh.distribute(tokens.cuda(), mesh, spec)
+        lab = sh.distribute(labels.cuda(), mesh, spec)
+        flash_attention_bwd_cuda.launches = 0
+        with sh.mesh_region():
+            loss = lm.lm_loss(cfg, rebuild(leaves), tok, lab,
+                              loss_chunk=chunk)
+            grads = torch.autograd.grad(loss, leaves)
+        out[shape] = (float(loss.full_tensor()),
+                      {n: g.full_tensor().cpu()
+                       for (n, _), g in zip(named, grads)},
+                      flash_attention_bwd_cuda.launches)
+        sh.set_mesh(None)
+    return out
+
+
+def test_train_step_gradients_on_two_ranks_of_one_card(cuda):
+    """The train step's loss and every gradient of qwen3's smoke model on
+    two gloo ranks sharing the card, over data (FSDP: the gradients
+    reduce-scattered) and over model (TP: K1 and its backward on each
+    rank's local heads), against the single device's, in f32; each rank
+    launches the K1 backward as often as the single device."""
+    from repro_torch.checkpoint.pytree_io import flatten_named
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.models import init_lm, lm
+    cfg = smoke(get_config("qwen3-1.7b"))
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32))
+                              .astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)))
+    results = spawn_ranks(_train_grads_rank, 2, tokens, labels, 16,
+                          device="cuda")
+    named, rebuild = flatten_named(init_lm(cfg, 0, device=cuda))
+    leaves = [t.requires_grad_(True) for _, t in named]
+    flash_attention_bwd_cuda.launches = 0
+    loss = lm.lm_loss(cfg, rebuild(leaves), tokens.to(cuda),
+                      labels.to(cuda), loss_chunk=16)
+    grads = torch.autograd.grad(loss, leaves)
+    launches = flash_attention_bwd_cuda.launches
+    assert launches > 0
+    for res in results:
+        for shape, (got_loss, got_grads, got_launches) in res.items():
+            assert got_launches == launches, shape
+            torch.testing.assert_close(got_loss, float(loss),
+                                       **TOL[torch.float32])
+            for (name, _), g in zip(named, grads):
+                torch.testing.assert_close(
+                    got_grads[name], g.cpu(), **TOL[torch.float32],
+                    msg=lambda m, name=name, shape=shape:
+                    f"{name} on {shape}: {m}")

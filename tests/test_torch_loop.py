@@ -143,7 +143,10 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys, arch):
 
 
 def test_launcher_refuses_a_mesh(tmp_path):
+    """A mesh with no model axis is refused before any rank starts (the
+    launcher trains under a (data, model) mesh since the distributed
+    slice: tests/test_torch_dist_model.py runs one)."""
     from repro_torch.launch import train as launch
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(SystemExit):
         launch.main(["--arch", ARCHS[0], "--device", "cpu", "--data-par", "2",
-                     "--ckpt-dir", str(tmp_path)])
+                     "--model-par", "0", "--ckpt-dir", str(tmp_path)])

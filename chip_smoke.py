@@ -77,7 +77,7 @@ Then seven models train at full width (8192 tokens a step, f32 master
 weights, AdamW), each through ``repro_torch.train.loop.train``: run 1 dies
 after step 3's save, run 2 resumes bit-exactly.  All are cut
 in depth (``*_TRAIN_LAYERS``) to keep the run's time well under its limit
-and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 4 of its 28
+and its disk footprint under 45 GiB.  qwen3-1.7b, cut to 2 of its 28
 layers, trains through K1's forward and its backward (8 x 1024 tokens),
 saving its state through the reference launcher's knobs
 (REPRO_SCDA_SHARDS=4, REPRO_SCDA_PARITY=2, REPRO_SCDA_DELTA=1): step 3's
@@ -120,6 +120,18 @@ gemma3's needs 33 GB, qwen3's two parity-protected sets 24 GB, llava's
 GB, and its delta are deleted before its serve path goes on).
 ``--kernels-only`` builds and checks the kernels and stops before the
 model paths.
+
+After the serve paths, the dry-run phase: a subprocess started at the
+run's beginning (``--dryrun-predict``; it sees no GPU, and its ``fake``
+process group never shares a process with the distributed phase's ranks)
+traces on ``meta`` tensors qwen3-1.7b's prefill, its serve loop and a
+2-layer train step (``repro_torch.analysis.costs``), and the production
+cell qwen3-1.7b x decode_32k on 16 x 16 (``repro_torch.launch.dryrun``);
+each predicted peak must be within 15 % of ``max_memory_allocated`` of the
+same window on the card (the train step measured apart), and the phase
+must take 20 s or less.  ``--dryrun-only`` builds the kernels, runs
+qwen3's prefill and serve windows on random weights and the dry-run phase,
+and stops.
 """
 from __future__ import annotations
 
@@ -275,10 +287,14 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: qwen3's weights (69 s in its first full run, a run of 1042.9 s to
 #: "done" on an H100 machine that took 198.8 s over the kernel checks,
 #: 35.1 s more than the machine of the 825.6 s run) cut qwen3's training
-#: from 6 layers to 4 (512,510,976 parameters).
+#: from 6 layers to 4 (512,510,976 parameters); the dry-run phase's run
+#: reached "done" at 1142.0 s on an H100 machine whose kernel checks took
+#: 220.5 s, which cut it to 2 (411,838,976).
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
-QWEN_TRAIN_LAYERS = 4
+#: The training paths' AdamW settings (``AdamWConfig``'s arguments).
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+QWEN_TRAIN_LAYERS = 2
 FALCON_TRAIN_LAYERS = 2
 #: zamba2's cut is in whole groups (1 of its 9, so 1 shared-attention
 #: application).  Its device memory fits at 54 layers (a 53.6 GB peak).
@@ -2903,6 +2919,7 @@ def prefill_phase(torch, cfg, weights, k1, hold: bool = True,
     apps = attention_apps(cfg)
     before = k1.launches
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill(weights, batch)
@@ -2922,7 +2939,7 @@ def prefill_phase(torch, cfg, weights, k1, hold: bool = True,
     print(f"prefill {cfg.name}: B{PREFILL_B} S{S} in "
           f"{dt * 1e3:.3f} ms (first call), {apps} K1 launches, peak memory "
           f"{peak} B, logits vs plain attention max abs err {err}")
-    return dict(first_call_ms=dt * 1e3, peak_bytes=peak,
+    return dict(first_call_ms=dt * 1e3, peak_bytes=peak, start_bytes=start,
                 vs_plain_max_abs_err=err,
                 vs_plain_rel_err=rel_err(logits, plain)), tokens
 
@@ -2962,6 +2979,7 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True, enc_out=None,
             kept[i] = logits.clone()
 
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     before = k1.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3015,7 +3033,8 @@ def serve_phase(torch, cfg, weights, k1, hold: bool = True, enc_out=None,
           f"decode steps max abs err {err_plain}")
     for b in range(SERVE_B):
         print(f"  req{b}: {tokens[b, :12].tolist()}...")
-    return dict(times, peak_bytes=peak, prompt_vs_prefill_max_abs_err=err_pre,
+    return dict(times, peak_bytes=peak, start_bytes=start,
+                prompt_vs_prefill_max_abs_err=err_pre,
                 vs_plain_max_abs_err=err_plain), out
 
 
@@ -4630,7 +4649,7 @@ def train_path(torch, cfg, K, per_step, parts, tmp, *, required, plain=None,
     loop = TrainLoopConfig(total_steps=TRAIN_STEPS,
                            ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir,
                            ckpt_keep=1, log_every=1, seed=SEED)
-    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt = AdamWConfig(**TRAIN_OPT)
     spies = dict(snapshot_s=[], write_s=[], file_bytes=[])
     steps = {}   # step -> (loss, seconds since the previous mark, counts)
     at_die = {}
@@ -4782,6 +4801,204 @@ def kernel_entry(name, source, replaces, names, launches, records, path,
         **{key: head[key] for key in extra}, shapes=records, path=path)
 
 
+# ------------------------------------------------------------ the dry-run --
+#: The production cell the dry-run phase traces on the card's PyTorch.
+DRYRUN_CELL = (QWEN, "decode_32k")
+#: A predicted peak must be within this share of the measured one.
+DRYRUN_HOLD = 0.15
+#: The dry-run phase's own time (its predictions come from a subprocess
+#: started at the run's beginning, beside the kernel checks), seconds.
+DRYRUN_PHASE_S = 20.0
+
+
+def dryrun_start():
+    """Start ``chip_smoke.py --dryrun-predict`` in a subprocess that sees no
+    GPU (the dry-run touches none, and its ``fake`` process group must not
+    share a process with the distributed phase's ranks).  Returns (the
+    process, its output file, its start time)."""
+    out = tempfile.NamedTemporaryFile("w+", prefix="repro-dryrun-",
+                                      suffix=".log", delete=False)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [x for x in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if x]))
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-predict"], stdout=out,
+                            stderr=subprocess.STDOUT, env=env)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_predict() -> int:
+    """The ``--dryrun-predict`` subprocess: trace, on ``meta`` tensors on
+    the host, the windows the run measures on the card, and one
+    production cell, and print them as a line ``DRYRUN {json}``: qwen3's
+    prefill of PREFILL_B x PREFILL_S at full depth, its serve loop (the
+    serve phase's ``generate`` with its clones of 5 steps' logits), one
+    training step at QWEN_TRAIN_LAYERS on TRAIN_B x TRAIN_S tokens (f32
+    master weights, AdamW, remat), and ``trace_cell`` of DRYRUN_CELL on
+    16 x 16."""
+    os.nice(10)   # the run's own phases first where the cores are busy
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.analysis import costs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as sp
+    from repro_torch.optim.adamw import AdamWConfig, init, leaves
+    from repro_torch.serve import generate
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    cfg = get_config(QWEN)
+    meta = dict(dtype=torch.int32, device="meta")
+    out = {}
+
+    def window(name, state, fn, *args, **kw):
+        t0 = time.perf_counter()
+        _, c = costs.count(fn, *args, **kw)
+        held = costs.state_bytes(state, costs.ALLOC_ROUND)
+        out[name] = dict(peak_bytes=held + c.temp_peak_bytes
+                         + c.cublas_bytes, state_bytes=held,
+                         step_bytes=c.temp_peak_bytes,
+                         cublas_bytes=c.cublas_bytes,
+                         flops=c.flops, kernel_calls=c.kernel_calls,
+                         trace_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    params = sp.abstract_params(cfg, None, torch.bfloat16)
+    tokens = torch.empty((PREFILL_B, PREFILL_S), **meta)
+    window("prefill", leaves(params) + [tokens], make_prefill_step(cfg),
+           params, {"tokens": tokens})
+    prompts = torch.empty((SERVE_B, PROMPT_LEN), **meta)
+    kept = {}
+
+    def on_step(i, logits):   # serve_phase's
+        if PROMPT_LEN - 1 <= i < PROMPT_LEN + 4:
+            kept[i] = logits.clone()
+    window("serve", leaves(params) + [prompts], generate, cfg, params,
+           prompts, GEN_LEN, max_len=MAX_LEN, on_step=on_step)
+    del params, kept
+    small = dataclasses.replace(cfg, n_layers=QWEN_TRAIN_LAYERS)
+    params = sp.abstract_params(small, None)
+    opt = init(params)
+    batch = {k: torch.empty((TRAIN_B, TRAIN_S), **meta)
+             for k in ("tokens", "labels")}
+    step = make_train_step(small, AdamWConfig(**TRAIN_OPT),
+                           loss_chunk=TRAIN_CHUNK)
+    window("train", leaves(params) + leaves(opt.mu) + leaves(opt.nu)
+           + [opt.count] + list(batch.values()), step, params, opt, batch)
+    out["cell"] = dryrun.trace_cell(*DRYRUN_CELL, False)
+    out["torch"] = torch.__version__
+    out["predict_s"] = time.perf_counter() - t0
+    print("DRYRUN " + json.dumps(out))
+    return 0
+
+
+def train_window(torch):
+    """One training step of qwen3 at QWEN_TRAIN_LAYERS on the card, as
+    ``train_path``'s steps run (fresh f32 weights and AdamW state, a batch
+    of TRAIN_B x TRAIN_S, TRAIN_OPT, loss chunk TRAIN_CHUNK), the peak
+    memory of the step alone.  Returns (peak, allocated at its start)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.optim.adamw import AdamWConfig, init
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_config(QWEN), n_layers=QWEN_TRAIN_LAYERS)
+    cuda = torch.device("cuda")
+    params = init_lm(cfg, SEED, device=cuda)
+    opt = init(params)
+    batch = training_data(torch, cfg, TRAIN_B, TRAIN_S).sharded_batch(0, cuda)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                           loss_chunk=TRAIN_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    _, _, metrics = step(params, opt, batch)
+    check(math.isfinite(float(metrics["loss"])), "the window's step loss")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak, start
+
+
+def dryrun_phase(torch, started, prefill, serve):
+    """The dry-run's predictions held against this run's measurements:
+    qwen3's prefill and serve-loop peaks (``prefill`` and ``serve``, the
+    records of prefill_phase and serve_phase) and one training step's
+    (:func:`train_window`) each within DRYRUN_HOLD of the
+    ``max_memory_allocated`` of its window; a training step's counted
+    FLOPs printed beside ``train_flops`` (not held: the count includes
+    remat's recompute and K1's attended pairs); the production cell's
+    record printed.  The phase (the wait for the subprocess, the training
+    window and the holds) must take DRYRUN_PHASE_S or less."""
+    proc, log, t_started = started
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    os.unlink(log.name)
+    lines = [x for x in text.splitlines() if x.startswith("DRYRUN ")]
+    check(rc == 0 and len(lines) == 1,
+          f"the dry-run subprocess ended with {rc}:\n{text[-3000:]}")
+    pred = json.loads(lines[0][len("DRYRUN "):])
+    waited = time.perf_counter() - t0
+    print(f"dry-run subprocess (PyTorch {pred['torch']}, no GPU): "
+          f"{time.perf_counter() - t_started:.3f} s since it started beside "
+          f"the kernel checks, its traces {pred['predict_s']:.3f} s; the "
+          f"phase waited {waited:.3f} s for it")
+    from repro_torch.analysis import costs
+    cap = torch.cuda.get_device_properties(0).total_memory
+    print(f"the card's total_memory {cap} B; the dry-run's capacity "
+          f"(costs.HBM_BYTES) {costs.HBM_BYTES} B")
+    train_peak, train_start = train_window(torch)
+    measured = {"prefill": (prefill["peak_bytes"], prefill["start_bytes"]),
+                "serve": (serve["peak_bytes"], serve["start_bytes"]),
+                "train": (train_peak, train_start)}
+    print(smi_line())
+    worst = 0.0
+    for name, (peak, start) in measured.items():
+        p = pred[name]
+        err = (p["peak_bytes"] - peak) / peak
+        worst = max(worst, abs(err))
+        print(f"dry-run {QWEN} {name}: predicted peak {p['peak_bytes']} B "
+              f"(state {p['state_bytes']} + step {p['step_bytes']} + cuBLAS "
+              f"{p['cublas_bytes']}; traced "
+              f"in {p['trace_s']:.3f} s, kernels {p['kernel_calls']}), "
+              f"measured max_memory_allocated {peak} B (allocated at the "
+              f"window's start {start} B): {100 * err:+.2f} %")
+    for name, (peak, _) in measured.items():
+        p = pred[name]["peak_bytes"]
+        check(abs(p - peak) <= DRYRUN_HOLD * peak,
+              f"dry-run {name}: predicted peak {p} B is not within "
+              f"{DRYRUN_HOLD:.0%} of the measured {peak} B")
+    from repro_torch.configs import get_config
+    small = dataclasses.replace(get_config(QWEN), n_layers=QWEN_TRAIN_LAYERS)
+    flops, _ = train_flops(small, TRAIN_B, TRAIN_S)
+    counted = pred["train"]["flops"]
+    print(f"dry-run {QWEN} train step ({QWEN_TRAIN_LAYERS} layers, B{TRAIN_B} "
+          f"S{TRAIN_S}): counted {counted:.0f} FLOP (matmuls and the "
+          f"kernels' formulas, remat's recompute included) vs train_flops "
+          f"{flops} (no remat, causal pairs as S^2/2): ratio "
+          f"{counted / flops:.4f} (printed, not held)")
+    cell = pred["cell"]
+    print(f"dry-run production cell {' x '.join(DRYRUN_CELL)} on "
+          f"{'x'.join(map(str, cell['mesh']))} ({cell['predicted']}): "
+          + json.dumps(cell))
+    dt = time.perf_counter() - t0
+    print(f"dry-run phase: {dt:.3f} s (limit {DRYRUN_PHASE_S}); worst peak "
+          f"error {100 * worst:.2f} % (hold {DRYRUN_HOLD:.0%})")
+    check(dt <= DRYRUN_PHASE_S, f"the dry-run phase took {dt:.3f} s, over "
+          f"{DRYRUN_PHASE_S} s")
+    return dict(predicted=pred, measured=measured, phase_s=dt,
+                worst_peak_error=worst)
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4794,7 +5011,16 @@ def main(argv=None) -> int:
         help="build the kernels, check the decode kernel's log-sum-exp, "
              "then run qwen3's checkpoint and distributed phases with the "
              "mesh parts, and stop (prints no result line)")
+    parser.add_argument(
+        "--dryrun-only", action="store_true",
+        help="build the kernels, run qwen3's prefill and serve windows on "
+             "random weights and the dry-run phase, and stop (prints no "
+             "result line)")
+    parser.add_argument("--dryrun-predict", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dryrun_predict:   # the dry-run phase's subprocess: no GPU
+        return dryrun_predict()
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from the root of a repro checkout "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -4812,7 +5038,17 @@ def main(argv=None) -> int:
           f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     sys.stdout.flush()
+    dryrun = dryrun_start()
+    try:
+        return run(torch, args, dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
 
+
+def run(torch, args, dryrun) -> int:
+    """The run after the GPU check: kernels, paths, the result lines."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -4851,6 +5087,22 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print("--mesh-only: the other paths were not run")
+        return 0
+    if args.dryrun_only:
+        from repro_torch.models import init_lm
+        cfg = get_config(QWEN)
+        with torch.inference_mode():
+            weights = init_lm(cfg, SEED, device="cuda", dtype=torch.bfloat16)
+            prefill = prefill_phase(torch, cfg, weights,
+                                    fa.flash_attention_cuda)[0]
+            serve = serve_phase(torch, cfg, weights,
+                                fa.flash_attention_cuda)[0]
+            del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("dry-run")
+        dryrun_phase(torch, dryrun, prefill, serve)
+        print("--dryrun-only: the other paths were not run")
         return 0
     k1_records = kernel_checks(torch, fa)
     falcon = get_config(FALCON)
@@ -4912,6 +5164,9 @@ def main(argv=None) -> int:
             llava_launches, llava_serve = llava_path(torch, K, tmp)
         gc.collect()
         torch.cuda.empty_cache()   # llava's weights are gone
+        phase(f"dry-run ({QWEN}'s windows, {' x '.join(DRYRUN_CELL)})")
+        dryrun_phase(torch, dryrun, qwen_serve["prefill"],
+                     qwen_serve)
         print(f"device memory allocated before training: "
               f"{torch.cuda.memory_allocated()} B")
         phase(f"{QWEN} training path ({QWEN_TRAIN_LAYERS} layers)")

@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.runtime import needs_grad
+from repro_torch.runtime import Allocs, empty, needs_grad
 
 SOURCE = "flash_attention.cu"
 #: Head dims the forward kernels are instantiated for (80: zamba2, 256:
@@ -161,6 +161,32 @@ def decode_plan(Skv: int, split: int = DECODE_SPLIT, *, B: int = 1,
         n_splits=n, split=split, grid=(n, Hkv, B),
         scratch_floats=B * Hkv * n * group * (D + 2), tickets=B * Hkv,
         Skv=Skv)
+
+
+def fwd_allocs(B: int, Sq: int, H: int, D: int, Skv: int, Hkv: int,
+               dtype: torch.dtype, *, with_lse: bool = False,
+               out_f32: bool = False) -> Allocs:
+    """What a forward call allocates: the output (B, Sq, H, D) in q's
+    dtype (f32 with ``out_f32``) and, with ``with_lse``, the log-sum-exp
+    (B, H, Sq) f32; for Sq = 1 the decode kernel's scratch and tickets of
+    :func:`decode_plan`, which the wrapper keeps per (device, stream)."""
+    out = ((B, Sq, H, D), torch.float32 if out_f32 else dtype)
+    outputs = (out, ((B, H, Sq), torch.float32)) if with_lse else (out,)
+    if Sq != 1:
+        return Allocs(outputs)
+    plan = decode_plan(Skv, B=B, Hkv=Hkv, group=H // Hkv, D=D)
+    return Allocs(outputs, workspace=(((plan.scratch_floats,), torch.float32),
+                                      ((plan.tickets,), torch.int32)))
+
+
+def bwd_allocs(B: int, Sq: int, H: int, D: int, Skv: int, Hkv: int,
+               dtype: torch.dtype) -> Allocs:
+    """What a backward call allocates: dq (B, Sq, H, D), dk and dv (B,
+    Skv, Hkv, D) in q's dtype, and the preprocess's delta (B, H, Sq) f32,
+    freed when the call returns."""
+    return Allocs((((B, Sq, H, D), dtype), ((B, Skv, Hkv, D), dtype),
+                   ((B, Skv, Hkv, D), dtype)),
+                  temps=(((B, H, Sq), torch.float32),))
 
 
 @dataclass(frozen=True)
@@ -350,11 +376,14 @@ def flash_attention_bwd_plain(q, k, v, dout, *, causal: bool = True,
         return torch.autograd.grad(out, leaves, dout.float())
 
 
-def _check_qkv(q, k, v, what: str):
-    """The checks every K1 launch makes; returns (B, Sq, H, D, Skv, Hkv)."""
-    if q.device.type != "cuda":
+def _check_qkv(q, k, v, what: str, device_type: str = "cuda"):
+    """The checks every K1 launch makes (on ``device_type`` tensors: the
+    meta path checks what the kernels take too); returns (B, Sq, H, D,
+    Skv, Hkv)."""
+    if q.device.type != device_type:
+        kind = "CUDA" if device_type == "cuda" else device_type
         raise ValueError(f"{what}: q is on {q.device}, the kernel runs on "
-                         f"CUDA tensors only")
+                         f"{kind} tensors only")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: q, k, v on different devices")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
@@ -431,15 +460,17 @@ class FlashAttentionKernel:
             self._fns = (prefill, decode)
         return self._fns
 
-    def _decode_buffers(self, device, stream: int, plan: DecodePlan):
+    def _decode_buffers(self, device, stream: int, workspace):
+        """The scratch and tickets of ``workspace`` (:func:`fwd_allocs`'s)
+        for (device, stream), grown to fit it."""
         key = (device.index, stream)
         have = self._buffers.get(key)
-        if have is None or have[0].numel() < plan.scratch_floats \
-                or have[1].numel() < plan.tickets:
-            floats = max(plan.scratch_floats, 0 if have is None
-                         else have[0].numel())
-            tickets = max(plan.tickets, 0 if have is None
-                          else have[1].numel())
+        (floats,), _ = workspace[0]
+        (tickets,), _ = workspace[1]
+        if have is None or have[0].numel() < floats \
+                or have[1].numel() < tickets:
+            floats = max(floats, 0 if have is None else have[0].numel())
+            tickets = max(tickets, 0 if have is None else have[1].numel())
             have = (torch.empty(floats, dtype=torch.float32, device=device),
                     torch.zeros(tickets, dtype=torch.int32, device=device))
             self._buffers[key] = have
@@ -479,10 +510,10 @@ class FlashAttentionKernel:
             offset_ptr = q_offset.data_ptr()
         else:
             offset = int(q_offset)
-        out = torch.empty((B, Sq, H, D), device=q.device,
-                          dtype=torch.float32 if out_f32 else q.dtype)
-        lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-               if with_lse else None)
+        allocs = fwd_allocs(B, Sq, H, D, Skv, Hkv, q.dtype, with_lse=with_lse,
+                            out_f32=out_f32)
+        out, lse = [empty(a, q.device) for a in allocs.outputs] + [None] * (
+            2 - len(allocs.outputs))
         if out.numel() == 0:
             return (out, lse) if with_lse else out
         strides = (ctypes.c_longlong * 12)(*(
@@ -497,7 +528,7 @@ class FlashAttentionKernel:
             if Sq == 1:
                 plan = decode_plan(Skv, B=B, Hkv=Hkv, group=H // Hkv, D=D)
                 scratch, tickets = self._decode_buffers(q.device, stream,
-                                                        plan)
+                                                        allocs.workspace)
                 err = decode(*common, B, Skv, H, Hkv, *masks,
                              scratch.data_ptr(), tickets.data_ptr(),
                              plan.n_splits,
@@ -568,12 +599,11 @@ class FlashAttentionBwdKernel:
                 or lse.device != q.device or not lse.is_contiguous():
             raise ValueError(f"{what}: lse must be (B, H, Sq) float32, "
                              f"contiguous, on q's device")
-        dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-        dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-        dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+        allocs = bwd_allocs(B, Sq, H, D, Skv, Hkv, q.dtype)
+        dq, dk, dv = (empty(a, q.device) for a in allocs.outputs)
         if q.numel() == 0 or k.numel() == 0:
             return dq.zero_(), dk.zero_(), dv.zero_()
-        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        delta = empty(allocs.temps[0], q.device)
         strides = (ctypes.c_longlong * 24)(*(
             s for t in (q, k, v, out, dout, dq, dk, dv)
             for s in t.stride()[:3]))

@@ -2,8 +2,12 @@
 ``repro.kernels.ops``.
 
 A CUDA tensor goes to the kernel, which raises on what it does not take;
-a CPU tensor goes to the kernel's plain torch version.  The choice follows
-the tensor's device and nothing else: there is no fallback from the card.
+a CPU tensor goes to the kernel's plain torch version; a ``meta`` tensor
+(the dry-run's) goes to the kernel's custom op in ``kernels.meta``, which
+allocates what the launcher allocates and computes nothing (never to the
+plain version, whose chunked scores the kernels never allocate).  The
+choice follows the tensor's device and nothing else: there is no fallback
+from the card, and any other device raises.
 The model's attention and Mamba1 blocks call this dispatcher, so on the
 card the kernels are on the model's path.
 
@@ -36,23 +40,37 @@ from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, QOffset,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
                                                  lse_plain)
-from repro_torch.kernels.ssm_scan import (mamba1_scan_plain,
+from repro_torch.kernels.meta import (flash_attention_bwd_meta,
+                                      flash_attention_meta,
+                                      ssm_scan_bwd_meta, ssm_scan_fused_meta,
+                                      ssm_scan_meta)
+from repro_torch.kernels.ssm_scan import (fused_allocs, mamba1_scan_plain,
                                           ssm_scan_bwd_cuda, ssm_scan_cuda,
-                                          ssm_scan_fused_cuda, ssm_scan_plain,
-                                          states_shape)
-from repro_torch.runtime import is_dtensor, needs_grad
+                                          ssm_scan_fused_cuda, ssm_scan_plain)
+from repro_torch.runtime import empty, is_dtensor, needs_grad
+
+#: The devices that have a kernel (``meta``: its custom op).
+KERNEL_DEVICES = ("cuda", "meta")
+
+
+def _on(t, cuda, meta):
+    """The launcher for ``t``'s device: ``cuda``'s kernel, or on meta its
+    custom op's ``meta``."""
+    return cuda if t.device.type == "cuda" else meta
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """K1 under autograd: the prefill kernel with its log-sum-exp forward,
-    the three backward kernels backward.  ``torch.utils.checkpoint``
-    re-runs the forward, so a remat'd layer launches it twice a step."""
+    the three backward kernels backward (on meta tensors their custom
+    ops).  ``torch.utils.checkpoint`` re-runs the forward, so a remat'd
+    layer launches it twice a step."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int],
                 q_offset: int):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset, with_lse=True)
+        out, lse = _on(q, flash_attention_cuda, flash_attention_meta)(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
         return out
@@ -60,8 +78,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(),
-                                              lse, **ctx.masks)
+        dq, dk, dv = _on(q, flash_attention_bwd_cuda,
+                         flash_attention_bwd_meta)(
+            q, k, v, out, dout.contiguous(), lse, **ctx.masks)
         return dq, dk, dv, None, None, None
 
 
@@ -140,7 +159,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return _sharded_attention(flash_attention, q, k, v, causal=causal,
                                   window=window, kv_chunk=kv_chunk,
                                   q_offset=q_offset)
-    if q.device.type == "cuda":
+    if q.device.type in KERNEL_DEVICES:
         if needs_grad(q, k, v):
             if q.shape[1] == 1 or isinstance(q_offset, torch.Tensor):
                 raise NotImplementedError(
@@ -152,8 +171,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     f"{q.shape[-1]} (takes {BWD_HEAD_DIMS})")
             return FlashAttentionFunction.apply(q, k, v, causal, window,
                                                 int(q_offset))
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+        return _on(q, flash_attention_cuda, flash_attention_meta)(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -169,10 +188,10 @@ def flash_attention_lse(q, k, v, *, causal: bool = True,
     ``out_f32`` its output in f32), the plain versions on the CPU (their
     output cast to f32 with ``out_f32``).  Sequence-parallel decode
     merges its shards by it."""
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, with_lse=True,
-                                    out_f32=out_f32)
+    if q.device.type in KERNEL_DEVICES:
+        return _on(q, flash_attention_cuda, flash_attention_meta)(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            with_lse=True, out_f32=out_f32)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     out = flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -233,6 +252,8 @@ def ssm_scan(decay, inc, C, *, chunk: int = 256):
     only)."""
     if decay.device.type == "cuda":
         return ssm_scan_cuda(decay, inc, C)
+    if decay.device.type == "meta":
+        return ssm_scan_meta(decay, inc, C)
     if decay.device.type != "cpu":
         raise ValueError(f"ssm scan: no kernel for device {decay.device}")
     return ssm_scan_plain(decay, inc, C, chunk=chunk)
@@ -243,21 +264,27 @@ class Mamba1ScanFunction(torch.autograd.Function):
     the state every ``STATE_EVERY`` steps, forward; K2's backward kernel
     backward, with dA for A (autograd carries it on to ``A_log``).
     ``torch.utils.checkpoint`` re-runs the forward, so a remat'd layer
-    launches it twice a step and writes its states twice."""
+    launches it twice a step and writes its states twice.  On meta tensors
+    the same through the kernels' custom ops."""
 
     @staticmethod
     def forward(ctx, x, dt, Bs, Cs, A):
-        states = torch.empty(states_shape(*x.shape, A.shape[1]),
-                             dtype=torch.float32, device=x.device)
-        y = ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        if x.device.type == "cuda":
+            states = empty(fused_allocs(*x.shape, A.shape[1],
+                                        with_states=True).outputs[1],
+                           x.device)
+            y = ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+        else:
+            y, states = ssm_scan_fused_meta(x, dt, Bs, Cs, A,
+                                            with_states=True)
         ctx.save_for_backward(x, dt, Bs, Cs, A, states)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, dt, Bs, Cs, A, states = ctx.saved_tensors
-        return ssm_scan_bwd_cuda(x, dt, Bs, Cs, A,
-                                 dy.float().contiguous(), states)
+        return _on(x, ssm_scan_bwd_cuda, ssm_scan_bwd_meta)(
+            x, dt, Bs, Cs, A, dy.float().contiguous(), states)
 
 
 def mamba1_scan(x, dt, Bs, Cs, A, *, chunk: int = 256):
@@ -272,10 +299,11 @@ def mamba1_scan(x, dt, Bs, Cs, A, *, chunk: int = 256):
             lambda x_, dt_, A_, b_, c_: mamba1_scan(x_, dt_, b_, c_, A_,
                                                     chunk=chunk),
             (x, dt, A), (Bs, Cs), (2, 2, 0))
-    if x.device.type == "cuda":
+    if x.device.type in KERNEL_DEVICES:
         if needs_grad(x, dt, Bs, Cs, A):
             return Mamba1ScanFunction.apply(x, dt, Bs, Cs, A)
-        return ssm_scan_fused_cuda(x, dt, Bs, Cs, A)
+        return _on(x, ssm_scan_fused_cuda, ssm_scan_fused_meta)(
+            x, dt, Bs, Cs, A)
     if x.device.type != "cpu":
         raise ValueError(f"mamba1 scan: no kernel for device {x.device}")
     return mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=chunk)

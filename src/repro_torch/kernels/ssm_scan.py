@@ -42,7 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.runtime import needs_grad
+from repro_torch.runtime import Allocs, empty, needs_grad
 
 SOURCE = "ssm_scan.cu"
 SOURCE_BWD = "ssm_scan_bwd.cu"
@@ -215,7 +215,7 @@ class SsmScanKernel:
                 and C.is_contiguous()):
             raise ValueError("ssm scan kernel: decay, inc, C must be "
                              "contiguous")
-        y = torch.empty((B, S, d), dtype=torch.float32, device=decay.device)
+        y = empty(scan_allocs(B, S, d, N).outputs[0], decay.device)
         if y.numel() == 0:
             return y
         with torch.cuda.device(decay.device):
@@ -242,6 +242,36 @@ def _pow2_at_least(n: int) -> int:
 def states_shape(B: int, S: int, d: int, N: int):
     """Shape of the states the fused forward stores for its backward."""
     return (B, -(-S // STATE_EVERY), d, N)
+
+
+def scan_allocs(B: int, S: int, d: int, N: int) -> Allocs:
+    """What an unfused K2 call allocates: y (B, S, d) f32."""
+    return Allocs((((B, S, d), torch.float32),))
+
+
+def fused_allocs(B: int, S: int, d: int, N: int,
+                 with_states: bool = False) -> Allocs:
+    """What a fused K2 forward allocates: y (B, S, d) f32 and, for its
+    backward, the states of :func:`states_shape` in f32 (allocated by
+    ``ops.Mamba1ScanFunction`` beside the call)."""
+    y = ((B, S, d), torch.float32)
+    return Allocs((y, (states_shape(B, S, d, N), torch.float32))
+                  if with_states else (y,))
+
+
+def bwd_allocs(B: int, S: int, d: int, N: int, x_dtype, dt_dtype, b_dtype,
+               c_dtype) -> Allocs:
+    """What a K2 backward call allocates: dx, ddt (B, S, d) in x's and dt's
+    dtypes, dB, dC (B, S, N) in B's and C's, dA (d, N) f32; and, freed when
+    it returns, the partial sums of :func:`bwd_plan` and the f32 dB and dC
+    the kernel writes where B's or C's dtype is not f32 (then cast)."""
+    f32 = torch.float32
+    plan = bwd_plan(B, S, d, N, x_dtype.itemsize, True)
+    temps = tuple((shape, f32) for shape in plan.partials)
+    temps += tuple(((B, S, N), f32) for t in (b_dtype, c_dtype) if t != f32)
+    return Allocs((((B, S, d), x_dtype), ((B, S, d), dt_dtype),
+                   ((B, S, N), b_dtype), ((B, S, N), c_dtype), ((d, N), f32)),
+                  temps=temps)
 
 
 #: The fused forward's blocks (the source's FT, TC and STAGES): threads (a
@@ -440,7 +470,7 @@ class SsmScanFusedKernel:
             _check_f32(what, "states", states, x.device,
                        states_shape(B, S, d, N))
         plan = plan_fused(x, dt, Bs, Cs, A)
-        y = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+        y = empty(fused_allocs(B, S, d, N).outputs[0], x.device)
         if y.numel() == 0:
             return y
         with torch.cuda.device(x.device):
@@ -497,14 +527,15 @@ class SsmScanBwdKernel:
         _check_f32(what, "states", states, x.device,
                    states_shape(B, S, d, N))
         plan = plan_bwd(x, dt, Bs, Cs, A, dy, states)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dx = torch.empty((B, S, d), dtype=x.dtype, device=x.device)
-        ddt = torch.empty((B, S, d), dtype=dt.dtype, device=x.device)
-        dB, dC = (torch.empty((B, S, N), **f32) for _ in range(2))
-        dA = torch.empty((d, N), **f32)
+        allocs = bwd_allocs(B, S, d, N, x.dtype, dt.dtype, Bs.dtype,
+                            Cs.dtype)
+        dx, ddt = (empty(a, x.device) for a in allocs.outputs[:2])
+        # the kernel writes dB and dC in f32, cast after it to B's and C's
+        dB, dC = (empty((shape, torch.float32), x.device)
+                  for shape, _ in allocs.outputs[2:4])
+        dA = empty(allocs.outputs[4], x.device)
         if x.numel() > 0:
-            part_bc, part_a = (torch.empty(shape, **f32)
-                               for shape in plan.partials)
+            part_bc, part_a = (empty(a, x.device) for a in allocs.temps[:2])
             with torch.cuda.device(x.device):
                 stream = torch.cuda.current_stream(x.device).cuda_stream
                 err = self._function()(

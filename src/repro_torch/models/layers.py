@@ -113,9 +113,35 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def _heads(x, w):
-    """einsum("bsd,dhk->bshk") as one matmul on the flattened heads."""
+    """einsum("bsd,dhk->bshk") as one matmul on the flattened heads.  A
+    DTensor ``w`` sharded on its head dim (kv heads the model axis does not
+    divide: qwen3's 8 on 16) projects each rank's block of every head:
+    DTensor (PyTorch 2.11) cannot flatten (h, k) with k sharded, and
+    gathering ``w`` first would move every layer's weights."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    if not is_dtensor(w) or not any(p.is_shard(2) for p in w.placements):
+        return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    w_pl = [p if p.is_shard(2) else Replicate() for p in w.placements]
+    x_pl = [xp if xp.is_shard(0) and not wp.is_shard(2) else Replicate()
+            for xp, wp in zip(x.placements, w_pl)]
+    out_pl = [Shard(x.ndim) if wp.is_shard(2) else xp
+              for xp, wp in zip(x_pl, w_pl)]
+    # x meets each rank's part of the contraction's output, w each rank's
+    # batch shard: their gradients are parts of sums
+    x_grad = [Partial() if wp.is_shard(2) else xp
+              for xp, wp in zip(x_pl, w_pl)]
+    w_grad = [Partial() if xp.is_shard(0) else wp
+              for xp, wp in zip(x_pl, w_pl)]
+
+    def local(xl, wl):
+        return (xl @ wl.reshape(d, -1)).unflatten(-1, (h, -1))
+
+    return local_map(local, out_placements=out_pl, in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_grad, w_grad), device_mesh=mesh)(
+        x.redistribute(mesh, x_pl), w.redistribute(mesh, w_pl))
 
 
 def head_layout(n_heads: int, n_kv: int):

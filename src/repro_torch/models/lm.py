@@ -695,7 +695,8 @@ def _ssm_decode_layers(cfg: ModelConfig, layers: List[Params],
             {"h": h_all[i], "conv": conv_all[i]}, cfg)
         h_all[i].copy_(st["h"])
         conv_all[i].copy_(st["conv"])
-        x = x + h
+        # the output projection's partial sums, summed once a layer
+        x = sh.constrain(x + h, "batch", None, None)
     return x
 
 

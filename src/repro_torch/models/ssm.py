@@ -100,11 +100,14 @@ def _m1_gates(p, u, dt_rank, d_state):
     x = sh.constrain(u @ p["in_x"], "batch", None, "model")
     z = sh.constrain(u @ p["in_z"], "batch", None, "model")
     x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
-    dbc = x @ p["x_proj"]
+    # dt, B and C are sums over every channel; dt goes back to the
+    # channels' shards
+    dbc = sh.constrain(x @ p["x_proj"], "batch", None, None)
     dt = dbc[..., :dt_rank]
     Bs = dbc[..., dt_rank:dt_rank + d_state]
     Cs = dbc[..., dt_rank + d_state:]
-    dt = _softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    dt = sh.constrain(_softplus(dt @ p["dt_proj"] + p["dt_bias"]), "batch",
+                      None, "model")
     return x, z, dt, Bs, Cs
 
 
@@ -135,13 +138,16 @@ def mamba1_decode(p: Params, u, state, *, d_state: int):
     """Single token; u: (B, 1, d); state = {"h": (B,di,N) f32, "conv":
     (B,K-1,di)}.  Returns (out (B, 1, d), the new state)."""
     dt_rank = p["dt_proj"].shape[0]
-    x = u[:, 0] @ p["in_x"]
-    z = u[:, 0] @ p["in_z"]
+    x = sh.constrain(u[:, 0] @ p["in_x"], "batch", "model")
+    z = sh.constrain(u[:, 0] @ p["in_z"], "batch", "model")
     x, conv = conv_decode(x, state["conv"].to(x.dtype), p["conv_w"],
                           p["conv_b"])
     x = F.silu(x).to(u.dtype)
-    dbc = x @ p["x_proj"]
-    dt = _softplus(dbc[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])
+    # dt, B and C are sums over every channel; dt goes back to the
+    # channels' shards, as the prefill's gates leave it
+    dbc = sh.constrain(x @ p["x_proj"], "batch", None)
+    dt = sh.constrain(_softplus(dbc[..., :dt_rank] @ p["dt_proj"]
+                                + p["dt_bias"]), "batch", "model")
     Bs = dbc[..., dt_rank:dt_rank + d_state]
     Cs = dbc[..., dt_rank + d_state:]
     A = -torch.exp(p["A_log"].float())

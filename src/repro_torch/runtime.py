@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,3 +30,35 @@ def is_dtensor(x) -> bool:
     was imported, so single-device paths never import it.)"""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+#: A tensor a kernel call allocates: its shape and dtype.
+Alloc = Tuple[Tuple[int, ...], torch.dtype]
+
+
+class Allocs(NamedTuple):
+    """What one kernel call allocates on its device: the tensors it returns,
+    the temporaries it frees before it returns, and the workspace its
+    wrapper keeps for later calls (allocated again only to grow).  The
+    launchers allocate from it and the kernels' fake implementations
+    (``kernels.meta``) mirror it, so the two cannot drift."""
+    outputs: Tuple[Alloc, ...]
+    temps: Tuple[Alloc, ...] = ()
+    workspace: Tuple[Alloc, ...] = ()
+
+
+def alloc_bytes(allocs) -> int:
+    """The bytes of ``(shape, dtype)`` pairs."""
+    total = 0
+    for shape, dtype in allocs:
+        n = 1
+        for d in shape:
+            n *= d
+        total += n * dtype.itemsize
+    return total
+
+
+def empty(alloc: Alloc, device) -> torch.Tensor:
+    """An uninitialised tensor of ``alloc`` on ``device``."""
+    shape, dtype = alloc
+    return torch.empty(shape, dtype=dtype, device=device)

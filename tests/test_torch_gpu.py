@@ -1479,3 +1479,102 @@ def test_train_step_gradients_on_two_ranks_of_one_card(cuda):
                     got_grads[name], g.cpu(), **TOL[torch.float32],
                     msg=lambda m, name=name, shape=shape:
                     f"{name} on {shape}: {m}")
+
+
+# -- the dry-run's fake allocations against the card's allocator ---------
+
+def _k1_case(dev, B, Sq, Skv, H, Hkv, D):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q = torch.randn(B, Sq, H, D, generator=gen).to(dev, torch.bfloat16)
+    k = torch.randn(B, Skv, Hkv, D, generator=gen).to(dev, torch.bfloat16)
+    v = torch.randn(B, Skv, Hkv, D, generator=gen).to(dev, torch.bfloat16)
+    return q, k, v
+
+
+def _scan_case(dev, B, S, d, N, dtype):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.randn(B, S, d, generator=gen) * 0.5).to(dev, dtype)
+    dt = (torch.rand(B, S, d, generator=gen) * 0.1).to(dev, dtype)
+    Bs = torch.randn(B, S, N, generator=gen).to(dev, dtype)
+    Cs = torch.randn(B, S, N, generator=gen).to(dev, dtype)
+    A = -torch.rand(d, N, generator=gen).to(dev) - 0.5
+    return x, dt, Bs, Cs, A
+
+
+def _kernel_calls(dev, case):
+    """(a call on the card, the same call on meta) for one kernel op."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import meta as kmeta
+    if case in ("k1_prefill_lse", "k1_decode_lse_f32", "k1_bwd"):
+        Sq = 1 if case == "k1_decode_lse_f32" else 200
+        q, k, v = _k1_case(dev, 2, Sq, 300 if Sq == 1 else Sq, 16, 8, 128)
+        qm, km, vm = (t.to("meta") for t in (q, k, v))
+        if case == "k1_bwd":
+            out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+            dout = torch.randn_like(out)
+            lm = lse.to("meta")
+            return (lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                        lse),
+                    lambda: kmeta.flash_attention_bwd_meta(qm, km, vm, qm, qm,
+                                                           lm))
+        kw = dict(with_lse=True, out_f32=Sq == 1,
+                  q_offset=torch.tensor([150], dtype=torch.int32,
+                                        device=dev) if Sq == 1 else 0)
+        fresh = fa.FlashAttentionKernel()   # its first decode launch
+        kw_m = dict(kw, q_offset=torch.empty((), dtype=torch.int32,
+                                             device="meta")
+                    if Sq == 1 else 0)
+        return (lambda: fresh(q, k, v, **kw),
+                lambda: kmeta.flash_attention_meta(qm, km, vm, **kw_m))
+    dtype = torch.bfloat16
+    B, S, d, N = 2, 100, 256, 16
+    x, dt, Bs, Cs, A = _scan_case(dev, B, S, d, N, dtype)
+    xm, dtm, bm, cm, am = (t.to("meta") for t in (x, dt, Bs, Cs, A))
+    if case == "k2":
+        decay, inc = ss.decay_inc(dt, x, Bs, A)
+        C = Cs.float().contiguous()
+        dm, im, Cm = (t.to("meta") for t in (decay, inc, C))
+        return (lambda: ssm_scan_cuda(decay, inc, C),
+                lambda: kmeta.ssm_scan_meta(dm, im, Cm))
+    if case == "k2_fused":
+        return (lambda: ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A),
+                lambda: kmeta.ssm_scan_fused_meta(xm, dtm, bm, cm, am))
+    if case == "k2_fused_states":
+        def card():   # as ops.Mamba1ScanFunction allocates them
+            states = torch.empty(ss.states_shape(B, S, d, N), device=dev)
+            return ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states), \
+                states
+        return card, lambda: kmeta.ssm_scan_fused_meta(
+            xm, dtm, bm, cm, am, with_states=True)
+    states = torch.empty(ss.states_shape(B, S, d, N), device=dev)
+    ss.ssm_scan_fused_cuda(x, dt, Bs, Cs, A, states=states)
+    dy = torch.randn(B, S, d, device=dev)
+    sm, dym = states.to("meta"), dy.to("meta")
+    return (lambda: ss.ssm_scan_bwd_cuda(x, dt, Bs, Cs, A, dy, states),
+            lambda: kmeta.ssm_scan_bwd_meta(xm, dtm, bm, cm, am, dym, sm))
+
+
+@pytest.mark.parametrize("case", ["k1_prefill_lse", "k1_decode_lse_f32",
+                                  "k1_bwd", "k2", "k2_fused",
+                                  "k2_fused_states", "k2_bwd"])
+def test_fake_allocations_match_the_card(cuda, case):
+    """Over one launch, the growth of ``memory_allocated`` (what the call
+    keeps: outputs, and the decode kernel's workspace on its first
+    launch) and of ``max_memory_allocated`` (its temporaries beside them)
+    equal the dry-run's tally of the same call on meta tensors."""
+    from repro_torch.analysis import costs
+    card, meta = _kernel_calls(cuda, case)
+    mode = costs.CostMode()
+    with mode:
+        kept_meta = meta()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kept = card()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    assert grown == mode._live_bytes, (grown, mode._live_bytes)
+    assert peak == mode.costs.temp_peak_bytes, (peak,
+                                                mode.costs.temp_peak_bytes)
+    assert kept is not None and kept_meta is not None

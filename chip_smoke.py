@@ -9,8 +9,8 @@ It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 with nvcc (one process per source, all at once), holds each kernel
 against its plain PyTorch version on the card (K1 at each served model's
 heads, and at gemma3's long-context shapes), then runs the port's
-serving path for seven models at full width, random bf16 weights from a
-seed: save the weights to scda and restore them bit-exactly, one prefill
+serving path for seven models at full width (four cut in depth for the
+run's time), random bf16 weights from a seed: save the weights to scda and restore them bit-exactly, one prefill
 of 4 × 512 tokens, and 4 requests served token by token (a 64-token
 prompt, then 32 greedy tokens).
 
@@ -23,7 +23,16 @@ prompt, then 32 greedy tokens).
   deleted, those two rebuilt to their original SHA-256; then the
   attention weights of 2 of the 28 layers are changed on the card and
   saved as a delta of the set, whose stored chunks must be the 1 MiB
-  chunks that changed, and the chain restored bit-equal; then 4 gloo
+  chunks that changed, and the chain restored bit-equal; then the port's
+  ``scdatool`` (``repro_torch.tools``) over those files: the set's save
+  is traced and ``stats --trace`` splits it by stage, ``fsck`` runs as
+  ``python -m repro_torch.tools.cli`` in its own process, ``ls --json``,
+  ``index --checksums`` and ``verify`` cover the set, a deleted data
+  shard is named by ``verify`` and rebuilt by ``repair --rebuild`` to its
+  SHA-256, ``verify --chain`` checks the delta, ``squash`` makes it one
+  file that ``diff --logical`` finds equal to the delta and different
+  from the set in exactly the stored leaves and that restores bit-equal,
+  and ``stats`` counts the set's bytes; then 4 gloo
   ranks spawned on the one card (``repro_torch.distributed.ranks``)
   restore the weights' file onto the placement rules' DTensors
   (``distributed.sharding.params_shardings``) of the meshes (2, 2), (4,
@@ -32,8 +41,9 @@ prompt, then 32 greedy tokens).
   (each file's SHA-256 must be the single-process file's); then restore
   it fully replicated and with P(("data", "model"), None) on the 2-D
   leaves, with the prefetch engine and without;
-- falcon-mamba-7b (64 Mamba1 layers, d_model 4096, d_inner 8192, state
-  16, vocab 65 024; 14.0 GB of weights) through the fused K2 selective
+- falcon-mamba-7b (32 of its 64 Mamba1 layers, ``FALCON_SERVE_LAYERS``;
+  d_model 4096, d_inner 8192, state 16, vocab 65 024; 7.27 GB of weights
+  at 32 layers, 14.0 GB at 64) through the fused K2 selective
   scan, which every prefill layer launches and no decode step does; then
   each of its layers held at full width through the fused K2, the
   unfused K2 (decay and inc built in full) and the plain scan;
@@ -44,16 +54,19 @@ prompt, then 32 greedy tokens).
   application of a prefill, its decode kernel in every application of a
   decode step; then each application held at full width against the
   plain attention, and each Mamba2 layer's decode against its prefill;
-- gemma3-4b (34 layers, d_model 2560, 8 / 4 heads of head dim 256, a
-  1024-key window on 29 local layers and none on the 5 global ones, GeGLU
-  10 240, vocab 262 144; 7.76 GB of weights) through K1 at head dim 256,
+- gemma3-4b (18 of its 34 layers, three 5:1 periods,
+  ``GEMMA_SERVE_LAYERS``; d_model 2560, 8 / 4 heads of head dim 256, a
+  1024-key window on 15 local layers and none on the 3 global ones, GeGLU
+  10 240, vocab 262 144; 7.76 GB of weights at 34 layers) through K1 at
+  head dim 256,
   as qwen3; then its window on the card: a prefill of 1 × 4096 tokens and
   32 decode steps of one request from a cache of 4160 keys whose K/V are
   seeded random values and whose position is set to 4064 (the reference
   has no prefill into a cache, and 4064 steps would take minutes), each
   held against the plain attention;
-- granite-moe-3b-a800m (32 layers, d_model 1536, 24 / 8 heads of head dim
-  64, 40 experts of SwiGLU 512, top-8, vocab 49 155; 6.60 GB of weights)
+- granite-moe-3b-a800m (16 of its 32 layers, ``GRANITE_SERVE_LAYERS``;
+  d_model 1536, 24 / 8 heads of head dim 64, 40 experts of SwiGLU 512,
+  top-8, vocab 49 155; 6.60 GB of weights at 32 layers)
   through K1 at head dim 64, group 3, and the MoE block (plain torch: the
   reference has no kernel there): its layers held as gemma3's, and each
   layer's share of dropped expert assignments printed for the prefill and
@@ -67,8 +80,9 @@ prompt, then 32 greedy tokens).
   cross-attention through K1's decode kernel against all 1500 frames in
   every step: 48 launches a step); each encoder layer's attention and
   each decoder layer's self- and cross-attention held one by one;
-- llava-next-mistral-7b (32 layers, d_model 4096, 32 / 8 heads of head
-  dim 128, SwiGLU 14 336, vocab 32 000; 14.5 GB of weights) through K1: a
+- llava-next-mistral-7b (16 of its 32 layers, ``LLAVA_SERVE_LAYERS``;
+  d_model 4096, 32 / 8 heads of head dim 128, SwiGLU 14 336, vocab 32 000;
+  14.5 GB of weights at 32 layers) through K1: a
   prefill of 4 × (2880 seeded patch embeddings, projected by mm_proj,
   before 512 tokens) and 4 requests of text served (a decode step never
   sees the image, as in the reference), its layers held as gemma3's.
@@ -144,6 +158,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -291,6 +306,16 @@ LSE_TOL = dict(rtol=1e-4, atol=1e-4)
 #: reached "done" at 1142.0 s on an H100 machine whose kernel checks took
 #: 220.5 s, which cut it to 2 (411,838,976).
 TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 256
+#: The serve paths cut in depth, at full width, for the run's time: with
+#: the scdatool phase (about 30 s) a final run on a slow H100 machine
+#: reached "done" at 1205.1 s.  Half of falcon-mamba-7b's 64 layers and of
+#: llava-next-mistral-7b's 32 (each halves a 14 GB save and restore), and
+#: three of gemma3-4b's 5:1 periods of its 34 layers (15 local, 3 global):
+#: 1150.9 s on another; then half of granite-moe-3b-a800m's 32 layers.
+FALCON_SERVE_LAYERS = 32
+GEMMA_SERVE_LAYERS = 18
+LLAVA_SERVE_LAYERS = 16
+GRANITE_SERVE_LAYERS = 16
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_DIE_AT = 6, 3, 3
 #: The training paths' AdamW settings (``AdamWConfig``'s arguments).
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
@@ -351,6 +376,9 @@ TOL_TRAIN = dict(rtol=1e-2, atol=1e-2)
 SET_SHARDS, SET_PARITY = 4, 2
 SET_LOST = (1, 3)
 DELTA_LAYERS = (5, 17)
+#: The tools phase's target on the card, in seconds (printed beside its
+#: time; not a hold).
+TOOLS_BUDGET_S = 30.0
 SET_KNOBS = {"REPRO_SCDA_SHARDS": str(SET_SHARDS),
              "REPRO_SCDA_PARITY": str(SET_PARITY), "REPRO_SCDA_DELTA": "1"}
 #: qwen3-1.7b's weights as DTensors on DIST_RANKS spawned gloo ranks, all
@@ -1743,11 +1771,12 @@ def weights_set_phase(torch, cfg, weights, tmp):
     os.makedirs(d)
     path = os.path.join(d, f"{cfg.name}.scda")
     rec = dict(shards=SET_SHARDS, parity=SET_PARITY, weight_bytes=nbytes)
+    trace_path = os.path.join(d, "set-save-trace.json")
 
     with _Spy(redundancy, "write_parity_files") as parity_spy:
         t0 = time.perf_counter()
         save(path, weights, step=1000, shards=SET_SHARDS, parity=SET_PARITY,
-             record_hashes=True)
+             record_hashes=True, trace=trace_path)
         t_save = time.perf_counter() - t0
     data, parity = set_files(path)
     data_b = sum(os.path.getsize(p) for p in data)
@@ -1829,7 +1858,11 @@ def weights_set_phase(torch, cfg, weights, tmp):
     got, step, t = timed_restore(dpath, new)
     check(step == 1001, f"the delta restored step {step}")
     hold_leaves(torch, got, new, "the delta's chained restore")
-    del got, new, attn
+    del got
+    phase(f"{cfg.name}: scdatool over the set and its delta")
+    rec["tools"] = tools_phase(torch, path, dpath, new, stored, trace_path,
+                               lost[0], digests[lost[0]], nbytes)
+    del new, attn
     rec.update(delta_s=t_delta, delta_mb_s=nbytes / t_delta / 1e6,
                delta_chunks=sum(map(len, stored.values())),
                delta_stored_bytes=stored_b, delta_stored_share=stored_b
@@ -1853,6 +1886,245 @@ def weights_set_phase(torch, cfg, weights, tmp):
           f"delta set {rec['delta_set_bytes']} B); save {t_delta:.3f} s "
           f"({rec['delta_mb_s']:.1f} MB/s of weights); chained restore "
           f"{rec['chain_restore_mb_s']:.1f} MB/s ({t:.3f} s), bit-equal")
+    return rec
+
+
+def scdatool(*argv: str):
+    """The port's ``scdatool`` in this process: ``(exit code, stdout and
+    stderr, seconds, bytes read)``, the bytes counted by a trace collector
+    of its own (by the command's ``--timing`` line where it asks for
+    one)."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.core import trace
+    from repro_torch.tools.cli import main
+    buf, err = io.StringIO(), io.StringIO()
+    tc = trace.TraceCollector()
+    t0 = time.perf_counter()
+    with trace.scoped(tc), contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(err):
+        rc = main(list(argv))
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    counters = tc.metrics.snapshot()["counters"]
+    read = counters.get("io.pread.bytes", 0) + counters.get(
+        "io.preadv.bytes", 0)
+    if "--timing" in argv:
+        read = int(re.search(r"(\d+) bytes scanned", out).group(1))
+    shown = " ".join(os.path.basename(a) for a in argv)
+    print(f"  scdatool {shown}: exit {rc}, {seconds:.3f} s, {read} B read"
+          + (f", {len(err.getvalue().splitlines())} lines on stderr"
+             if err.getvalue() else ""))
+    return rc, out + err.getvalue(), seconds, read
+
+
+def _delta_steps(torch, run, path, dpath, new, stored) -> int:
+    """The tools phase's delta steps: ``verify --chain`` of the delta at
+    ``dpath``; the delta squashed, the same state as the delta by ``diff
+    --logical`` and different from the set at ``path`` in exactly the
+    leaves whose chunks it stored; the squashed file restored onto the
+    card bit-equal to ``new``, then deleted.  Returns its size."""
+    import re
+    from repro_torch.checkpoint import restore
+    # 6. the delta's chunks against their digests, base chain included
+    out = run("verify", "--chain", "--timing", dpath)
+    check("verified (chunk digests match across the chain)" in out,
+          f"verify --chain: {out[-400:]}")
+
+    # 7. the delta squashed: the same state as the delta, and it differs
+    # from the set in exactly the leaves whose chunks the delta stored
+    sq = os.path.join(os.path.dirname(path), "squashed.scda")
+    run("squash", dpath, sq)
+    out = run("diff", "--logical", dpath, sq)
+    check("encode the same checkpoint state" in out, f"diff: {out[-400:]}")
+    out = run("diff", "--logical", path, sq, want=1)
+    named = {}
+    for l in out.splitlines():
+        m = re.match(r"leaf (\S+): (\d+)/\d+ chunks differ", l)
+        if m:
+            named[m.group(1)] = int(m.group(2))
+        else:
+            check(l.startswith("step: 1000 != 1001")
+                  or "differ logically" in l, f"diff names {l!r}")
+    want = {k: len(cs) for k, cs in stored.items() if cs}
+    check(named == want, f"diff --logical named {named}, the delta "
+          f"stored {want}")
+    got, step = restore(sq, like=new, device=torch.device("cuda"))
+    check(step == 1001, f"the squashed file restored step {step}")
+    hold_leaves(torch, got, new, "the squashed file's restore")
+    del got
+    sq_bytes = os.path.getsize(sq)
+    os.remove(sq)
+    return sq_bytes
+
+
+def io_by_stage(events, stages):
+    """The io records of a Chrome trace, by the ``ckpt`` span of
+    ``stages`` whose interval holds their start (``"outside"`` when none
+    does): ``{stage: {op: (ms, bytes)}}``."""
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0.0), e["name"])
+             for e in events if e.get("ph") == "X" and e["cat"] == "ckpt"
+             and e["name"] in stages]
+    out = {}
+    for e in events:
+        if e.get("ph") != "X" or e["cat"] != "io":
+            continue
+        stage = next((n for t0, t1, n in spans if t0 <= e["ts"] <= t1),
+                     "outside")
+        ms, b = out.setdefault(stage, {}).get(e["name"], (0.0, 0))
+        out[stage][e["name"]] = (ms + e.get("dur", 0.0) / 1e3,
+                                 b + int((e.get("args") or {}).get(
+                                     "bytes", 0)))
+    return out
+
+
+def tools_phase(torch, path, dpath, new, stored, trace_path, lost,
+                lost_sha256, nbytes):
+    """The port's ``scdatool`` (``repro_torch.tools``) over the set at
+    ``path`` and its delta at ``dpath``, files at their full size: the
+    traced save's split; ``fsck`` in its own process, beside ``verify
+    --chain`` of the delta and the delta squashed, compared with ``diff
+    --logical`` and restored onto the card bit-equal to ``new``; ``ls
+    --json``; ``index --checksums`` and ``verify``; the data shard
+    ``lost`` deleted, named by ``verify`` and rebuilt by ``repair
+    --rebuild`` to its SHA-256; ``stats`` of the set.  Any command that
+    fails fails the run."""
+    import re
+    from repro_torch.core import ScdaIndex, trace
+    t_phase = time.perf_counter()
+    name = os.path.basename(path)
+    rec = {"commands": []}
+
+    def run(*argv, want=0):
+        rc, out, seconds, read = scdatool(*argv)
+        check(rc == want, f"scdatool {' '.join(argv)} exited {rc}, not "
+              f"{want}: {out[-400:]}")
+        rec["commands"].append(dict(argv=[os.path.basename(a)
+                                          for a in argv],
+                                    seconds=seconds, bytes_read=read))
+        return out
+
+    # 1. the set's traced save, split by stage
+    out = run("stats", "--trace", trace_path)
+    print("  the set's save, traced:")
+    for line in out.splitlines()[1:]:
+        print(f"    {line}")
+    summary = trace.summarize_chrome(trace.load_chrome(trace_path))
+    rec["save_trace"] = dict(wall_us=summary["wall_us"],
+                             io_calls=summary["io_calls"],
+                             io_bytes=summary["io_bytes"],
+                             stages=summary["stages"])
+    check(summary["stages"].get("ckpt.write_archive", {}).get("calls")
+          == SET_SHARDS, "the traced save shows no write_archive span a "
+          "shard")
+    rec["save_trace"]["io_by_stage"] = io_by_stage(
+        trace.load_chrome(trace_path), ("write_archive", "parity_encode"))
+    outside_ms = summary["wall_us"] / 1e3
+    for stage in ("write_archive", "parity_encode", "outside"):
+        ops = rec["save_trace"]["io_by_stage"].get(stage, {})
+        if stage == "outside":
+            head = (f"outside those spans: {outside_ms:.1f} ms of the "
+                    f"save's {summary['wall_us'] / 1e3:.1f} ms (the chunk "
+                    f"digests, the plan, the manifest)")
+        else:
+            span_ms = summary["stages"][f"ckpt.{stage}"]["total_us"] / 1e3
+            outside_ms -= span_ms
+            head = f"{stage}: {span_ms:.1f} ms"
+        print(f"    {head}; its io: " + ", ".join(
+            f"{op} {ms:.1f} ms ({b} B)" for op, (ms, b) in sorted(
+                ops.items())))
+
+    # 2. fsck as a user runs it, in its own process, beside steps 6 and
+    # 7, which only read the set (most of its time is the interpreter's
+    # start and torch's import)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.tools.cli", "fsck", "--timing",
+         path], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    fsck = {}
+
+    def wait_for_fsck():
+        fsck["out"], fsck["err"] = proc.communicate()
+        fsck["seconds"] = time.perf_counter() - t0
+    waiter = threading.Thread(target=wait_for_fsck, daemon=True)
+    waiter.start()
+    try:
+        sq_bytes = _delta_steps(torch, run, path, dpath, new, stored)
+        waiter.join(timeout=300)
+    finally:
+        if proc.poll() is None:   # a failed step: stop the subprocess
+            proc.kill()
+            proc.wait()
+    out = fsck.get("out", "")
+    check(proc.returncode == 0 and "clean" in out and "CORRUPT" not in out,
+          f"python -m repro_torch.tools.cli fsck exited {proc.returncode}: "
+          f"{out[-400:]} {fsck.get('err', '')[-400:]}")
+    read = int(re.search(r"(\d+) bytes scanned", out).group(1))
+    work = float(re.search(r"fsck timing: ([0-9.]+) ms wall",
+                           out).group(1)) / 1e3
+    print(f"  python -m repro_torch.tools.cli fsck --timing {name}: exit 0, "
+          f"{fsck['seconds']:.3f} s in its own process (its check "
+          f"{work:.3f} s), {read} B read")
+    rec["commands"].append(dict(argv=["fsck", "--timing", name],
+                                seconds=fsck["seconds"], check_s=work,
+                                bytes_read=read, subprocess=True))
+
+    # 3. the set's table
+    doc = json.loads(run("ls", "--json", path))["checkpoint"]
+    check(doc.get("step") == 1000 and len(doc["shards"]) == SET_SHARDS
+          and all(s.get("present") for s in doc["shards"]),
+          f"ls --json: step {doc.get('step')}, shards {doc.get('shards')}")
+
+    # 4. checksums recorded, then verified, for the manifest and every
+    # data shard (what a manifest expands to)
+    files = [path] + set_files(path)[0]
+    run("index", "--checksums", path)
+    out = run("verify", "--timing", path)
+    verified = [l for l in out.splitlines() if "verified (" in l]
+    check(len(verified) == len(files), f"verify: {len(verified)} of "
+          f"{len(files)} files verified: {out[-400:]}")
+
+    # 5. a lost data shard: named, rebuilt byte for byte, clean again
+    os.remove(lost)
+    out = run("verify", path, want=1)
+    line = (f"{path}: set health: degraded-recoverable — lost "
+            f"{os.path.basename(lost)}")
+    check(line in out.splitlines(), f"verify of the degraded set: "
+          f"{out[:400]}")
+    run("repair", "--rebuild", path)
+    check(sha256_file(lost) == lost_sha256,
+          f"the rebuilt {os.path.basename(lost)} differs from the lost file")
+    out = run("fsck", path)
+    check("CORRUPT" not in out and "clean" in out, f"fsck: {out[-400:]}")
+
+    # 8. stored and logical bytes of every file of the set
+    docs = json.loads(run("stats", "--json", path))["files"]
+    check(len(docs) == len(files), f"stats covers {len(docs)} files")
+    leaf_logical = 0
+    for fdoc in docs:
+        payload = sum(e.payload_bytes for e in ScdaIndex.build(fdoc["file"]))
+        check(fdoc["stored_bytes"] == fdoc["logical_bytes"] == payload,
+              f"stats {fdoc['file']}: {fdoc['stored_bytes']} stored, "
+              f"{fdoc['logical_bytes']} logical, {payload} payload")
+        for row in fdoc["sections"]:
+            check(not row["stored"] or f"{row['ratio']:.2f}" == "1.00",
+                  f"stats {fdoc['file']} section {row['sec']}: ratio "
+                  f"{row['ratio']}")
+            if row["user"].startswith("leaf "):
+                leaf_logical += row["logical"]
+    check(leaf_logical == nbytes, f"the leaf sections hold {leaf_logical} "
+          f"B of the {nbytes} B of weights")
+    rec.update(phase_s=time.perf_counter() - t_phase,
+               squashed_bytes=sq_bytes)
+    print(f"scdatool phase: {len(rec['commands'])} commands in "
+          f"{rec['phase_s']:.3f} s (budget {TOOLS_BUDGET_S:.0f} s), "
+          f"{sum(c['bytes_read'] for c in rec['commands'])} B read; the "
+          f"squashed file {sq_bytes} B")
     return rec
 
 
@@ -3399,7 +3671,8 @@ def falcon_path(torch, K, tmp):
     checks, serve record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import FUSED_KERNEL_NAMES
-    cfg = get_config(FALCON)
+    cfg = dataclasses.replace(get_config(FALCON),
+                              n_layers=FALCON_SERVE_LAYERS)
     free = shutil.disk_usage(tmp).free
     check(free >= DISK_NEED, f"{tmp} has {free} B free; the {cfg.name} "
           f"checkpoint needs about {DISK_NEED:.0f} B")
@@ -3614,7 +3887,7 @@ def gemma_path(torch, K, tmp):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
     from repro_torch.train.step import make_prefill_step
-    cfg = get_config(GEMMA)
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_SERVE_LAYERS)
     apps = attention_apps(cfg)
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
     zero_counts(K)                            # the main path starts
@@ -3889,7 +4162,8 @@ def granite_path(torch, K, tmp):
     prefill and in a decode step.  Returns (K1 launches, serve record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
-    cfg = get_config(GRANITE)
+    cfg = dataclasses.replace(get_config(GRANITE),
+                              n_layers=GRANITE_SERVE_LAYERS)
     apps = attention_apps(cfg)
     weights, ckpt = checkpoint_phase(torch, cfg, tmp)
     zero_counts(K)                            # the main path starts
@@ -4162,7 +4436,7 @@ def llava_path(torch, K, tmp):
     gemma3's.  Returns (K1 launches, serve record)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL_NAMES
-    cfg = get_config(LLAVA)
+    cfg = dataclasses.replace(get_config(LLAVA), n_layers=LLAVA_SERVE_LAYERS)
     check(cfg.num_patches == LLAVA_PATCHES, f"{cfg.name}: {cfg.num_patches} "
           f"patches")
     apps = attention_apps(cfg)
@@ -5016,6 +5290,10 @@ def main(argv=None) -> int:
         help="build the kernels, run qwen3's prefill and serve windows on "
              "random weights and the dry-run phase, and stop (prints no "
              "result line)")
+    parser.add_argument(
+        "--tools-only", action="store_true",
+        help="build the kernels, run qwen3's checkpoint and set phases with "
+             "the scdatool phase, and stop (prints no result line)")
     parser.add_argument("--dryrun-predict", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -5073,6 +5351,18 @@ def run(torch, args, dryrun) -> int:
     print_prefill_occupancy(build.build_report(fa.SOURCE)[1])
     sys.stdout.flush()
 
+    if args.tools_only:
+        tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
+        try:
+            with torch.inference_mode():
+                cfg = get_config(QWEN)
+                weights, _ = checkpoint_phase(torch, cfg, tmp)
+                phase(f"{QWEN} weights as a set")
+                weights_set_phase(torch, cfg, weights, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print("--tools-only: the other paths were not run")
+        return 0
     phase("kernel checks")
     lse_records = decode_lse_checks(torch, fa)
     if args.mesh_only:

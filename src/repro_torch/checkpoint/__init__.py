@@ -1,10 +1,14 @@
 """Checkpoint/restart of torch state on the scda format: flat archives,
 sharded sets with parity shards, and delta chains.
 
-    from repro_torch.checkpoint import save, restore
+    from repro_torch.checkpoint import CheckpointManager, save, restore
 
     save("/ckpts/w.scda", params, step=1000, shards=4, parity=2)
     params, step = restore("/ckpts/w.scda", like=params, device="cuda")
+
+    mgr = CheckpointManager("/ckpts/run7", keep=3)
+    state, start = mgr.restore_or_init(init_fn, like=state_like)
+    mgr.save(step, state)          # async, atomic, serial-equivalent
 """
 from repro_torch.checkpoint.delta import (checkpoint_diff, squash,
                                           verify_chain)
@@ -23,13 +27,15 @@ from repro_torch.checkpoint.sharding import (assign_shards, is_shard_name,
                                              read_sharded_manifest,
                                              save_sharded, shard_file,
                                              verify_set)
+from repro_torch.checkpoint.manager import CheckpointManager, snapshot_to_host
 
 __all__ = [
     "shard_runs", "chunk_sizes", "chunks_for_runs", "runs_cover_exactly",
     "MANIFEST_USER_STRING", "STATUS_USER_STRING", "SHARDS_FILE_USER_STRING",
     "content_id", "save", "restore", "restore_leaf", "read_manifest",
     "flatten_named", "DEFAULT_CHUNK_BYTES", "DEFAULT_VENDOR",
-    "REFERENCE_VENDOR", "verify_chain", "squash", "checkpoint_diff",
+    "REFERENCE_VENDOR", "CheckpointManager", "snapshot_to_host",
+    "verify_chain", "squash", "checkpoint_diff",
     "save_sharded", "read_sharded_manifest", "verify_set", "assign_shards",
     "shard_file", "is_shard_name",
 ]

@@ -643,13 +643,15 @@ def squash(src_path: str, dst_path: str, *, comm=None,
     seed a new chain.  Works on full archives too (a digest-recording
     rewrite), and on sharded sets — the squash of a sharded chain is one
     self-contained single-file archive of the whole logical state.
-    ``vendor`` is the new file's header vendor (default the port's).
+    ``vendor`` is the new file's header vendor (default: the source's, so
+    a chain the reference wrote squashes to the reference's file).
     Returns the new manifest document.
     """
     from repro_torch.checkpoint import pytree_io as pio
     from repro_torch.core.comm import SerialComm
     pf = pio._effective_prefetch(prefetch_bytes)
     with fopen_read(None, src_path) as r:
+        vendor = vendor or r.vendor
         doc = pio._read_header_sections(r)
         if doc.get("format") == mf.SHARDED_FORMAT:
             values = None  # resolved below, once the manifest is closed
@@ -688,7 +690,7 @@ def squash(src_path: str, dst_path: str, *, comm=None,
         dst_path, comm=comm or SerialComm(), step=doc.get("step"),
         leaves=leaves, arrays=arrays, aux=doc.get("aux", {}),
         compressed=compressed, chunk_bytes=chunk_bytes,
-        write_window=write_window, vendor=vendor or pio.DEFAULT_VENDOR,
+        write_window=write_window, vendor=vendor,
         record_hashes=True)
 
 

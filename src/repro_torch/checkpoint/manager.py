@@ -1,5 +1,5 @@
 """Checkpoint lifecycle management for long-running training jobs — the
-port of ``repro/checkpoint/manager.py``, single-process.
+port of ``repro/checkpoint/manager.py``.
 
 The reference's properties, on torch state:
 
@@ -30,14 +30,16 @@ A file written here (with ``vendor=REFERENCE_VENDOR``) is the one the JAX
 package's manager writes for the same arrays, and each package restores
 the other's directories.
 
-**Ranked**: with ``comm`` a ``TorchDistComm`` of several ranks, every
-rank calls ``save`` with its DTensor state; each snapshots the blocks it
-owns (pinned host buffers, as below) and writes them into the one file
-through ``pytree_io.save(..., comm=)``, and rank 0 commits it and prunes.
-The writer's collectives run on a process group of the manager's own
-(``dist.new_group``), so they never interleave with the step's.  Only
-rank 0 holds the directory's lock.  Sets, deltas and compression are
-single-rank, as ``pytree_io.save`` has them, and are refused.
+**Ranked**: with ``comm`` a communicator of several ranks, every rank
+calls ``save``; each passes its snapshot and the comm to the save, and
+once all have written, rank 0 commits, writes the sidecars, flushes the
+journal and prunes.  Only rank 0 holds the directory's lock, and only its
+journal buffers.  Compression and deltas are single-rank, as
+``pytree_io.save`` has them: such a save raises ``ScdaError``.  With a
+``TorchDistComm`` the state is DTensors: each rank snapshots the blocks it
+owns (pinned host buffers, as below), and the writer's collectives run on
+a process group of the manager's own (``dist.new_group``), so they never
+interleave with the step's.
 
 The snapshot is a copy.  The port updates its training state in place, so
 ``save`` must not hand the writer views of live tensors: CUDA tensors are
@@ -64,6 +66,7 @@ from repro_torch.checkpoint import redundancy as _red
 from repro_torch.checkpoint import sharding as _sharding
 from repro_torch.core import ScdaError
 from repro_torch.core import trace as _trace
+from repro_torch.core.comm import Communicator, SerialComm, TorchDistComm
 from repro_torch.core.errors import ScdaErrorCode
 from repro_torch.core.index import SIDECAR_SUFFIX, ScdaIndex
 from repro_torch.core.io_backend import replace_durable
@@ -156,25 +159,24 @@ class CheckpointManager:
                  shards: Optional[int] = None,
                  parity: Optional[int] = None,
                  vendor: bytes = pytree_io.DEFAULT_VENDOR,
-                 comm=None) -> None:
+                 comm: Optional[Communicator] = None,
+                 index_sidecar: bool = True) -> None:
         self.directory = directory
-        self._comm = None
-        if comm is not None and comm.size > 1:
-            if compressed or delta or shards or parity:
-                raise ValueError(
-                    "a ranked CheckpointManager writes flat, uncompressed "
-                    "full saves (sets, deltas and compression are "
-                    "single-rank)")
+        self.comm = comm or SerialComm()
+        # DTensor ranks: snapshots keep each rank's own blocks.
+        self._dtensor_ranks = (isinstance(self.comm, TorchDistComm)
+                               and self.comm.size > 1)
+        if self._dtensor_ranks:
             import torch.distributed as dist
-            from repro_torch.core.comm import TorchDistComm
-            ranks = [comm._global(r) for r in range(comm.size)]
-            self._comm = TorchDistComm(dist.new_group(ranks,
-                                                      backend="gloo"))
-            shards, parity, delta = 0, 0, False
+            ranks = [self.comm._global(r) for r in range(self.comm.size)]
+            self.comm = TorchDistComm(dist.new_group(ranks,
+                                                     backend="gloo"))
         self.keep = max(1, keep)
         self.compressed = compressed
         self.chunk_bytes = chunk_bytes
         self.vendor = vendor
+        # Sidecars (.scdax) let restore_leaf seek without a header scan.
+        self.index_sidecar = index_sidecar
         # None defers each to its knob; parity without sharding has
         # nothing to code over, so it collapses to 0 for flat saves.
         self.shards = (_sharding.shards_default()
@@ -197,15 +199,10 @@ class CheckpointManager:
         self._journal = None  # lazy ScdaJournal (see journal())
         self._lock_path = os.path.join(directory, LOCK_NAME)
         self._lock_owned = False
-        os.makedirs(directory, exist_ok=True)
-        if self._rank == 0:
+        if self.comm.rank == 0:
+            os.makedirs(directory, exist_ok=True)
             self._acquire_lock()
-        if self._comm is not None:
-            self._comm.barrier()   # the directory exists, rank 0 holds it
-
-    @property
-    def _rank(self) -> int:
-        return 0 if self._comm is None else self._comm.rank
+        self.comm.barrier()   # the directory exists, rank 0 holds it
 
     def __enter__(self) -> "CheckpointManager":
         return self
@@ -314,12 +311,15 @@ class CheckpointManager:
         ScdaJournal`): ``journal().log(step, scalars)`` buffers records,
         which go into the newest *committed* checkpoint file right after
         every commit (flush-on-commit).  Scalars must be host values: call
-        ``.item()`` on a tensor first."""
+        ``.item()`` on a tensor first.  Only rank 0's journal buffers;
+        elsewhere ``log`` does nothing, so replicated code may log on
+        every rank."""
         if self._journal is None:
             from repro_torch.journal import ScdaJournal
             latest = self.latest_step()
             self._journal = ScdaJournal(
-                self.path_for(latest) if latest is not None else None)
+                self.path_for(latest) if latest is not None else None,
+                enabled=self.comm.rank == 0)
         return self._journal
 
     # -- saving ----------------------------------------------------------------
@@ -336,9 +336,9 @@ class CheckpointManager:
         """
         self.wait()  # one in-flight save at a time; surfaces prior errors
         with _trace.span("snapshot", "ckpt", step=step):
-            host_tree = (snapshot_to_host(tree, self._pinned)
-                         if self._comm is None else
-                         snapshot_to_host(tree, self._pinned, ranked=True))
+            host_tree = (snapshot_to_host(tree, self._pinned, ranked=True)
+                         if self._dtensor_ranks else
+                         snapshot_to_host(tree, self._pinned))
         use_delta = self.delta if delta is None else bool(delta)
 
         def _write() -> None:
@@ -391,11 +391,13 @@ class CheckpointManager:
     def _write_and_commit(self, step: int, host_tree,
                           aux_extra: Optional[Dict[str, Any]],
                           use_delta: bool = False) -> None:
-        if self._comm is not None:
-            self._write_ranked(step, host_tree, aux_extra)
-            return
+        """Every rank writes its part of ``<name>.tmp`` (a set's files
+        each with ``.tmp``); once all have, rank 0 commits, flushes the
+        journal and prunes, and the ranks meet again, so a later restore
+        on any rank sees the commit."""
         final = self.path_for(step)
         tmp = final + ".tmp"
+        comm = self.comm
         with _trace.span("plan", "ckpt", step=step, delta=use_delta,
                          shards=self.shards, parity=self.parity):
             base = self._delta_base(step) if use_delta else None
@@ -405,14 +407,14 @@ class CheckpointManager:
                 # manifest records the final names; commit_sharded renames
                 # shards and parity first and the manifest last.
                 doc = _sharding.save_sharded(
-                    final, host_tree, shards=self.shards, step=step,
-                    compressed=self.compressed,
+                    final, host_tree, shards=self.shards, comm=comm,
+                    step=step, compressed=self.compressed,
                     chunk_bytes=self.chunk_bytes, aux_extra=aux_extra,
                     record_hashes=use_delta or self.delta,
                     delta_base=base, parity=self.parity,
                     tmp_suffix=".tmp", vendor=self.vendor)
             else:
-                doc = pytree_io.save(tmp, host_tree, step=step,
+                doc = pytree_io.save(tmp, host_tree, comm=comm, step=step,
                                      compressed=self.compressed,
                                      chunk_bytes=self.chunk_bytes,
                                      aux_extra=aux_extra,
@@ -421,15 +423,28 @@ class CheckpointManager:
                                      delta_base=base, shards=0)
         except BaseException:
             # A failed save must not leave its half-written files around.
-            stale = (_sharding.set_paths(final, self.shards, ".tmp",
-                                         parity=self.parity)
-                     if self.shards else [tmp])
-            for p in stale:
-                try:
-                    os.remove(p)
-                except OSError:
-                    pass
+            if comm.rank == 0:
+                stale = (_sharding.set_paths(final, self.shards, ".tmp",
+                                             parity=self.parity)
+                         if self.shards else [tmp])
+                for p in stale:
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
             raise
+        comm.barrier()
+        if comm.rank == 0:
+            self._commit(step, final, tmp, doc)
+        # The doc a re-read of the fresh checkpoint would parse: the next
+        # delta references it without touching the disk.
+        self._last_doc = (doc, _ckpt_name(step))
+        comm.barrier()
+
+    def _commit(self, step: int, final: str, tmp: str,
+                doc: Dict[str, Any]) -> None:
+        """Rank 0's part of a save: rename into place, sidecars, journal,
+        retention."""
         with _trace.span("commit", "ckpt", path=final, step=step):
             if self.shards:
                 _sharding.commit_sharded(final, doc, ".tmp")
@@ -443,8 +458,9 @@ class CheckpointManager:
                 # Atomic commit: rename + parent-dir fsync.
                 replace_durable(tmp, final)
                 committed = [final]
-            # Best-effort: readers fall back to a header scan.
-            ScdaIndex.write_sidecars(committed)
+            if self.index_sidecar:
+                # Best-effort: readers fall back to a header scan.
+                ScdaIndex.write_sidecars(committed)
         c = _trace.collector()
         if c is not None:
             # The I/O counters since the last commit ride into the
@@ -462,39 +478,6 @@ class CheckpointManager:
                 pass
         with _trace.span("retention", "ckpt", keep=self.keep):
             self._apply_retention()
-        # The doc a re-read of the fresh checkpoint would parse: the next
-        # delta references it without touching the disk.
-        self._last_doc = (doc, _ckpt_name(step))
-
-    def _write_ranked(self, step: int, host_tree,
-                      aux_extra: Optional[Dict[str, Any]]) -> None:
-        """Every rank writes its blocks into ``<name>.tmp``; once all have,
-        rank 0 renames it into place and prunes, and the ranks meet again,
-        so a later restore on any rank sees the commit."""
-        final = self.path_for(step)
-        tmp = final + ".tmp"
-        comm = self._comm
-        try:
-            doc = pytree_io.save(tmp, host_tree, comm=comm, step=step,
-                                 chunk_bytes=self.chunk_bytes,
-                                 aux_extra=aux_extra, vendor=self.vendor,
-                                 shards=0)
-        except BaseException:
-            if comm.rank == 0:
-                try:
-                    os.remove(tmp)
-                except OSError:
-                    pass
-            raise
-        comm.barrier()
-        if comm.rank == 0:
-            with _trace.span("commit", "ckpt", path=final, step=step):
-                replace_durable(tmp, final)
-                ScdaIndex.write_sidecars([final])
-            with _trace.span("retention", "ckpt", keep=self.keep):
-                self._apply_retention()
-        comm.barrier()
-        self._last_doc = (doc, _ckpt_name(step))
 
     def _shard_files(self, name: str) -> List[str]:
         """Shard and parity file names of checkpoint ``name`` (empty for

@@ -451,7 +451,8 @@ def save(path: str, tree, *, comm: Optional[Communicator] = None,
          record_hashes: bool = False,
          delta_base: Optional[Tuple[Dict[str, Any], str]] = None,
          shards: Optional[int] = None,
-         parity: Optional[int] = None) -> Dict[str, Any]:
+         parity: Optional[int] = None,
+         trace: Optional[Any] = None) -> Dict[str, Any]:
     """Write ``tree`` (nested dicts/lists of tensors) to ``path`` as a
     serial-equivalent scda checkpoint.
 
@@ -468,7 +469,20 @@ def save(path: str, tree, *, comm: Optional[Communicator] = None,
     ``parity`` (``None``: ``REPRO_SCDA_PARITY``; ignored for a flat save)
     adds that many erasure-code shards.  Returns the manifest document
     (a sharded save's, with its shards' docs under ``shard_docs``).
+
+    ``trace`` traces this one save: a :class:`repro_torch.core.trace.
+    TraceCollector`, or a path to export a Chrome ``trace_event`` JSON to
+    when the save ends (``None``: the process-wide ``REPRO_SCDA_TRACE``).
+    A traced save writes the same bytes as an untraced one.
     """
+    if trace is not None:
+        with _trace.scoped(trace):
+            return save(path, tree, comm=comm, step=step,
+                        compressed=compressed, chunk_bytes=chunk_bytes,
+                        aux_extra=aux_extra, write_window=write_window,
+                        vendor=vendor, record_hashes=record_hashes,
+                        delta_base=delta_base, shards=shards,
+                        parity=parity)
     from repro_torch.checkpoint import redundancy as _red
     from repro_torch.checkpoint import sharding as _sharding
     comm = comm or SerialComm()

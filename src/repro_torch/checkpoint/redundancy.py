@@ -213,9 +213,14 @@ def parity_id(meta: Dict[str, Any]) -> str:
 def _read_backend(backend, offset: int, n: int, what: str,
                   context: str) -> np.ndarray:
     """``n`` bytes of an open file at ``offset`` through positioned reads
-    (no shared read cache, so several threads may read at once)."""
+    (no shared read cache, so several threads may read at once).
+    ``backend`` is a :class:`FileBackend` (traced) or a bare descriptor
+    (untraced, as the reference reads the shards it codes parity over)."""
     buf = np.empty(n, dtype=np.uint8)
-    got = backend.preadv(offset, [memoryview(buf)])
+    if isinstance(backend, int):
+        got = os.preadv(backend, [memoryview(buf)], offset)
+    else:
+        got = backend.preadv(offset, [memoryview(buf)])
     if got < n:
         raise ScdaError(
             ScdaErrorCode.CORRUPT_TRUNCATED,
@@ -252,18 +257,18 @@ def write_parity_files(path: str, shard_recs: List[Dict[str, Any]],
     files: List[Dict[str, Any]] = []
     _tc = _trace.collector()
     _t0 = _tc.now() if _tc is not None else 0
-    backends: List[FileBackend] = []
+    paths = [os.path.join(base, n) + in_suffix for n in names]
+    fds: List[int] = []
     try:
-        for n in names:
-            backends.append(FileBackend(os.path.join(base, n) + in_suffix,
-                                        "r", create=False))
+        for p in paths:
+            fds.append(os.open(p, os.O_RDONLY))
 
         def window(off: int) -> List[np.ndarray]:
             cl = min(_STREAM_CHUNK, length - off)
             accs = [np.zeros(cl, dtype=np.uint8) for _ in range(parity)]
-            for i, backend in enumerate(backends):
+            for i, fd in enumerate(fds):
                 want = max(0, min(sizes[i], off + cl) - off)
-                data = _read_backend(backend, off, want, backend.path,
+                data = _read_backend(fd, off, want, paths[i],
                                      " while computing parity")
                 for j, acc in enumerate(accs):
                     _mul_into(acc, _coeff(i, j), data)
@@ -272,8 +277,8 @@ def write_parity_files(path: str, shard_recs: List[Dict[str, Any]],
         rows = list(zip(*mf.host_map(window,
                                      range(0, length, _STREAM_CHUNK))))
     finally:
-        for backend in backends:
-            backend.close()
+        for fd in fds:
+            os.close(fd)
     for j in range(parity):
         chunks = rows[j] if rows else ()
         crc = 0

@@ -12,7 +12,7 @@ are int64, as ``gather`` wants them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -53,12 +53,15 @@ class SyntheticTokens:
         seq = self._tokens(step, row_start, rows)
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
-    def sharded_batch(self, step: int, device, mesh=None) \
+    def sharded_batch(self, step: int, device, mesh=None,
+                      extra: Optional[Dict[str, torch.Tensor]] = None) \
             -> Dict[str, torch.Tensor]:
         """The full global batch on ``device``: int32 tokens, int64
         labels.  With ``mesh`` (a ``DeviceMesh``) each is a DTensor
         batch-sharded on the data axes (``sharding.batch_spec``): the
-        rank's rows on ``device``, the same values as without."""
+        rank's rows on ``device``, the same values as without.  ``extra``
+        entries (frame or patch embeddings, say) join the batch as
+        given."""
         host = self.global_batch_shard(step, 0, self.cfg.global_batch)
         batch = {
             "tokens": torch.from_numpy(np.ascontiguousarray(host["tokens"]))
@@ -70,4 +73,6 @@ class SyntheticTokens:
             spec = sh.batch_spec(mesh, 2)
             batch = {k: sh.distribute(v, mesh, spec)
                      for k, v in batch.items()}
+        if extra:
+            batch.update(extra)
         return batch

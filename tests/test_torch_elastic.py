@@ -11,7 +11,8 @@ restores under the reference's three re-partitions, fully replicated and
 on one rank, with the prefetch engine and without.  Compressed files,
 sets (and a set missing a data shard), a delta chain and ``restore_leaf``
 restore onto placements; an uneven leaf tiles its stream once; the
-reference's multi-rank refusals keep their error codes.
+reference's multi-rank refusals keep their error codes; a CheckpointManager
+over the eight ranks writes the reference manager's 4 + 2 set.
 
 The rank bodies live at module level (spawn pickles them by reference)
 and this module imports no JAX at its top, so the ranks never load it.
@@ -204,6 +205,23 @@ def _elastic_rank(d: str) -> dict:
                  step=STEP, vendor=tio.REFERENCE_VENDOR)
     flat = os.path.join(d, "m42.scda")
 
+    # a manager over all eight ranks writes a 4 + 2 set, and refuses what
+    # the reference's ranked manager refuses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    with CheckpointManager(os.path.join(d, "mgr"), comm=comm, shards=4,
+                           parity=2, delta=False,
+                           vendor=tio.REFERENCE_VENDOR) as mgr:
+        mgr.save(STEP, _distributed(state, meshes["m42"], SAVE_SPECS),
+                 blocking=True)
+    out["manager_refusals"] = {}
+    for what, kw in (("compressed", dict(compressed=True)),
+                     ("delta", dict(delta=True))):
+        with CheckpointManager(os.path.join(d, f"mgr-{what}"), comm=comm,
+                               shards=0, **kw) as mgr:
+            out["manager_refusals"][what] = _code(lambda: mgr.save(
+                STEP, _distributed(state, meshes["m42"], SAVE_SPECS),
+                blocking=True))
+
     # restores under five targets, with the prefetch engine and without
     out["restore"] = {}
     default_slab = tio.SLAB_BYTES
@@ -390,10 +408,14 @@ def _read(path) -> bytes:
 def elastic(tmp_path_factory):
     """The reference's files, written here, and the ranks' results."""
     from repro.checkpoint import pytree_io as jio
+    from repro.checkpoint.manager import CheckpointManager as JManager
     d = str(tmp_path_factory.mktemp("elastic"))
     ref = str(tmp_path_factory.mktemp("reference"))
     state, bumped = make_state(), make_state(bump=True)
     jio.save(os.path.join(ref, "flat.scda"), _numpy(state), step=STEP)
+    with JManager(os.path.join(ref, "mgr"), shards=4, parity=2,
+                  delta=False) as mgr:
+        mgr.save(STEP, _numpy(state), blocking=True)
     for name, parity in (("set.scda", 0), ("pset.scda", 2)):
         jio.save(os.path.join(ref, name), _numpy(state), step=STEP,
                  shards=4, parity=parity)
@@ -537,6 +559,41 @@ def test_set_saved_by_four_ranks_is_the_references(elastic, stem):
     for name in names:
         assert _read(os.path.join(elastic["dir"], name)) == \
             _read(os.path.join(elastic["ref"], name)), name
+
+
+def test_a_manager_on_eight_ranks_writes_the_reference_managers_set(
+        elastic):
+    """Each rank writes the blocks it owns of a DTensor state into the
+    set's files and rank 0 commits: every file, sidecars included, is the
+    reference manager's."""
+    ref, got = (os.path.join(elastic[k], "mgr") for k in ("ref", "dir"))
+    names = sorted(os.listdir(ref))
+    assert len(names) == 14   # manifest, 4 shards, 2 parity; sidecars
+    assert sorted(os.listdir(got)) == names
+    for name in names:
+        assert _read(os.path.join(got, name)) == \
+            _read(os.path.join(ref, name)), name
+
+
+@pytest.mark.parametrize("what", ["compressed", "delta"])
+def test_a_ranked_manager_refuses_what_the_reference_refuses(elastic, what,
+                                                             tmp_path):
+    """The reference's manager on 2 ThreadComm ranks gives the code."""
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro.core import ScdaError as JScdaError
+    from repro.core.comm import ThreadComm, run_ranks
+    kw = dict(compressed=True) if what == "compressed" else dict(delta=True)
+
+    def body(c):
+        with JManager(str(tmp_path), comm=c, shards=0, **kw) as mgr:
+            try:
+                mgr.save(STEP, _numpy(make_state()), blocking=True)
+            except JScdaError as e:
+                return int(e.code)
+    want, = set(run_ranks(ThreadComm.group(2), body))
+    assert want is not None
+    for r in elastic["ranks"]:
+        assert r["manager_refusals"][what] == want, r["rank"]
 
 
 @pytest.mark.parametrize("pf", PREFETCH)

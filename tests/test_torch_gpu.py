@@ -4,9 +4,11 @@ backward) against their plain versions, the smoke models (qwen3,
 falcon-mamba, zamba2, gemma3, granite-moe, whisper, llava) on CUDA against
 the same models on the CPU, their training paths (loss, gradients; kill
 and resume for the first five),
-and checkpoint round trips of CUDA tensors (flat, as a parity-protected
+checkpoint round trips of CUDA tensors (flat, as a parity-protected
 set without one of its shards, as a delta, and as DTensors saved by two
-gloo ranks on the card and restored under another mesh).  Every
+gloo ranks on the card and restored under another mesh), and the two
+device examples (``examples/torch_compressed_archive.py`` and
+``torch_train_restart.py``) at their defaults.  Every
 test here needs a GPU and skips without one; none imports JAX, so the
 file runs on the GPU machine:
 
@@ -1578,3 +1580,37 @@ def test_fake_allocations_match_the_card(cuda, case):
     assert peak == mode.costs.temp_peak_bytes, (peak,
                                                 mode.costs.temp_peak_bytes)
     assert kept is not None and kept_meta is not None
+
+
+def _example(name):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_compressed_archive_example_on_the_card(cuda, tmp_path, monkeypatch):
+    """examples/torch_compressed_archive.py at its defaults: yi-6b's smoke
+    weights on the card, raw and compressed, one leaf restored alone."""
+    monkeypatch.setenv("SCDA_EXAMPLE_DIR", str(tmp_path))
+    res = _example("torch_compressed_archive.py").main([])
+    assert res["exact"] and res["device"].startswith("cuda")
+    assert res["leaf_bytes"] < res["read_bytes"] < res["packed_bytes"] / 2
+
+
+def test_train_restart_example_on_the_card(cuda, tmp_path, monkeypatch):
+    """examples/torch_train_restart.py at its defaults: qwen3's smoke
+    config trained 60 steps on the card, killed at 30, resumed."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    res = _example("torch_train_restart.py").main([])
+    assert res["device"].startswith("cuda")
+    # step 30 saves (every 10 steps) before the node dies
+    assert res["start_step"] == res["die_at"] == 30
+    assert len(res["losses"]) == 60 - 30 - 1
+    assert all(np.isfinite(res["losses"]))
+    assert res["kept"][-1] == 59

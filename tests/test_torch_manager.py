@@ -469,3 +469,122 @@ def test_set_save_emits_the_references_trace_records(tmp_path):
     names = {e[0] for e in jev}
     assert {"save", "plan", "write_archive", "shard_placement", "commit",
             "parity_encode", "retention"} <= names
+
+
+# --------------------------------------------------------------------------
+# The manager over any communicator (ThreadComm ranks), index_sidecar, and
+# the package's exports
+# --------------------------------------------------------------------------
+
+def _on_ranks(core, manager, d, tree_fn, steps=(1, 2), **kw):
+    """Each of 2 ``ThreadComm`` ranks of ``core`` saves ``tree_fn(step)``
+    at every step through its own manager on ``d``; returns each rank's
+    ``(error code, message)`` of the first failed save, or ``None``."""
+    def workload(comm):
+        with manager(d, comm=comm, **kw) as mgr:
+            try:
+                for step in steps:
+                    mgr.save(step, tree_fn(step), blocking=True)
+            except core.ScdaError as e:
+                return e.code.name, str(e)
+        return None
+    return core.run_ranks(core.ThreadComm.group(2), workload)
+
+
+def _tmanager(*a, **k):
+    return CheckpointManager(*a, vendor=REFERENCE_VENDOR, **k)
+
+
+@pytest.mark.parametrize("layout", [dict(shards=0), dict(shards=2, parity=1),
+                                    dict(shards=3, parity=2)])
+def test_manager_on_thread_comm_ranks_writes_the_references_files(
+        tmp_path, layout):
+    """Each rank passes its comm to the save and rank 0 commits and
+    prunes: every file left (steps, shards, parity, sidecars) is the
+    reference manager's under the same ranks."""
+    from repro import core as jcore
+    from repro_torch import core as tcore
+    jd, td = str(tmp_path / "j"), str(tmp_path / "t")
+    kw = dict(keep=2, delta=False, **layout)
+    assert _on_ranks(jcore, JManager, jd,
+                     lambda s: jax.tree_util.tree_map(np.asarray,
+                                                      _jstate(s)),
+                     steps=(1, 2, 3), **kw) == [None, None]
+    assert _on_ranks(tcore, _tmanager, td, _tstate, steps=(1, 2, 3),
+                     **kw) == [None, None]
+    names = sorted(os.listdir(jd))
+    assert sorted(os.listdir(td)) == names
+    assert "step_0000000001.scda" not in names      # retention ran
+    assert any(n.endswith(".scdax") for n in names)
+    if layout["shards"]:
+        assert any(tsh.is_shard_name(n) for n in names)
+    for f in names:
+        assert (tmp_path / "t" / f).read_bytes() == \
+            (tmp_path / "j" / f).read_bytes(), f
+    got, step = CheckpointManager(td).restore_latest(_like())
+    assert step == 3
+    _assert_same(got, _tstate(3))
+
+
+@pytest.mark.parametrize("what", ["compressed", "delta"])
+def test_manager_on_thread_comm_ranks_refuses_what_the_reference_refuses(
+        tmp_path, what):
+    from repro import core as jcore
+    from repro_torch import core as tcore
+    kw = dict(compressed=True) if what == "compressed" else dict(delta=True)
+    ref = _on_ranks(jcore, JManager, str(tmp_path / "j"),
+                    lambda s: jax.tree_util.tree_map(np.asarray,
+                                                     _jstate(s)),
+                    shards=0, **kw)
+    got = _on_ranks(tcore, _tmanager, str(tmp_path / "t"), _tstate,
+                    shards=0, **kw)
+    assert ref[0] is not None and ref[0][0] == "ARG_SEQUENCE"
+    assert got == ref
+    assert not [n for n in os.listdir(tmp_path / "t")
+                if n.startswith("step_")]
+
+
+def test_non_root_journal_is_inert(tmp_path):
+    """Every rank logs the replicated value; only rank 0's journal
+    buffers, so the record lands once."""
+    from repro_torch.core import ThreadComm, run_ranks
+
+    def workload(comm):
+        mgr = CheckpointManager(str(tmp_path), keep=3, comm=comm)
+        j = mgr.journal()
+        j.log(1, {"loss": 2.0})
+        assert j.pending == (1 if comm.rank == 0 else 0)
+        mgr.save(1, {"w": torch.ones(8)}, blocking=True)
+        assert j.pending == 0
+        mgr.close()
+        return mgr.path_for(1)
+
+    paths = run_ranks(ThreadComm.group(2), workload)
+    assert [r["step"] for r in read_records(paths[0])] == [1]
+
+
+@pytest.mark.parametrize("layout", [dict(shards=0), dict(shards=2, parity=1)])
+def test_index_sidecar_false_writes_no_sidecar(tmp_path, layout):
+    for flag, d in ((False, tmp_path / "off"), (True, tmp_path / "on")):
+        with _tmanager(str(d), index_sidecar=flag, delta=False,
+                       **layout) as mgr:
+            mgr.save(1, _tstate(1), blocking=True)
+    off = sorted(os.listdir(tmp_path / "off"))
+    on = sorted(os.listdir(tmp_path / "on"))
+    assert not [n for n in off if n.endswith(".scdax")]
+    assert [n for n in on if not n.endswith(".scdax")] == off
+    assert len(on) == 2 * len(off)
+    for f in off:   # the checkpoint's own files do not change
+        assert (tmp_path / "off" / f).read_bytes() == \
+            (tmp_path / "on" / f).read_bytes()
+    got, _ = CheckpointManager(str(tmp_path / "off")).restore_latest(_like())
+    _assert_same(got, _tstate(1))
+
+
+def test_checkpoint_package_exports_the_manager():
+    import repro_torch.checkpoint as pkg
+    from repro_torch.checkpoint import manager
+    assert pkg.CheckpointManager is manager.CheckpointManager
+    assert pkg.snapshot_to_host is manager.snapshot_to_host
+    assert {"CheckpointManager", "snapshot_to_host"} <= set(pkg.__all__)
+    assert "leaf_name" not in pkg.__all__

@@ -132,6 +132,18 @@ def test_sharded_batch_is_the_global_batch_on_the_device():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
+def test_sharded_batch_joins_extra_entries_as_the_reference_does():
+    kw = dict(vocab=300, seq_len=24, global_batch=4, seed=2)
+    frames = np.arange(4 * 5 * 3, dtype=np.float32).reshape(4, 5, 3)
+    want = JTokens(JDataConfig(**kw)).sharded_batch(
+        6, extra={"enc_embeds": jnp.asarray(frames)})
+    got = SyntheticTokens(DataConfig(**kw)).sharded_batch(
+        6, "cpu", extra={"enc_embeds": torch.from_numpy(frames)})
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
 def test_grad_compression_matches_jax():
     rng = np.random.default_rng(3)
     params = _tree(rng)

@@ -27,7 +27,8 @@ VERBATIM = [f"core/{m}.py" for m in (
     "configs/nemotron_4_15b.py", "configs/qwen3_1p7b.py",
     "configs/whisper_medium.py", "configs/yi_6b.py",
     "configs/zamba2_2p7b.py", "checkpoint/layout.py", "checkpoint/planner.py",
-    "journal/__init__.py", "journal/journal.py"]
+    "journal/__init__.py", "journal/journal.py", "tools/__init__.py",
+    "tools/cli.py", "tools/fsck.py"]
 
 _IMPORT = re.compile(r"^(\s*)(from|import)(\s+)repro(?=[.\s])", re.M)
 _FORBIDDEN = re.compile(

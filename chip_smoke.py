@@ -514,9 +514,9 @@ PROFILE_PAD_S = 0.02
 def profiled(torch, fn, tries: int = 3):
     """Run ``fn()`` once under ``torch.profiler`` (host and card
     activity); return the profile's device rows (kernels, copies, sets;
-    operator rows are left out, as their device time repeats their
-    kernels') and the run's time on the card's clock in ms (CUDA events
-    around it).
+    operator rows and ranges a program marked are left out, as their
+    device time repeats their kernels') and the run's time on the card's
+    clock in ms (CUDA events around it).
 
     The trace keeps only the card's activity whose timestamps, put on
     the host's clock, fall inside the profiler's window, and that
@@ -541,7 +541,8 @@ def profiled(torch, fn, tries: int = 3):
             time.sleep(PROFILE_PAD_S)
         PROFILES["taken"] += 1
         rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation]
         if sum(e.self_device_time_total for e in rows) > 0:
             return rows, start.elapsed_time(end)
         PROFILES["empty"] += 1

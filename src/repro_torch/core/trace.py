@@ -28,6 +28,22 @@ trace at process exit (and on :func:`flush`).  Programmatic use:
 Tracing never perturbs bytes: instrumented code paths are fuzzed
 byte-identical to untraced runs by ``tests/test_trace.py``.
 
+The compute path (``train.step``, ``models.lm``, ``models.ssm``,
+``kernels.ops``) opens :func:`compute` spans.  They are live while a
+collector is installed or a ``torch.profiler`` window records (with no
+collector installed, the first live span installs one that is live only
+in profiler windows and stays readable after them).  A live one records
+its host interval, its parent and root span, a pair of CUDA timing events
+on the current stream (taken from a pool, read and given back after one
+synchronize when the spans are read, :meth:`TraceCollector.spans`, or,
+past ``HOLD_SPANS``, once the card has passed them, never waited for),
+and under the profiler a range named ``<cat>.<name>``.  Host and device
+intervals are mapped onto the Unix-epoch clock that the profiler's rows
+are on, so the collector's Chrome export (a ``cuda:<i>`` track beside the
+host threads) lays over the profiler's.  Compute spans never enter
+:meth:`TraceCollector.commit_record`.  Off, a span is one global load and
+the profiler's flag, and allocates nothing.
+
 :func:`warn` is the single user-facing warning channel (degraded reads,
 stale-lock takeover): logging-backed (logger ``repro.scda`` — capture
 it with ``caplog`` in tests; without handlers it still lands on stderr
@@ -37,9 +53,12 @@ counted in the active collector's metrics.
 from __future__ import annotations
 
 import atexit
+import dataclasses
+import itertools
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -51,6 +70,21 @@ TRACE_ENV = "REPRO_SCDA_TRACE"
 #: Event cap per collector — beyond it events drop (counted), metrics
 #: keep aggregating.  A full sharded+parity save is ~10k events.
 DEFAULT_MAX_EVENTS = 1_000_000
+
+#: Compute-path spans a collector keeps; beyond it they drop, counted
+#: with the dropped events.  A falcon-mamba train step at 8 layers
+#: records 216, a prefill 76.
+MAX_SPANS = 100_000
+
+#: Closed spans whose CUDA events a collector holds until a read; beyond
+#: it, each root span's close gives back the events the card has passed
+#: (:meth:`TraceCollector._harvest`, about 13 µs of host time a span on
+#: one H100 machine), so a traced window of the benchmark's cells (under
+#: 2,000 spans) pays that only at its read.
+HOLD_SPANS = 32_768
+
+#: Tries at a device mark's host time (:meth:`TraceCollector._mark`).
+MARK_TRIES = 8
 
 logger = logging.getLogger("repro.scda")
 
@@ -167,6 +201,129 @@ class _Span:
         self._c.end(self._name, self._cat, self._t0, self._args)
 
 
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One closed compute-path span (:meth:`TraceCollector.spans`).
+
+    Times are nanoseconds on the Unix-epoch clock, the one
+    ``torch.profiler``'s rows are on.  The device interval runs from the
+    stream reaching the span's first event to the end of its last, idle
+    inside included; it is None where the span recorded no CUDA events
+    (off CUDA), never a host time."""
+    name: str
+    cat: str
+    id: int
+    parent: Optional[int]
+    root: int
+    thread: int
+    host_start_ns: int
+    host_end_ns: int
+    device: Optional[int]
+    device_start_ns: Optional[int]
+    device_end_ns: Optional[int]
+    args: Dict[str, Any]
+
+    @property
+    def key(self) -> str:
+        """``<cat>.<name>``, the span's name in profiles and metrics."""
+        return f"{self.cat}.{self.name}"
+
+    @property
+    def device_ns(self) -> Optional[int]:
+        if self.device_start_ns is None:
+            return None
+        return self.device_end_ns - self.device_start_ns
+
+
+class _ComputeSpan:
+    """A live compute-path span: ``start()`` and ``stop()`` (a backward
+    mark opens and closes in two autograd calls), or ``with``.
+
+    On CUDA its two timing events come from the collector's pool and go
+    back to it once they are read (:meth:`TraceCollector._harvest`): what
+    is kept is their offsets in ns from the first event of its ``base``,
+    its root span (or itself, where the root recorded no event on its
+    device), whose event is kept until a read maps it onto the epoch
+    clock."""
+    __slots__ = ("_c", "name", "cat", "backward", "args", "recompute", "id",
+                 "parent", "root", "thread", "t0", "t1", "dev", "base", "ev0",
+                 "ev1", "off0", "off1", "epoch", "_rf", "_stack")
+
+    def __init__(self, c: "TraceCollector", name: str, cat: str,
+                 backward: bool) -> None:
+        self._c, self.name, self.cat = c, name, cat
+        self.backward = backward
+        self.args: Optional[Dict[str, Any]] = None
+        self.dev = self.ev0 = self.ev1 = self._rf = None
+        self.off0 = self.off1 = self.epoch = None
+
+    def add(self, **kw: Any) -> None:
+        if self.args is None:
+            self.args = kw
+        else:
+            self.args.update(kw)
+
+    def start(self) -> "_ComputeSpan":
+        c = self._c
+        torch = sys.modules["torch"]
+        stack = c._thread_stack()
+        in_backward = torch._C._current_graph_task_id() != -1
+        if stack:
+            parent = stack[-1]
+        elif in_backward and c._backward:
+            parent = c._backward[-1]      # autograd's own thread
+        else:
+            parent = None
+        self.id = next(c._ids)
+        self.parent = parent
+        self.root = self if parent is None else parent.root
+        self.thread = threading.get_ident()
+        # forward code that autograd runs is remat's recompute
+        self.recompute = None if self.backward else in_backward
+        if (_profiler_enabled or _bind_profiler_flag())():
+            # the range opens first: its row starts just before t0
+            self._rf = _RecordFunctionFast(f"{self.cat}.{self.name}")
+            self._rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        if torch.cuda.is_initialized():
+            self.dev = dev = torch.cuda.current_device()
+            self.ev0 = c._record(dev)
+            r = self.root
+            self.base = r if r.dev == dev and r.ev0 is not None else self
+        stack.append(self)
+        self._stack = stack
+        if self.backward:
+            c._backward.append(self)
+        return self
+
+    def stop(self) -> None:
+        c = self._c
+        if self.ev0 is not None:
+            self.ev1 = c._record(self.dev)
+        self.t1 = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        stack = self._stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        if self.backward and self in c._backward:
+            c._backward.remove(self)
+        c._close(self)
+        # no cycle through the collector: dropped, it is freed at once
+        self._c = self._stack = None
+
+    def __enter__(self) -> "_ComputeSpan":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.add(error=f"{exc_type.__name__}: {exc}")
+        self.stop()
+
+
 class TraceCollector:
     """One trace session: an event buffer plus aggregated metrics.
 
@@ -190,6 +347,22 @@ class TraceCollector:
         self._epoch_ns = time.perf_counter_ns()
         self._commit_base: Dict[str, int] = {}
         self._commit_lock = threading.Lock()
+        # compute-path spans: the Unix-epoch time at ``_epoch_ns`` (the
+        # profiler's clock), whether the collector is the one a profiler
+        # window installed (live in such windows only), closed spans,
+        # those whose events the card may not have passed yet, live
+        # backward spans, the timing events to reuse, by device, and the
+        # devices' streams
+        self._epoch_time_ns = time.time_ns() - (time.perf_counter_ns()
+                                                - self._epoch_ns)
+        self.profiler_only = False
+        self._spans: List[_ComputeSpan] = []
+        self._unread: List[_ComputeSpan] = []
+        self._backward: List[_ComputeSpan] = []
+        self._free: Dict[int, List[Any]] = {}
+        self._streams: Dict[tuple, Any] = {}
+        self._ids = itertools.count(1)
+        self._tls = threading.local()
 
     # -- emission ----------------------------------------------------------
 
@@ -254,6 +427,162 @@ class TraceCollector:
         self._emit(name, cat, "C", time.perf_counter_ns(), 0,
                    {"value": int(value)})
 
+    # -- compute-path spans ------------------------------------------------
+
+    def compute(self, name: str, cat: str, *,
+                backward: bool = False) -> _ComputeSpan:
+        """A compute-path span of this collector, not yet started (the
+        module's :func:`compute` is the call sites' entry)."""
+        return _ComputeSpan(self, name, cat, backward)
+
+    def _thread_stack(self) -> List[_ComputeSpan]:
+        try:
+            return self._tls.stack
+        except AttributeError:
+            stack = self._tls.stack = []
+            return stack
+
+    def _record(self, dev: int) -> Any:
+        """A timing event recorded on ``dev``'s current stream, from the
+        pool if one is free (``torch.cuda.current_stream`` builds a new
+        stream object, 8 µs on one H100 machine: this looks it up)."""
+        torch = sys.modules["torch"]
+        free = self._free.get(dev)
+        ev = free.pop() if free else torch.cuda.Event(enable_timing=True)
+        key = torch._C._cuda_getCurrentStream(dev)
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams[key] = torch.cuda.current_stream(dev)
+        ev.record(stream)
+        return ev
+
+    def _close(self, sp: _ComputeSpan) -> None:
+        if len(self._spans) >= MAX_SPANS:
+            self._dropped += 1
+            return
+        self._spans.append(sp)
+        if sp.ev1 is not None:
+            self._unread.append(sp)
+            if sp.parent is None and len(self._unread) > HOLD_SPANS:
+                self._harvest()
+
+    def _harvest(self) -> None:
+        """Without waiting: the closed spans whose events the card has
+        passed, in the order they closed, get their offsets from their
+        base's first event, and give back their events (a base keeps its
+        first until it is mapped)."""
+        n = 0
+        for s in self._unread:
+            b = s.base
+            if not (s.ev1.query() and b.ev0.query()):
+                break
+            s.off0 = 0 if b is s else round(b.ev0.elapsed_time(s.ev0) * 1e6)
+            s.off1 = s.off0 + round(s.ev0.elapsed_time(s.ev1) * 1e6)
+            free = self._free.setdefault(s.dev, [])
+            free.append(s.ev1)
+            s.ev1 = None
+            if b is not s:
+                free.append(s.ev0)
+                s.ev0 = None
+            n += 1
+        del self._unread[:n]
+
+    def _to_epoch(self, perf_ns: int) -> int:
+        return self._epoch_time_ns + (perf_ns - self._epoch_ns)
+
+    def _mark(self, dev: int) -> Tuple[Any, int]:
+        """A timing event recorded on ``dev`` once it is idle, and the
+        epoch time it ran at: the middle of the host's clock from before
+        its record to the end of the wait for it, the tightest of
+        ``MARK_TRIES`` (an idle card may take tens of µs to reach a
+        command, and the host may stall after the wait).  The wait spins
+        on the event: a blocking wait gives up the GIL, and taking it
+        back after another thread held it put a mark 0.13 ms late on
+        one H100 machine."""
+        torch = sys.modules["torch"]
+        best = None
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            for _ in range(MARK_TRIES):
+                ev = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter_ns()
+                ev.record()
+                while not ev.query():
+                    pass
+                t1 = time.perf_counter_ns()
+                if best is None or t1 - t0 < best[2] - best[1]:
+                    best = (ev, t0, t1)
+        ev, t0, t1 = best
+        return ev, self._to_epoch((t0 + t1) // 2)
+
+    def _resolve(self) -> None:
+        """Map the closed spans not read yet onto the epoch clock: one
+        synchronize and mark a device (:meth:`_mark`), then each base's
+        first event counted back from the mark.  The card's timer drifts
+        from the host's clock (about 3 ppm on one H100 machine; the
+        profiler's device rows follow the host's), so a span mapped
+        long after it ran sits that much off the profiler's rows: 0.1 ms
+        at 45 s."""
+        todo = [s for s in self._spans if s.dev is not None
+                and (s.off1 is None or s.base.epoch is None)]
+        if not todo:
+            return
+        marks = {d: self._mark(d) for d in {s.dev for s in todo}}
+        self._harvest()          # the card has passed every event now
+        for b in {s.base for s in todo}:
+            if b.epoch is None:
+                ev, at = marks[b.dev]
+                b.epoch = at - round(b.ev0.elapsed_time(ev) * 1e6)
+            if b.off1 is not None:        # closed and read: done with it
+                self._free.setdefault(b.dev, []).append(b.ev0)
+                b.ev0 = None
+
+    def spans(self) -> List[SpanRecord]:
+        """Every closed compute-path span, by host start time.  The first
+        read after device spans closed synchronizes their devices."""
+        self._resolve()
+        out = []
+        for s in list(self._spans):
+            dev0 = dev1 = None
+            if s.dev is not None:
+                dev0, dev1 = s.base.epoch + s.off0, s.base.epoch + s.off1
+            args = dict(s.args or ())
+            if s.recompute is not None:
+                args["recompute"] = s.recompute
+            out.append(SpanRecord(
+                s.name, s.cat, s.id, None if s.parent is None else s.parent.id,
+                s.root.id, s.thread, self._to_epoch(s.t0),
+                self._to_epoch(s.t1), s.dev, dev0, dev1, args))
+        out.sort(key=lambda r: r.host_start_ns)
+        return out
+
+    def _chrome_spans(self) -> List[Dict[str, Any]]:
+        """The compute spans' Chrome events: each on its host thread, and
+        its device interval on a ``cuda:<i>`` track; ``ts`` counts from
+        ``baseTimeNanoseconds`` (:meth:`chrome`), as in
+        ``torch.profiler``'s export."""
+        events: List[Dict[str, Any]] = []
+        base = self._epoch_time_ns
+        devices = set()
+        for r in self.spans() if self._spans else ():
+            events.append({
+                "name": r.name, "cat": r.cat, "ph": "X", "pid": self._pid,
+                "tid": r.thread, "ts": (r.host_start_ns - base) / 1000.0,
+                "dur": (r.host_end_ns - r.host_start_ns) / 1000.0,
+                "args": dict(r.args, id=r.id, parent=r.parent)})
+            if r.device is not None:
+                devices.add(r.device)
+                events.append({
+                    "name": r.key, "cat": "cuda", "ph": "X",
+                    "pid": self._pid, "tid": -1 - r.device,
+                    "ts": (r.device_start_ns - base) / 1000.0,
+                    "dur": r.device_ns / 1000.0, "args": {"id": r.id}})
+        for d in sorted(devices):
+            events.append({"name": "thread_name", "ph": "M",
+                           "pid": self._pid, "tid": -1 - d,
+                           "args": {"name": f"cuda:{d}"}})
+        return events
+
     # -- sinks -------------------------------------------------------------
 
     def chrome(self) -> Dict[str, Any]:
@@ -270,9 +599,12 @@ class TraceCollector:
             if args:
                 ev["args"] = args
             events.append(ev)
+        events.extend(self._chrome_spans())
         doc = {"traceEvents": events, "displayTimeUnit": "ms",
                "otherData": {"tool": "repro-scda",
                              "dropped_events": self._dropped}}
+        # ``ts`` is µs after this time on the Unix-epoch clock
+        doc["baseTimeNanoseconds"] = self._epoch_time_ns
         return doc
 
     def export(self, path: Optional[str] = None) -> str:
@@ -420,6 +752,86 @@ def event(name: str, cat: str = "ckpt", **args: Any) -> None:
     c = collector()
     if c is not None:
         c.event(name, cat, **args)
+
+
+# --------------------------------------------------------------------------
+# Compute-path spans
+# --------------------------------------------------------------------------
+
+#: ``torch._C._autograd._profiler_enabled`` and the profiler's light
+#: range (``RecordFunctionFast``: about 1 µs a range under the profiler,
+#: against 16 µs for ``record_function``'s ops, and no device-side copy of
+#: the range among the profile's device rows), bound at the first call
+#: once torch is imported (this module imports no torch: the scda I/O
+#: stack runs without it).
+_profiler_enabled = _RecordFunctionFast = None
+_install_lock = threading.Lock()
+
+
+def _no_profiler() -> bool:
+    return False
+
+
+def _bind_profiler_flag():
+    global _profiler_enabled, _RecordFunctionFast
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return _no_profiler      # no profiler can record without torch
+    _RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+    _profiler_enabled = torch._C._autograd._profiler_enabled
+    return _profiler_enabled
+
+
+class _NullCompute(_NullSpan):
+    """An off compute span: false, so ``if span: span.add(...)`` builds no
+    arguments while nothing records."""
+    __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
+
+
+_NULL_COMPUTE = _NullCompute()
+
+
+def live() -> Optional["TraceCollector"]:
+    """The collector compute-path spans record into, or None: the
+    installed collector, or while a ``torch.profiler`` window records,
+    the profiler's (installed by the first such span if none is).
+
+    Reads no environment: the step builders install a
+    ``REPRO_SCDA_TRACE`` collector once, through :func:`collector`."""
+    c = _collector
+    if c is not None and not c.profiler_only:
+        return c
+    if not (_profiler_enabled or _bind_profiler_flag())():
+        return None
+    return c if c is not None else _install_for_profiler()
+
+
+def _install_for_profiler() -> "TraceCollector":
+    global _collector
+    with _install_lock:
+        if _collector is None:
+            c = TraceCollector()
+            c.profiler_only = True
+            _collector = c
+        return _collector
+
+
+def compute(name: str, cat: str, *, backward: bool = False):
+    """A compute-path span, ``<cat>.<name>``:
+    ``with trace.compute("layer", "model") as s: if s: s.add(i=i)``.
+    Off it is a shared null span (false).  Live it records its host
+    interval, parent and root, CUDA events, a profiler range ``<cat>.<name>``
+    under the profiler, and ``recompute``: whether autograd ran it, i.e.
+    remat's recompute of forward code.  ``backward`` marks a span of
+    backward work (no ``recompute``); while one is live, a span that
+    opens on autograd's own thread with nothing open there takes it as
+    its parent."""
+    c = live()
+    return _NULL_COMPUTE if c is None else _ComputeSpan(c, name, cat,
+                                                        backward)
 
 
 # --------------------------------------------------------------------------

@@ -28,6 +28,12 @@ Attention takes q sharded on heads (or not) and gives each rank the kv
 heads of its own q heads; the fused scan takes x, dt and A sharded on
 channels (d_inner), which the recurrence never mixes, with B and C made
 whole first (they are the sums of every channel's projection).
+
+The fused scan's forward and its backward kernel are the compute path's
+spans ``kernel.k2_fwd`` and ``kernel.k2_bwd``
+(:func:`repro_torch.core.trace.compute`), with the scan's ``elements``
+(B·S·d·N) and, forward, whether it writes the ``states`` its backward
+reads.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import trace as _trace
 from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, QOffset,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_cuda,
@@ -283,8 +290,12 @@ class Mamba1ScanFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, dt, Bs, Cs, A, states = ctx.saved_tensors
-        return _on(x, ssm_scan_bwd_cuda, ssm_scan_bwd_meta)(
-            x, dt, Bs, Cs, A, dy.float().contiguous(), states)
+        dy = dy.float().contiguous()
+        with _trace.compute("k2_bwd", "kernel", backward=True) as span:
+            if span:
+                span.add(elements=x.numel() * A.shape[1])
+            return _on(x, ssm_scan_bwd_cuda, ssm_scan_bwd_meta)(
+                x, dt, Bs, Cs, A, dy, states)
 
 
 def mamba1_scan(x, dt, Bs, Cs, A, *, chunk: int = 256):
@@ -299,11 +310,16 @@ def mamba1_scan(x, dt, Bs, Cs, A, *, chunk: int = 256):
             lambda x_, dt_, A_, b_, c_: mamba1_scan(x_, dt_, b_, c_, A_,
                                                     chunk=chunk),
             (x, dt, A), (Bs, Cs), (2, 2, 0))
-    if x.device.type in KERNEL_DEVICES:
-        if needs_grad(x, dt, Bs, Cs, A):
-            return Mamba1ScanFunction.apply(x, dt, Bs, Cs, A)
-        return _on(x, ssm_scan_fused_cuda, ssm_scan_fused_meta)(
-            x, dt, Bs, Cs, A)
-    if x.device.type != "cpu":
-        raise ValueError(f"mamba1 scan: no kernel for device {x.device}")
-    return mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=chunk)
+    grad = needs_grad(x, dt, Bs, Cs, A)
+    with _trace.compute("k2_fwd", "kernel") as span:
+        if span:
+            span.add(elements=x.numel() * A.shape[1], states=grad)
+        if x.device.type in KERNEL_DEVICES:
+            if grad:
+                return Mamba1ScanFunction.apply(x, dt, Bs, Cs, A)
+            return _on(x, ssm_scan_fused_cuda, ssm_scan_fused_meta)(
+                x, dt, Bs, Cs, A)
+        if x.device.type != "cpu":
+            raise ValueError(f"mamba1 scan: no kernel for device "
+                             f"{x.device}")
+        return mamba1_scan_plain(x, dt, Bs, Cs, A, chunk=chunk)

@@ -48,6 +48,16 @@ batch and the caches are DTensors (``sharding.params_shardings``,
 points, and the loss head runs on each rank's vocabulary shard
 (:func:`_sharded_chunk_loss`).  The functions compute what they compute
 on one device, exactly: a mesh never changes the model's function.
+
+The compute path's trace (:func:`repro_torch.core.trace.compute`) has a
+span at each of the model's parts: ``model.embed``, ``model.layer`` (its
+index ``i``), ``model.cast`` (a layer's weights cast under remat),
+``model.norm``, and ``model.loss_head`` over each ``model.loss_chunk``;
+each says whether it ran as remat's ``recompute``.  The decode path
+(:func:`serve_step`) has none.
+While spans are live, identity marks at each checkpointed unit's input
+and output make its backward pass, recompute included, the span
+``model.layer.bwd`` or ``model.loss_head.bwd``.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace as _trace
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
@@ -191,6 +202,63 @@ def _unstack(tree, n: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+def _norm(x, w, eps):
+    with _trace.compute("norm", "model"):
+        return L.rms_norm(x, w, eps)
+
+
+class _OpenBackwardSpan(torch.autograd.Function):
+    """The identity at a checkpointed unit's output: its backward, the
+    unit's first, opens the span ``model.<name>`` in ``cell``."""
+
+    @staticmethod
+    def forward(ctx, x, cell, name, args):
+        ctx.cell, ctx.name, ctx.args = cell, name, args
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = _trace.live()
+        if c is not None:
+            span = c.compute(ctx.name, "model", backward=True)
+            span.add(**ctx.args)
+            ctx.cell.append(span.start())
+        return g, None, None, None
+
+
+class _CloseBackwardSpan(torch.autograd.Function):
+    """The identity at a checkpointed unit's input: its backward, after
+    the unit's, closes the span its output's mark opened."""
+
+    @staticmethod
+    def forward(ctx, x, cell):
+        ctx.cell = cell
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.cell:
+            ctx.cell.pop().stop()
+        return g, None
+
+
+def _same(x):
+    return x
+
+
+def _backward_span(x, name: str, **args):
+    """``(x, mark)``: while spans are live and ``x`` carries a gradient,
+    ``x`` through an identity whose backward closes the span ``model.<name>``
+    and ``mark``, the identity for the unit's output whose backward opens
+    it; otherwise ``x`` and the identity function (no autograd node)."""
+    if _trace.live() is None or not (torch.is_grad_enabled()
+                                     and x.requires_grad):
+        return x, _same
+    cell: List[Any] = []
+    x = _CloseBackwardSpan.apply(x, cell)
+    return x, lambda out: _OpenBackwardSpan.apply(out, cell, name, args)
+
+
 # --------------------------------------------------------------------------
 # Forward (prefill): hidden states
 # --------------------------------------------------------------------------
@@ -223,27 +291,37 @@ def _ffn(cfg: ModelConfig, lp: Params, h):
 @sh.under_mesh
 def _layer(cfg: ModelConfig, lp: Params, x, window: Optional[int],
            kv_chunk: int, dtype: Optional[torch.dtype] = None,
-           causal: bool = True, enc_out: Optional[torch.Tensor] = None):
+           causal: bool = True, enc_out: Optional[torch.Tensor] = None,
+           i: int = 0):
     """One layer's residual update of ``x``: (x, the layer's MoE aux loss,
     or None outside the moe family).  With ``dtype`` the layer's weights
     are cast to it first (the training path's per-layer cast).  An
     encoder layer attends with ``causal=False``; a decoder layer of the
-    encdec family attends to ``enc_out`` after its self-attention."""
-    if dtype is not None:
-        lp = cast_params(lp, dtype)
+    encdec family attends to ``enc_out`` after its self-attention.  ``i``
+    is the layer's index in its span."""
+    with _trace.compute("layer", "model") as span:
+        if span:
+            span.add(i=i)
+        if dtype is not None:
+            with _trace.compute("cast", "model"):
+                lp = cast_params(lp, dtype)
+        return _layer_body(cfg, lp, x, window, kv_chunk, causal, enc_out)
+
+
+def _layer_body(cfg, lp, x, window, kv_chunk, causal, enc_out):
     lp = sh.gather_data_axes(lp)
     eps = cfg.norm_eps
     x = sh.constrain(x, "batch", None, None)
     if cfg.family in ("ssm", "hybrid"):
-        return x + SSM.ssm_block(lp["ssm"], L.rms_norm(x, lp["ln1"], eps),
+        return x + SSM.ssm_block(lp["ssm"], _norm(x, lp["ln1"], eps),
                                  cfg), None
-    h = L.rms_norm(x, lp["ln1"], eps)
+    h = _norm(x, lp["ln1"], eps)
     x = x + L.attention_block(lp["attn"], h, causal=causal, window=window,
                               kv_chunk=kv_chunk, **_attn_kwargs(cfg))
     if enc_out is not None:
         x = x + _cross_attention(cfg, lp["cross"],
-                                 L.rms_norm(x, lp["ln_x"], eps), enc_out)
-    h, aux = _ffn(cfg, lp, L.rms_norm(x, lp["ln2"], eps))
+                                 _norm(x, lp["ln_x"], eps), enc_out)
+    h, aux = _ffn(cfg, lp, _norm(x, lp["ln2"], eps))
     return x + h, aux
 
 
@@ -262,12 +340,14 @@ def _cross_attention(cfg: ModelConfig, p: Params, x, enc_out):
 
 
 def _hybrid_group(cfg: ModelConfig, group: List[Params], sa: Params, x,
-                  kv_chunk: int, dtype: Optional[torch.dtype] = None):
-    """One hybrid group's residual updates of ``x``: its SSM layers, then
-    the shared attention block ``sa`` (already in the compute dtype)."""
-    for lp in group:
-        x, _ = _layer(cfg, lp, x, None, kv_chunk, dtype)
-    h = L.rms_norm(x, sa["ln"], cfg.norm_eps)
+                  kv_chunk: int, dtype: Optional[torch.dtype] = None,
+                  first: int = 0):
+    """One hybrid group's residual updates of ``x``: its SSM layers (the
+    model's ``first``, ``first + 1``, …), then the shared attention block
+    ``sa`` (already in the compute dtype)."""
+    for i, lp in enumerate(group, first):
+        x, _ = _layer(cfg, lp, x, None, kv_chunk, dtype, i=i)
+    h = _norm(x, sa["ln"], cfg.norm_eps)
     return x + L.attention_block(sa["attn"], h, kv_chunk=kv_chunk,
                                  **_attn_kwargs(cfg))
 
@@ -286,13 +366,16 @@ def encode(cfg: ModelConfig, params: Params, enc_embeds,
     if not remat:
         _check_dtype(params, dtype)
     e = sh.constrain(enc_embeds.to(dtype), "batch", None, None)
-    for lp in _unstack(params["enc_layers"], cfg.encoder_layers):
+    for i, lp in enumerate(_unstack(params["enc_layers"],
+                                    cfg.encoder_layers)):
         if remat:
+            e, mark = _backward_span(e, "layer.bwd", i=i)
             e, _ = checkpoint(_layer, cfg, lp, e, None, kv_chunk, dtype,
-                              False, use_reentrant=False)
+                              False, use_reentrant=False, i=i)
+            e = mark(e)
         else:
-            e, _ = _layer(cfg, lp, e, None, kv_chunk, causal=False)
-    return L.rms_norm(e, params["enc_norm"].to(dtype), cfg.norm_eps)
+            e, _ = _layer(cfg, lp, e, None, kv_chunk, causal=False, i=i)
+    return _norm(e, params["enc_norm"].to(dtype), cfg.norm_eps)
 
 
 @sh.under_mesh
@@ -324,8 +407,9 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
     dtype = compute_dtype(cfg)
     if not remat:
         _check_dtype(params, dtype)
-    x = sh.constrain(_embed(params["embed"], tokens).to(dtype), "batch",
-                     None, None)
+    with _trace.compute("embed", "model"):
+        x = sh.constrain(_embed(params["embed"], tokens).to(dtype), "batch",
+                         None, None)
     if cfg.family == "vlm":
         if patch_embeds is None:
             raise ValueError(f"{cfg.name}: the vlm family needs patch "
@@ -342,22 +426,28 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens,
         for g in range(_groups(cfg)):
             group = layers[g * E:(g + 1) * E]
             if remat:
-                x = checkpoint(_hybrid_group, cfg, group, sa, x, kv_chunk,
-                               dtype, use_reentrant=False)
+                x, mark = _backward_span(x, "layer.bwd", group=g)
+                x = mark(checkpoint(_hybrid_group, cfg, group, sa, x,
+                                    kv_chunk, dtype, g * E,
+                                    use_reentrant=False))
             else:
-                x = _hybrid_group(cfg, group, sa, x, kv_chunk)
+                x = _hybrid_group(cfg, group, sa, x, kv_chunk, first=g * E)
     else:
         windows = _windows_per_layer(cfg, x.shape[1])
         for i, lp in enumerate(layers):
             window = None if windows is None else windows[i]
             if remat:
+                x, mark = _backward_span(x, "layer.bwd", i=i)
                 x, a = checkpoint(_layer, cfg, lp, x, window, kv_chunk,
-                                  dtype, True, enc_out, use_reentrant=False)
+                                  dtype, True, enc_out, use_reentrant=False,
+                                  i=i)
+                x = mark(x)
             else:
-                x, a = _layer(cfg, lp, x, window, kv_chunk, enc_out=enc_out)
+                x, a = _layer(cfg, lp, x, window, kv_chunk, enc_out=enc_out,
+                              i=i)
             if a is not None:
                 aux = aux + a
-    x = L.rms_norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
+    x = _norm(x, params["final_norm"].to(dtype), cfg.norm_eps)
     return x, aux
 
 
@@ -422,6 +512,15 @@ def _embed(table, tokens):
                      in_placements=(tab_pl, tok_pl),
                      in_grad_placements=(tab_grad, tok_pl), device_mesh=mesh)(
         table, tokens.redistribute(mesh, tok_pl))
+
+
+def _loss_chunk(loss_fn, i: int, h, w, y):
+    """``loss_fn(h, w, y)`` of loss chunk ``i``, in its span (the body
+    that ``torch.utils.checkpoint`` runs again in the backward pass)."""
+    with _trace.compute("loss_chunk", "model") as span:
+        if span:
+            span.add(chunk=i)
+        return loss_fn(h, w, y)
 
 
 def _chunk_loss(h, w, y):
@@ -557,23 +656,27 @@ def _lm_loss(cfg, params, tokens, labels, loss_chunk, aux_weight, remat,
     chunk = S // n
     if n * chunk != S:
         raise ValueError(f"seq {S} not divisible into {n} loss chunks")
-    w = (params["embed"].T if cfg.tie_embeddings
-         else params["lm_head"]).to(hidden.dtype)
-    labels = labels.long()
-    mesh = sh.get_policy().mesh
-    if mesh is not None:
-        if not is_dtensor(labels):
-            labels = sh.distribute(labels, mesh, sh.P())
-        # the head's layout once a call, not once a chunk and again in
-        # each chunk's recompute: its vocabulary on the model axis
-        w = w.redistribute(mesh, sh.placements(mesh, sh.constrain_spec(
-            mesh, tuple(w.shape), None, "model")))
-    loss_fn = _chunk_loss if mesh is None else _sharded_chunk_loss
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(n):
-        part = slice(i * chunk, (i + 1) * chunk)
-        total = total + checkpoint(loss_fn, hidden[:, part], w,
-                                   labels[:, part], use_reentrant=False)
+    with _trace.compute("loss_head", "model"):
+        hidden, mark = _backward_span(hidden, "loss_head.bwd")
+        w = (params["embed"].T if cfg.tie_embeddings
+             else params["lm_head"]).to(hidden.dtype)
+        labels = labels.long()
+        mesh = sh.get_policy().mesh
+        if mesh is not None:
+            if not is_dtensor(labels):
+                labels = sh.distribute(labels, mesh, sh.P())
+            # the head's layout once a call, not once a chunk and again in
+            # each chunk's recompute: its vocabulary on the model axis
+            w = w.redistribute(mesh, sh.placements(mesh, sh.constrain_spec(
+                mesh, tuple(w.shape), None, "model")))
+        loss_fn = _chunk_loss if mesh is None else _sharded_chunk_loss
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(n):
+            part = slice(i * chunk, (i + 1) * chunk)
+            total = total + checkpoint(_loss_chunk, loss_fn, i,
+                                       hidden[:, part], w, labels[:, part],
+                                       use_reentrant=False)
+        total = mark(total)
     return total / (B * S) + aux_weight * aux
 
 

@@ -23,6 +23,14 @@ kernel.  Under a mesh the reference's sharding constraints stand at its
 points: x and z sharded on d_inner over the model axis (the scan runs on
 each rank's channels), Mamba2's heads likewise; on one device they are
 the identity and are left out.
+
+Mamba1's prefill and training block opens a span of the compute path's
+trace (:func:`repro_torch.core.trace.compute`) at each step:
+``ssm.in_proj``, ``ssm.conv`` (the causal conv and its SiLU),
+``ssm.x_proj``, ``ssm.dt`` (dt_proj, its bias and the softplus),
+``ssm.gate`` (the skip term D·x and the SiLU gate by z) and
+``ssm.out_proj``; the fused scan between them is ``kernel.k2_fwd``
+(:mod:`repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace as _trace
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import decay_inc
@@ -97,17 +106,21 @@ def init_mamba1(gen: torch.Generator, d_model: int, d_state: int,
 
 def _m1_gates(p, u, dt_rank, d_state):
     """Shared projections: returns x (conv'd), z, dt, B, C."""
-    x = sh.constrain(u @ p["in_x"], "batch", None, "model")
-    z = sh.constrain(u @ p["in_z"], "batch", None, "model")
-    x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
+    with _trace.compute("in_proj", "ssm"):
+        x = sh.constrain(u @ p["in_x"], "batch", None, "model")
+        z = sh.constrain(u @ p["in_z"], "batch", None, "model")
+    with _trace.compute("conv", "ssm"):
+        x = F.silu(causal_conv1d(x, p["conv_w"], p["conv_b"]))
     # dt, B and C are sums over every channel; dt goes back to the
     # channels' shards
-    dbc = sh.constrain(x @ p["x_proj"], "batch", None, None)
+    with _trace.compute("x_proj", "ssm"):
+        dbc = sh.constrain(x @ p["x_proj"], "batch", None, None)
     dt = dbc[..., :dt_rank]
     Bs = dbc[..., dt_rank:dt_rank + d_state]
     Cs = dbc[..., dt_rank + d_state:]
-    dt = sh.constrain(_softplus(dt @ p["dt_proj"] + p["dt_bias"]), "batch",
-                      None, "model")
+    with _trace.compute("dt", "ssm"):
+        dt = sh.constrain(_softplus(dt @ p["dt_proj"] + p["dt_bias"]),
+                          "batch", None, "model")
     return x, z, dt, Bs, Cs
 
 
@@ -129,9 +142,11 @@ def mamba1_block(p: Params, u, *, d_state: int, chunk: int = 256,
         # Cs is a strided slice of dbc; the kernel reads contiguous rows
         y = ops.ssm_scan(decay, inc, Cs.float().contiguous(), chunk=chunk)
         del decay, inc   # the two largest tensors of the layer
-    y = y.to(u.dtype) + p["D"] * x
-    y = y * F.silu(z)
-    return y @ p["out_proj"]
+    with _trace.compute("gate", "ssm"):
+        y = y.to(u.dtype) + p["D"] * x
+        y = y * F.silu(z)
+    with _trace.compute("out_proj", "ssm"):
+        return y @ p["out_proj"]
 
 
 def mamba1_decode(p: Params, u, state, *, d_state: int):

@@ -1,6 +1,10 @@
 """The PyTorch port's package boundary: it imports with JAX absent, loads no
 module of the JAX package, keeps its verbatim copies identical to the
-reference modules, and runs on the GPU unless the CPU is asked for."""
+reference modules (``core/trace.py`` the reference's module with the
+compute path's spans added: every line of it kept, in order, and each of
+its functions and classes unchanged but those it names), and runs on the
+GPU unless the CPU is asked for."""
+import ast
 import os
 import re
 import subprocess
@@ -29,6 +33,13 @@ VERBATIM = [f"core/{m}.py" for m in (
     "configs/zamba2_2p7b.py", "checkpoint/layout.py", "checkpoint/planner.py",
     "journal/__init__.py", "journal/journal.py", "tools/__init__.py",
     "tools/cli.py", "tools/fsck.py"]
+
+#: Copies that add to the reference's module: every line of it kept, in
+#: order, and every function, class and top-level assignment of it
+#: unchanged but those named here, which gain whole statements (the
+#: collector's compute-span state and the spans in its Chrome export).
+EXTENDED = {"core/trace.py": {"TraceCollector", "TraceCollector.__init__",
+                              "TraceCollector.chrome"}}
 
 _IMPORT = re.compile(r"^(\s*)(from|import)(\s+)repro(?=[.\s])", re.M)
 _FORBIDDEN = re.compile(
@@ -68,7 +79,49 @@ def test_copied_module_matches_reference(rel):
     ref = (SRC / "repro" / rel).read_text()
     want = _IMPORT.sub(lambda m: f"{m.group(1)}{m.group(2)}{m.group(3)}"
                                  f"repro_torch", ref)
-    assert (PORT / rel).read_text() == want
+    got = (PORT / rel).read_text()
+    if rel not in EXTENDED:
+        assert got == want
+        return
+    lines = iter(got.splitlines())
+    missing = [line for line in want.splitlines()
+               if not any(line == g for g in lines)]
+    assert not missing, missing[:5]
+    ref_defs, port_defs = _bindings(want), _bindings(got)
+    changed = [name for name, src in ref_defs.items()
+               if name not in EXTENDED[rel] and port_defs.get(name) != src]
+    assert not changed, changed
+
+
+def _bindings(text):
+    """Each name a module's top-level statements bind (its classes'
+    methods as ``Class.method``) -> the sources of those statements,
+    decorators included."""
+    lines = text.splitlines()
+    out = {}
+
+    def add(name, node):
+        first = min([node.lineno] + [d.lineno for d in getattr(
+            node, "decorator_list", ())])
+        out.setdefault(name, []).append(
+            "\n".join(lines[first - 1:node.end_lineno]))
+
+    def walk(body, prefix):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                add(prefix + node.name, node)
+                if isinstance(node, ast.ClassDef):
+                    walk(node.body, f"{prefix}{node.name}.")
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = getattr(node, "targets", None) or [node.target]
+                for t in targets:
+                    for n in ast.walk(t):
+                        if isinstance(n, ast.Name):
+                            add(prefix + n.id, node)
+
+    walk(ast.parse(text).body, "")
+    return out
 
 
 def test_comm_copy_drops_only_the_jax_communicator():
